@@ -1,0 +1,104 @@
+"""Times of the piecewise-linear kernels of several checkouts on one NVIDIA
+GPU, in turns inside one call, so that two versions are compared on the
+same card and host.
+
+    python3 chip_kernel_times.py LABEL=DIR ...
+
+Each argument names a checkout of this repository (DIR, "." for the current
+one). The checkouts run in the order given and then in reverse (A, B, B, A),
+each turn in a process of its own, because every checkout's package has the
+same name. A turn builds the kernels if its checkout has not, and prints one
+JSON line per case: relu and hard tanh, float32 and float64, n = 2048 and
+n = 2**20 + 300, for ``pl_posterior`` and, where the checkout has them,
+``pl_forward_message`` and ``pl_backward_message``: the device time per call
+from torch.profiler over 20 warm calls, the kernels launched per call, and
+the host time per call (300 unsynchronised calls on the host's clock), all
+taken with chip_smoke.py's own ``profiled``, ``host_ms`` and ``inputs``. The
+last lines give, per checkout and case, the two turns' device times side by
+side, with the card's name and power limit.
+
+It needs one GPU and imports nothing of JAX.
+"""
+import json
+import os
+import subprocess
+import sys
+import time
+
+# this script's own chip_smoke.py, before a turn puts its checkout first
+from chip_smoke import SIZES, dtype_name, host_ms, inputs, profiled
+
+
+def turn(label):
+    "One variant's measurements; runs with the checkout as its directory."
+    import torch
+    sys.path.insert(0, os.getcwd())
+    from tramp_tpu_torch.channels import HardTanhChannel, ReluChannel
+    from tramp_tpu_torch.ops import pl_fused as pl
+    if not torch.cuda.is_available():
+        sys.exit("no CUDA device")
+    t0 = time.perf_counter()
+    pl.build()
+    print(json.dumps({"label": label, "build_s": time.perf_counter() - t0}),
+          flush=True)
+    wrappers = [name for name in ("pl_posterior", "pl_forward_message",
+                                  "pl_backward_message") if hasattr(pl, name)]
+    for channel in (ReluChannel(), HardTanhChannel()):
+        for dtype in (torch.float32, torch.float64):
+            for n in SIZES:
+                args = inputs(torch, n, dtype, 3)
+                for name in wrappers:
+                    fn = getattr(pl, name)
+
+                    def call():
+                        return fn(*args, channel.region_specs)
+                    kernels, device_ms, _ = profiled(call, 20)
+                    if device_ms == 0:
+                        sys.exit("torch.profiler shows no device time")
+                    print(json.dumps({
+                        "label": label, "kernel": name,
+                        "channel": channel.name, "dtype": dtype_name(dtype),
+                        "n": n, "kernels": kernels,
+                        "device_us": 1e3 * device_ms,
+                        "host_us": 1e3 * host_ms(call)}), flush=True)
+
+
+def main(argv):
+    if len(argv) == 2 and argv[0] == "--turn":
+        return turn(argv[1])
+    variants = []
+    for arg in argv:
+        label, _, rest = arg.partition("=")
+        variants.append((label, os.path.abspath(rest)))
+    if not variants:
+        sys.exit(__doc__)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "?"
+    rows = {}
+    for label, directory in variants + variants[::-1]:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--turn", label],
+            cwd=directory, capture_output=True, text=True)
+        if proc.returncode != 0:
+            sys.exit(f"{label}: exit {proc.returncode}\n{proc.stderr}")
+        for line in proc.stdout.splitlines():
+            print(line)
+            row = json.loads(line)
+            if "kernel" in row:
+                key = (row["kernel"], row["channel"], row["dtype"], row["n"])
+                rows.setdefault(key, {}).setdefault(label, []).append(row)
+    for key, by_label in rows.items():
+        cells = []
+        for label, turns in by_label.items():
+            device = "/".join(f"{t['device_us']:.2f}" for t in turns)
+            host = "/".join(f"{t['host_us']:.1f}" for t in turns)
+            cells.append(f"{label}: device {device} us, host {host} us, "
+                         f"{turns[0]['kernels']:.0f} launches")
+        print(f"{key[0]:20s} {key[1]:7s} {key[2]} n={key[3]:8d} | "
+              + " | ".join(cells) + f" [{card}]")
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -1,8 +1,10 @@
 """Guards of the port's boundaries: tramp_tpu_torch imports neither JAX nor
-the JAX package; the piecewise-linear wrapper takes its plain version for
-CPU tensors and a shape rule for meta tensors; its module imports without
-nvcc or a GPU (the kernel is built at first launch); and, on a card, the
-kernel agrees with its plain version.
+the JAX package; the piecewise-linear wrappers take their plain versions
+for CPU tensors and a shape rule for meta tensors, and convert each
+channel's regions once; their module imports without nvcc or a GPU (the
+kernels are built at first launch); a model built without a device needs a
+card, and one built with ``device="cpu"`` does not; and, on a card, the
+kernels agree with their plain versions.
 
 This file imports no JAX, so the card-only test runs on a machine without
 it: ``python -m pytest --noconftest -p no:cacheprovider -m cuda
@@ -20,7 +22,7 @@ import torch
 
 from tramp_tpu_torch.channels import (
     SgnChannel, AbsChannel, ReluChannel, LeakyReluChannel, HardTanhChannel,
-    SymmetricDoorChannel,
+    HardSigmoidChannel, SymmetricDoorChannel,
 )
 from tramp_tpu_torch.ops import pl_fused
 
@@ -84,13 +86,130 @@ def test_wrapper_shape_rule_on_meta():
                and o.dtype == torch.float32 for o in outs)
 
 
+MESSAGES = [
+    (pl_fused.pl_forward_message, pl_fused.pl_forward_message_plain),
+    (pl_fused.pl_backward_message, pl_fused.pl_backward_message_plain),
+]
+
+
+@pytest.mark.parametrize("fused,plain", MESSAGES,
+                         ids=["forward", "backward"])
+def test_message_wrapper_uses_plain_version_on_cpu(fused, plain):
+    az, bz, ax, bx = _inputs(257, torch.float64)
+    before = fused.launches
+    for channel in CHANNELS:
+        got = fused(az, bz, ax, bx, channel.region_specs)
+        want = plain(az, bz, ax, bx, channel.region_specs)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert fused.launches == before
+
+
+@pytest.mark.parametrize("per_element", [False, True],
+                         ids=["scalar", "per_element"])
+@pytest.mark.parametrize("fused,plain", MESSAGES,
+                         ids=["forward", "backward"])
+def test_message_wrapper_shape_rule_on_meta(fused, plain, per_element):
+    "Shapes and dtypes on meta tensors are those of the plain version."
+    az, bz, ax, bx = _inputs(300, torch.float32)
+    if per_element:
+        az, ax = az.expand(300).contiguous(), ax.expand(300).contiguous()
+    specs = ReluChannel().region_specs
+    want = plain(az, bz, ax, bx, specs)
+    got = fused(*(t.to("meta") for t in (az, bz, ax, bx)), specs)
+    assert len(got) == 2
+    for g, w in zip(got, want):
+        assert g.device.type == "meta"
+        assert g.shape == w.shape and g.dtype == w.dtype
+
+
+def test_region_specs_are_converted_once_per_channel_and_dtype():
+    tanh, sigm = HardTanhChannel(), HardSigmoidChannel()
+    f32, f64 = torch.float32, torch.float64
+    a = pl_fused._spec_array(tanh.region_specs, f32)
+    assert pl_fused._spec_array(HardTanhChannel().region_specs, f32) is a
+    b = pl_fused._spec_array(sigm.region_specs, f32)
+    c = pl_fused._spec_array(tanh.region_specs, f64)
+    assert a is not b and a is not c and a._type_ is not c._type_
+    # per region: zmin, zmax, x0, slope, slope^2, x0^2, kind
+    assert len(a) == len(b) == 3 * 7
+    assert list(a)[:7] == [1.0, np.inf, 1.0, 0.0, 0.0, 1.0, 1.0]
+    assert list(b)[7:14] == [-2.5, 2.5, 0.5, np.float32(0.2),
+                             np.float32(0.2 * 0.2), 0.25, 3.0]
+    assert list(a)[20] == list(b)[20] == 2.0
+
+
+def test_ptxas_report_reads_registers_and_spills():
+    log = (
+        "ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__4f1a"
+        "19pl_posterior_kernelIfLi2EEEvPKT_lS3_' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN55_GLOBAL__N__4f1a\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 48 registers, used 0 barriers\n"
+        "ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__9c2b"
+        "17pl_message_kernelIdLi3ELi1EEEvPKT_' for 'sm_90a'\n"
+        "    16 bytes stack frame, 12 bytes spill stores, 12 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 128 registers, used 1 barriers\n")
+    assert pl_fused.ptxas_report(log) == [
+        {"kernel": "pl_posterior_kernel", "dtype": "f", "params": [2],
+         "registers": 48, "spill_bytes": 0},
+        {"kernel": "pl_message_kernel", "dtype": "d", "params": [3, 1],
+         "registers": 128, "spill_bytes": 12}]
+
+
+NO_CARD = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+
+
+def test_default_device_raises_without_a_card():
+    code = (
+        "import numpy as np\n"
+        "from tramp_tpu_torch import config\n"
+        "from tramp_tpu_torch.channels import LinearChannel\n"
+        "for call in (config.default_device,\n"
+        "             lambda: config.as_tensor(np.zeros(3)),\n"
+        "             lambda: LinearChannel(np.eye(3))):\n"
+        "    try:\n"
+        "        call()\n"
+        "    except RuntimeError as e:\n"
+        "        assert \"device='cpu'\" in str(e), e\n"
+        "    else:\n"
+        "        raise SystemExit('no error without a card')\n")
+    proc = _run(code, env=NO_CARD)
+    assert proc.returncode == 0, proc.stderr + proc.stdout
+
+
+def test_explicit_cpu_model_solves_without_a_card():
+    code = (
+        "import numpy as np, torch\n"
+        "import tramp_tpu_torch as tt\n"
+        "from tramp_tpu_torch.channels import (\n"
+        "    GaussianChannel, LinearChannel, ReluChannel)\n"
+        "from tramp_tpu_torch.priors import GaussBernoulliPrior\n"
+        "kw = dict(device='cpu', dtype=torch.float64)\n"
+        "rng = np.random.RandomState(0)\n"
+        "W = rng.randn(16, 32) / np.sqrt(32)\n"
+        "teacher = (GaussBernoulliPrior(size=32, rho=0.25, **kw)\n"
+        "           @ tt.V(id='x') @ LinearChannel(W, **kw) @ tt.V(id='z')\n"
+        "           @ ReluChannel() @ tt.V(id='a')\n"
+        "           @ GaussianChannel(var=1e-2) @ tt.O(id='y')).to_model()\n"
+        "y = teacher.sample(torch.Generator().manual_seed(0))['y']\n"
+        "ep = tt.ExpectationPropagation(teacher.to_observed({'y': y}))\n"
+        "ep.iterate(max_iter=20, damping=0.1)\n"
+        "r = ep.get_variable_data('x')['r']\n"
+        "assert r.device.type == 'cpu' and r.dtype == torch.float64\n"
+        "assert bool(torch.isfinite(r).all()) and ep.n_iter > 1\n")
+    proc = _run(code, env=NO_CARD)
+    assert proc.returncode == 0, proc.stderr + proc.stdout
+
+
 def test_kernel_module_imports_without_nvcc_or_gpu():
     env = dict(os.environ, PATH="/usr/bin:/bin", CUDA_VISIBLE_DEVICES="")
     code = ("import shutil, torch; "
             "from tramp_tpu_torch.ops import pl_fused; "
             "assert shutil.which('nvcc') is None; "
             "assert not torch.cuda.is_available(); "
-            "assert pl_fused._lib is None")
+            "assert not pl_fused._fns")
     proc = _run(code, env=env)
     assert proc.returncode == 0, proc.stderr
 
@@ -117,3 +236,41 @@ def test_kernel_matches_plain_on_card():
                     bound = rtol * (w.abs() + w.abs().max())
                     assert bool(((g - w).abs() <= bound).all()), (
                         channel.name, dtype, n)
+
+
+@pytest.mark.cuda
+def test_message_kernels_match_plain_on_card():
+    """Message kernels vs their plain versions on the card, a_new and b_new:
+    rtol 1e-10 in float64 and 1e-4 in float32, relative to each element with
+    a floor of rtol times the stream's largest magnitude; one launch counted
+    up to 16384 elements and two above; scalar and per-element precisions; and the
+    same bits from two calls on the same inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    for dtype, rtol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
+        for n in (1, 2047, 2048, 16384, 100_003):
+            az, bz, ax, bx = _inputs(n, dtype, device="cuda", seed=n)
+            cases = [(az, ax)]
+            if n == 2047:
+                rng = np.random.RandomState(1)
+                cases.append(tuple(
+                    torch.as_tensor(lo + rng.rand(n), dtype=dtype,
+                                    device="cuda") for lo in (1.2, 0.4)))
+            for az_c, ax_c in cases:
+                for channel in CHANNELS:
+                    for fused, plain in MESSAGES:
+                        before = fused.launches
+                        got = fused(az_c, bz, ax_c, bx, channel.region_specs)
+                        again = fused(az_c, bz, ax_c, bx,
+                                      channel.region_specs)
+                        per_call = 1 if n <= pl_fused.CLUSTER_MAX else 2
+                        assert fused.launches == before + 2 * per_call
+                        want = plain(az_c, bz, ax_c, bx,
+                                     channel.region_specs)
+                        torch.cuda.synchronize()
+                        for g, g2, w in zip(got, again, want):
+                            assert g.shape == w.shape
+                            assert torch.equal(g, g2)
+                            bound = rtol * (w.abs() + w.abs().max())
+                            assert bool(((g - w).abs() <= bound).all()), (
+                                channel.name, fused.__name__, dtype, n)

@@ -2,14 +2,17 @@
 regions, merged by a softmax over per-region log partitions.
 Counterpart of tramp_tpu/channels/piecewise_linear_channel.py (EP part).
 
-Both EP posteriors go through one fused call, ``ops.pl_posterior``: the
-hand-written CUDA kernel on a GPU, its plain twin on the CPU."""
+The EP messages are one fused call each, ``ops.pl_forward_message`` and
+``ops.pl_backward_message`` (posterior of one side, mean of its variance
+and the moment-matching update); the posteriors go through the five-output
+``ops.pl_posterior``. Each is a hand-written CUDA kernel on a GPU and its
+plain twin on the CPU."""
 import math
 
 import torch
 
 from .base_channel import Channel
-from ..ops import pl_posterior
+from ..ops import pl_posterior, pl_forward_message, pl_backward_message
 from ..utils.linear_region import LinearRegion
 
 _INF = math.inf
@@ -41,6 +44,12 @@ class PiecewiseLinearChannel(Channel):
     def compute_backward_posterior(self, az, bz, ax, bx):
         rz, vz, _, _, _ = pl_posterior(az, bz, ax, bx, self.region_specs)
         return rz, torch.mean(vz)
+
+    def compute_forward_message(self, az, bz, ax, bx):
+        return pl_forward_message(az, bz, ax, bx, self.region_specs)
+
+    def compute_backward_message(self, az, bz, ax, bx):
+        return pl_backward_message(az, bz, ax, bx, self.region_specs)
 
 
 class LeakyReluChannel(PiecewiseLinearChannel):

@@ -20,16 +20,22 @@ DEFAULT_DTYPE = torch.float32
 
 
 def default_device():
-    "The first CUDA device when one is present, else the CPU."
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The first CUDA device. The port runs on the card unless the caller
+    names another device, so a machine without one raises here instead of
+    carrying on on the CPU unnoticed."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device='cpu' to run on the CPU")
+    return torch.device("cuda", 0)
 
 
 def as_tensor(x, device=None, dtype=None):
     """``x`` as a floating tensor on ``device`` with ``dtype``.
 
     A tensor keeps its own device and floating dtype where the argument is
-    None; anything else (numpy arrays, Python numbers) goes to the default
-    device and dtype."""
+    None; anything else (numpy arrays, Python numbers) goes to ``device``
+    (None: ``default_device()``, which needs a card) with the default
+    dtype."""
     if isinstance(x, torch.Tensor):
         if dtype is None and not x.is_floating_point():
             dtype = DEFAULT_DTYPE

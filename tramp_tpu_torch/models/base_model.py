@@ -58,10 +58,14 @@ class Model:
         return Model(self.model_dag.to_observed(observations))
 
     def device_dtype(self):
-        "Device and dtype of the factors' arrays (the config defaults if none)."
+        """Device and dtype of the factors' arrays, else those a factor was
+        built with, else the config defaults (which need a card)."""
         for f in self.factors:
             for buf in f.buffers():
                 return buf.device, buf.dtype
+        for f in self.factors:
+            if getattr(f, "device", None) is not None:
+                return torch.device(f.device), f.dtype or DEFAULT_DTYPE
         return default_device(), DEFAULT_DTYPE
 
     def to_meta(self):

@@ -1,40 +1,73 @@
-"""Fused piecewise-linear posterior: the CUDA kernel's wrapper and its
-plain PyTorch twin.
+"""Fused piecewise-linear posterior and messages: the CUDA kernels'
+wrappers and their plain PyTorch twins.
 
 Counterpart of tramp_tpu/ops/pl_fused.py. For every element and every
-linear region ``x = x0 + slope * z`` with ``z in [zmin, zmax]`` it computes
-the tilted truncated-normal moments, the per-region log-partitions and the
-softmax merge over regions for both the backward (z) and forward (x)
-posteriors, plus the total log-partition. ``pl_posterior`` launches the
-hand-written Hopper kernel tramp_tpu_torch/csrc/pl_posterior.cu on CUDA
-tensors; ``pl_posterior_plain`` is the same math as plain tensor code, used
-for CPU tensors and as the kernel's oracle.
+linear region ``x = x0 + slope * z`` with ``z in [zmin, zmax]`` the
+posterior computes the tilted truncated-normal moments, the per-region
+log-partitions and the softmax merge over regions for both the backward (z)
+and forward (x) posteriors, plus the total log-partition.
 
-The kernel is compiled with nvcc at its first launch into
-``build/tramp_tpu_torch/`` beside the package (one shared library with a
-plain C interface per source content, loaded with ctypes), so importing this
-module needs neither nvcc nor a GPU.
+- ``pl_posterior`` returns the five streams (rz, vz, rx, vx, logZ), as the
+  TPU kernel does (tramp_tpu_torch/csrc/pl_posterior.cu).
+- ``pl_forward_message`` / ``pl_backward_message`` return the EP message
+  (a_new, b_new) of one direction: the posterior of that side, the
+  isotropic mean of its variance and the moment-matching update
+  ``base.compute_ab_new`` in one kernel (tramp_tpu_torch/csrc/pl_message.cu).
+
+On CUDA tensors a wrapper launches its hand-written Hopper kernel or raises;
+on CPU tensors it runs its plain twin (``*_plain``), which is also the
+kernel's oracle; on meta tensors it returns empty outputs of the right
+shapes (the engine's shape sweep). Each wrapper counts the kernels it
+launches in a plain integer, ``<wrapper>.launches``.
+
+The kernels are compiled with nvcc at their first launch into
+``build/tramp_tpu_torch/`` beside the package: one shared library with a
+plain C interface per source and floating type, all compiled at once, named
+by the content of the sources and loaded with ctypes. Importing this module
+needs neither nvcc nor a GPU.
 """
 import ctypes
 import hashlib
+import math
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
 
 import torch
 
+from .. import config
+from ..base import compute_ab_new
 from ..utils.truncated_normal import (
     truncated_normal_mean, truncated_normal_var, truncated_normal_logZ,
 )
 
 _PACKAGE = Path(__file__).resolve().parents[1]
-SOURCE = _PACKAGE / "csrc" / "pl_posterior.cu"
+CSRC = _PACKAGE / "csrc"
+HEADER = CSRC / "pl_common.cuh"
+SOURCES = {"pl_posterior": CSRC / "pl_posterior.cu",
+           "pl_message": CSRC / "pl_message.cu"}
 BUILD_DIR = _PACKAGE.parent / "build" / "tramp_tpu_torch"
 MAX_REGIONS = 8
+#: most elements the message kernel takes in one launch (kClusterMax in
+#: csrc/pl_message.cu); above it the message is two launches with a scratch
+#: array of MAX_PARTIALS doubles, one per block of the first launch (the
+#: card holds fewer blocks than that at once)
+CLUSTER_MAX = 16384
+MAX_PARTIALS = 2048
 
-_lib = None
+_C_TYPES = {torch.float32: ("f32", ctypes.c_float),
+            torch.float64: ("f64", ctypes.c_double)}
+_FORWARD, _BACKWARD = 0, 1
 
+# filled by build(): C functions by (name, dtype), and the launch-floor probe
+_fns = {}
+# region specs in the kernels' layout, by (specs, dtype)
+_spec_arrays = {}
+
+
+# -- plain versions ---------------------------------------------------------
 
 def pl_posterior_plain(az, bz, ax, bx, specs):
     """Elementwise fused PL posterior as plain tensor code (any device).
@@ -77,42 +110,139 @@ def pl_posterior_plain(az, bz, ax, bx, specs):
     return rz, vz, rx, vx, logZ
 
 
+def pl_forward_message_plain(az, bz, ax, bx, specs):
+    """Forward EP message (a_new, b_new) as plain tensor code: the x
+    posterior of ``pl_posterior_plain``, the mean of its variance, and
+    ``compute_ab_new`` against (ax, bx)."""
+    _, _, rx, vx, _ = pl_posterior_plain(az, bz, ax, bx, specs)
+    return compute_ab_new(rx, torch.mean(vx), ax, bx)
+
+
+def pl_backward_message_plain(az, bz, ax, bx, specs):
+    """Backward EP message (a_new, b_new) as plain tensor code: the z
+    posterior of ``pl_posterior_plain``, the mean of its variance, and
+    ``compute_ab_new`` against (az, bz)."""
+    rz, vz, _, _, _ = pl_posterior_plain(az, bz, ax, bx, specs)
+    return compute_ab_new(rz, torch.mean(vz), az, bz)
+
+
+# -- build ------------------------------------------------------------------
+
+def _nvcc():
+    from torch.utils.cpp_extension import CUDA_HOME
+    nvcc = shutil.which("nvcc") or (
+        CUDA_HOME and os.path.join(CUDA_HOME, "bin", "nvcc"))
+    if not nvcc or not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA toolkit is needed "
+                           "to build tramp_tpu_torch's kernels")
+    return nvcc
+
+
 def build():
-    """Compile the kernel with nvcc for sm_90a (once per source content)
-    and load it. Returns (path of the shared library, nvcc's diagnostics,
-    which hold ptxas's register and spill report; empty when the library
+    """Compile the kernels with nvcc for sm_90a (once per content of the
+    sources; the missing libraries are all compiled at the same time) and
+    load them. Returns (paths of the shared libraries, nvcc's diagnostics,
+    which hold ptxas's register and spill report; empty for a library that
     was already built)."""
-    global _lib
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"libpl_posterior_{tag}.so"
-    log = ""
-    if not lib_path.exists():
-        from torch.utils.cpp_extension import CUDA_HOME
-        nvcc = shutil.which("nvcc") or (
-            CUDA_HOME and os.path.join(CUDA_HOME, "bin", "nvcc"))
-        if not nvcc or not os.path.exists(nvcc):
-            raise RuntimeError("nvcc not found: the CUDA toolkit is needed "
-                               "to build tramp_tpu_torch's kernels")
+    header = HEADER.read_bytes()
+    jobs = []
+    for name, source in SOURCES.items():
+        tag = hashlib.sha256(header + source.read_bytes()).hexdigest()[:16]
+        for dtype, (suffix, _) in _C_TYPES.items():
+            jobs.append((name, dtype, suffix, source,
+                         BUILD_DIR / f"lib{name}_{suffix}_{tag}.so"))
+    running = []
+    for name, _, suffix, source, lib_path in jobs:
+        if lib_path.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", str(tmp), str(SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+               "-Xptxas", "-v", f"-DPL_{suffix.upper()}_ONLY",
+               "-o", str(tmp), str(source)]
+        # diagnostics to a file: a pipe could fill while another job is
+        # waited for
+        with open(f"{tmp}.log", "w") as diagnostics:
+            running.append((lib_path, tmp, subprocess.Popen(
+                cmd, stdout=diagnostics, stderr=subprocess.STDOUT)))
+    log = ""
+    failures = []
+    for lib_path, tmp, proc in running:
+        proc.wait()
+        stderr = Path(f"{tmp}.log").read_text()
+        os.remove(f"{tmp}.log")
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with code {proc.returncode}:\n{proc.stderr}")
+            failures.append(f"nvcc failed with code {proc.returncode} on "
+                            f"{lib_path.name}:\n{stderr}")
+            continue
         os.replace(tmp, lib_path)
-        log = proc.stderr
-    if _lib is None:
-        lib = ctypes.CDLL(str(lib_path))
-        ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-        for fn in (lib.pl_posterior_f32, lib.pl_posterior_f64):
-            fn.argtypes = ([ptr, i64, ptr, ptr, i64, ptr] + [ptr] * 5
-                           + [i64, ptr, ctypes.c_int, ptr])
+        log += stderr
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    if not _fns:
+        ptr, i64, dbl = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
+        fns = {}
+        for name, dtype, suffix, _, lib_path in jobs:
+            lib = ctypes.CDLL(str(lib_path))
+            fn = getattr(lib, f"{name}_{suffix}")
+            if name == "pl_posterior":
+                fn.argtypes = ([ptr, i64, ptr, ptr, i64, ptr] + [ptr] * 5
+                               + [i64, ptr, ctypes.c_int, ptr])
+                lib.pl_launch_floor.argtypes = [ptr]
+                lib.pl_launch_floor.restype = ctypes.c_int
+                fns["pl_launch_floor"] = lib.pl_launch_floor
+            else:
+                fn.argtypes = ([ctypes.c_int, ptr, i64, ptr, ptr, i64, ptr]
+                               + [ptr, i64, ptr, ptr, i64, i64, ptr,
+                                  ctypes.c_int, dbl, dbl, dbl, ptr])
             fn.restype = ctypes.c_int
-        _lib = lib
-    return lib_path, log
+            fns[name, dtype] = fn
+        _fns.update(fns)
+    return [job[-1] for job in jobs], log
+
+
+def ptxas_report(log):
+    """ptxas's ``-v`` report as a list of dicts, one per compiled kernel:
+    ``kernel`` (its name), ``dtype`` ("f" or "d"), ``params`` (the integer
+    template arguments: the region count K and, for the message kernel, the
+    side), ``registers`` and ``spill_bytes`` (stores)."""
+    out = []
+    for chunk in log.split("Compiling entry function '")[1:]:
+        mangled = chunk.split("'", 1)[0]
+        name = re.search(r"\d+(pl_\w+?_kernel)(?:I([fd])((?:Li\d+E)*)E)?",
+                         mangled)
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores", chunk)
+        if not (name and regs):
+            continue
+        out.append({
+            "kernel": name.group(1), "dtype": name.group(2),
+            "params": [int(v) for v in re.findall(r"Li(\d+)E",
+                                                  name.group(3) or "")],
+            "registers": int(regs.group(1)),
+            "spill_bytes": int(spill.group(1)) if spill else 0})
+    return out
+
+
+# -- wrappers ---------------------------------------------------------------
+
+def _spec_array(specs, dtype):
+    """The regions in the kernels' own type and layout, converted once per
+    (specs, dtype): per region zmin, zmax, x0, slope, slope^2, x0^2 and the
+    interval's kind (0 both bounds infinite, 1 upper, 2 lower, 3 neither)."""
+    key = (specs, dtype)
+    array = _spec_arrays.get(key)
+    if array is None:
+        flat = []
+        for zmin, zmax, x0, slope in specs:
+            lo_inf, hi_inf = zmin == -math.inf, zmax == math.inf
+            kind = 0 if lo_inf and hi_inf else 1 if hi_inf else \
+                2 if lo_inf else 3
+            flat += [zmin, zmax, x0, slope, slope * slope, x0 * x0, kind]
+        array = (_C_TYPES[dtype][1] * len(flat))(*flat)
+        _spec_arrays[key] = array
+    return array
 
 
 def _precision(a, bz, name):
@@ -130,6 +260,35 @@ def _precision(a, bz, name):
     return a
 
 
+def _checked(what, az, bz, ax, bx, specs):
+    """Raise on anything the kernels do not take; returns az and ax as
+    tensors on bz's device."""
+    if bz.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {bz.device}")
+    if bz.dtype not in _C_TYPES:
+        raise ValueError(f"{what}: unsupported dtype {bz.dtype}")
+    if bx.device != bz.device or bx.dtype != bz.dtype or bx.shape != bz.shape:
+        raise ValueError(f"{what}: bx must match bz in device, dtype "
+                         "and shape")
+    if not (bz.is_contiguous() and bx.is_contiguous()):
+        raise ValueError(f"{what}: bz and bx must be contiguous")
+    if not 1 <= len(specs) <= MAX_REGIONS:
+        raise ValueError(f"{what}: need 1 to {MAX_REGIONS} regions")
+    return _precision(az, bz, "az"), _precision(ax, bz, "ax")
+
+
+def _stride(a):
+    return 0 if a.numel() == 1 else 1
+
+
+def _stream(device):
+    "The current stream's handle, without building a Stream object."
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream(device).cuda_stream
+    return raw(device.index)
+
+
 def pl_posterior(az, bz, ax, bx, specs):
     """Fused PL posterior (rz, vz, rx, vx, logZ), elementwise in ``bz``.
 
@@ -138,40 +297,101 @@ def pl_posterior(az, bz, ax, bx, specs):
     anything the kernel does not take. On CPU tensors it is
     ``pl_posterior_plain``. On meta tensors it returns outputs of the right
     shape and dtype (the engine's shape sweep). ``az``/``ax`` are scalars or
-    arrays of ``bz``'s shape; ``bx`` has ``bz``'s shape."""
+    arrays of ``bz``'s shape; ``bx`` has ``bz``'s shape. The five outputs are
+    views of one allocation."""
     if bz.device.type == "cpu":
         return pl_posterior_plain(az, bz, ax, bx, specs)
     if bz.device.type == "meta":
         return tuple(torch.empty_like(bz) for _ in range(5))
-    if bz.device.type != "cuda":
-        raise ValueError(f"pl_posterior: unsupported device {bz.device}")
-    if bz.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"pl_posterior: unsupported dtype {bz.dtype}")
-    if bx.device != bz.device or bx.dtype != bz.dtype or bx.shape != bz.shape:
-        raise ValueError("pl_posterior: bx must match bz in device, dtype "
-                         "and shape")
-    if not (bz.is_contiguous() and bx.is_contiguous()):
-        raise ValueError("pl_posterior: bz and bx must be contiguous")
-    if not 1 <= len(specs) <= MAX_REGIONS:
-        raise ValueError(f"pl_posterior: need 1 to {MAX_REGIONS} regions")
-    az = _precision(az, bz, "az")
-    ax = _precision(ax, bz, "ax")
-    if _lib is None:
+    az, ax = _checked("pl_posterior", az, bz, ax, bx, specs)
+    if not _fns:
         build()
-    outs = tuple(torch.empty_like(bz) for _ in range(5))
-    fn = (_lib.pl_posterior_f32 if bz.dtype == torch.float32
-          else _lib.pl_posterior_f64)
-    flat = [float(v) for spec in specs for v in spec]
-    c_specs = (ctypes.c_double * len(flat))(*flat)
-    err = fn(az.data_ptr(), 0 if az.numel() == 1 else 1, bz.data_ptr(),
-             ax.data_ptr(), 0 if ax.numel() == 1 else 1, bx.data_ptr(),
-             *[o.data_ptr() for o in outs], bz.numel(), c_specs, len(specs),
-             torch.cuda.current_stream(bz.device).cuda_stream)
+    n = bz.numel()
+    out = torch.empty((5,) + bz.shape, dtype=bz.dtype, device=bz.device)
+    first, step = out.data_ptr(), n * out.element_size()
+    err = _fns["pl_posterior", bz.dtype](
+        az.data_ptr(), _stride(az), bz.data_ptr(), ax.data_ptr(),
+        _stride(ax), bx.data_ptr(), first, first + step, first + 2 * step,
+        first + 3 * step, first + 4 * step, n, _spec_array(specs, bz.dtype),
+        len(specs), _stream(bz.device))
     if err != 0:
         raise RuntimeError(f"pl_posterior kernel launch failed: CUDA error "
                            f"{err}")
     pl_posterior.launches += 1
-    return outs
+    return out.unbind(0)
 
 
 pl_posterior.launches = 0
+
+
+def _message(wrapper, plain, side, az, bz, ax, bx, specs):
+    if bz.device.type == "cpu":
+        return plain(az, bz, ax, bx, specs)
+    own = ax if side == _FORWARD else az
+    if bz.device.type == "meta":
+        shape = own.shape if isinstance(own, torch.Tensor) else ()
+        return (torch.empty(shape, dtype=bz.dtype, device="meta"),
+                torch.empty_like(bz))
+    what = wrapper.__name__
+    az, ax = _checked(what, az, bz, ax, bx, specs)
+    n = bz.numel()
+    if n == 0:
+        raise ValueError(f"{what}: the mean of no element is undefined")
+    if not _fns:
+        build()
+    own = ax if side == _FORWARD else az
+    a_new, b_new = torch.empty_like(own), torch.empty_like(bz)
+    partials = None
+    if n > CLUSTER_MAX:
+        partials = torch.empty(MAX_PARTIALS, dtype=torch.float64,
+                               device=bz.device)
+    err = _fns["pl_message", bz.dtype](
+        side, az.data_ptr(), _stride(az), bz.data_ptr(), ax.data_ptr(),
+        _stride(ax), bx.data_ptr(), a_new.data_ptr(), _stride(own),
+        b_new.data_ptr(), None if partials is None else partials.data_ptr(),
+        MAX_PARTIALS, n, _spec_array(specs, bz.dtype), len(specs),
+        config.VMIN, config.AMIN, config.AMAX, _stream(bz.device))
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+    wrapper.launches += 1 if partials is None else 2
+    return a_new, b_new
+
+
+def pl_forward_message(az, bz, ax, bx, specs):
+    """Forward EP message (a_new, b_new) of a piecewise-linear channel:
+    x posterior, mean of its variance and ``compute_ab_new`` against
+    (ax, bx), fused.
+
+    On CUDA tensors this launches the message kernel (one launch up to
+    16384 elements, two above) and counts its launches in
+    ``pl_forward_message.launches``; it raises on anything the kernel does
+    not take. On CPU tensors it is ``pl_forward_message_plain``; on meta
+    tensors it returns empty outputs of the right shapes. ``a_new`` has
+    ``ax``'s shape (0-d for a scalar precision), ``b_new`` has ``bz``'s."""
+    return _message(pl_forward_message, pl_forward_message_plain, _FORWARD,
+                    az, bz, ax, bx, specs)
+
+
+def pl_backward_message(az, bz, ax, bx, specs):
+    """Backward EP message (a_new, b_new) of a piecewise-linear channel:
+    z posterior, mean of its variance and ``compute_ab_new`` against
+    (az, bz), fused. Devices, errors and shapes as ``pl_forward_message``,
+    with ``a_new`` in ``az``'s shape; counts in
+    ``pl_backward_message.launches``."""
+    return _message(pl_backward_message, pl_backward_message_plain,
+                    _BACKWARD, az, bz, ax, bx, specs)
+
+
+pl_forward_message.launches = 0
+pl_backward_message.launches = 0
+
+
+def launch_floor():
+    """Launch an empty kernel on the current stream: its time is the floor
+    under the time of any launch on this card and host."""
+    if not _fns:
+        build()
+    err = _fns["pl_launch_floor"](
+        _stream(torch.device("cuda", torch.cuda.current_device())))
+    if err != 0:
+        raise RuntimeError(f"empty kernel launch failed: CUDA error {err}")
