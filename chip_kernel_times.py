@@ -8,9 +8,12 @@ Each argument names a checkout of this repository (DIR, "." for the current
 one). The checkouts run in the order given and then in reverse (A, B, B, A),
 each turn in a process of its own, because every checkout's package has the
 same name. A turn builds the kernels if its checkout has not, and prints one
-JSON line per case: relu and hard tanh, float32 and float64, n = 2048 and
-n = 2**20 + 300, for ``pl_posterior`` and, where the checkout has them,
-``pl_forward_message`` and ``pl_backward_message``: the device time per call
+JSON line with ptxas's registers and spills of the instantiations with up
+to three regions, then one JSON line per case: relu and hard tanh, float32
+and float64, n = 2048 and n = 2**20 + 300 and, where the checkout's kernels
+take lanes, 2048 lanes of 2048 elements with a precision per lane, for
+``pl_posterior`` and, where the checkout has them, ``pl_forward_message``
+and ``pl_backward_message``: the device time per call
 from torch.profiler over 20 warm calls, the kernels launched per call, and
 the host time per call (300 unsynchronised calls on the host's clock), all
 taken with chip_smoke.py's own ``profiled``, ``host_ms`` and ``inputs``. The
@@ -26,7 +29,8 @@ import sys
 import time
 
 # this script's own chip_smoke.py, before a turn puts its checkout first
-from chip_smoke import SIZES, dtype_name, host_ms, inputs, profiled
+from chip_smoke import (
+    LANE_SHAPE, SIZES, dtype_name, host_ms, inputs, lane_inputs, profiled)
 
 
 def turn(label):
@@ -38,15 +42,23 @@ def turn(label):
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
     t0 = time.perf_counter()
-    pl.build()
+    _, log = pl.build()
     print(json.dumps({"label": label, "build_s": time.perf_counter() - t0}),
           flush=True)
+    print(json.dumps({"label": label, "ptxas": [
+        row for row in pl.ptxas_report(log)
+        if row["params"] and row["params"][0] <= 3]}), flush=True)
+    has_lanes = os.path.exists(os.path.join("tramp_tpu_torch", "lanes.py"))
     wrappers = [name for name in ("pl_posterior", "pl_forward_message",
                                   "pl_backward_message") if hasattr(pl, name)]
     for channel in (ReluChannel(), HardTanhChannel()):
         for dtype in (torch.float32, torch.float64):
-            for n in SIZES:
-                args = inputs(torch, n, dtype, 3)
+            for n in SIZES + ((LANE_SHAPE,) if has_lanes else ()):
+                if n == LANE_SHAPE:
+                    args = lane_inputs(torch, *n, dtype, 3)
+                    n = "x".join(map(str, n))
+                else:
+                    args = inputs(torch, n, dtype, 3)
                 for name in wrappers:
                     fn = getattr(pl, name)
 
@@ -76,7 +88,7 @@ def main(argv):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "?"
-    rows = {}
+    rows, rows_ptxas = {}, {}
     for label, directory in variants + variants[::-1]:
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--turn", label],
@@ -86,9 +98,17 @@ def main(argv):
         for line in proc.stdout.splitlines():
             print(line)
             row = json.loads(line)
+            if "ptxas" in row:
+                rows_ptxas.setdefault(label, row["ptxas"])
             if "kernel" in row:
                 key = (row["kernel"], row["channel"], row["dtype"], row["n"])
                 rows.setdefault(key, {}).setdefault(label, []).append(row)
+    for label, report in rows_ptxas.items():
+        print(f"{label}: registers (spill bytes) of <type, regions[, side]>: "
+              + ", ".join(
+                  f"{r['kernel'][3:-7]}<{r['dtype']},"
+                  f"{','.join(map(str, r['params']))}> {r['registers']} "
+                  f"({r['spill_bytes']})" for r in report))
     for key, by_label in rows.items():
         cells = []
         for label, turns in by_label.items():
@@ -96,7 +116,7 @@ def main(argv):
             host = "/".join(f"{t['host_us']:.1f}" for t in turns)
             cells.append(f"{label}: device {device} us, host {host} us, "
                          f"{turns[0]['kernels']:.0f} launches")
-        print(f"{key[0]:20s} {key[1]:7s} {key[2]} n={key[3]:8d} | "
+        print(f"{key[0]:20s} {key[1]:7s} {key[2]} n={key[3]!s:>9s} | "
               + " | ".join(cells) + f" [{card}]")
 
 

@@ -43,8 +43,39 @@ line is printed):
 5. the flagship compressed-sensing GLM at N = 10**4, alpha = 0.5, float32
    (no kernel on this path), with |mse - v| / v < 0.25, the finite-N band
    of __graft_entry__.py:126;
-6. a JSON line on the kernels, then the result line
+6. the flagship through the front door: ``dispatch_solver(student)`` must
+   give a SpectralVAMPSolver; one solve (converged, inside the band, x's
+   posterior v within 1e-2 of phase 5's); then ``solve_batch`` over 2048
+   lanes that share W and have an observation each, drawn on the card from
+   the teacher: every lane converged, three lanes within 1e-3 of the largest
+   |r| of their single solves and within 2 iterations; iterations, seconds,
+   lane-iterations per second, peak memory, and per iteration the kernels,
+   device time, wall time, busy share and the five device operations that
+   took most time (torch.profiler over a run of 10 iterations less a run of
+   none, which leaves the set-up and the readout out);
+7. the relu net through the front door: ``dispatch_solver(student,
+   damping=0.1, max_iter=500, tol=1e-6)`` must give an MLVAMPSolver; one
+   solve in float32 and float64 (f32 against f64 within 5e-2 in v and MSE,
+   f64 within 1e-3 of the largest |r| of phase 4's fixed point), then
+   ``solve_batch`` over 2048 lanes in float32 and ``EPSolver.solve_batch``
+   over the same lanes, with exactly one launch of each message kernel per
+   sweep and none of the five-output kernel, which then reads the relu
+   factor's posteriors for all lanes in two launches; the same readings as
+   in phase 6. With 2048 lanes on one W the float32 stop metric has a
+   rounding floor above the single solve's tolerance (the script reads it;
+   chip_stop_floor.py traces it to the float32 GEMM), so the batch is
+   solved twice: at tol 1e-5, where every lane must converge
+   and three lanes are held against their single solves, and at the single
+   solve's 1e-6, where the count of converged lanes is only printed;
+8. a JSON line on the kernels, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+
+Phase 3 also holds the kernels against their plain versions with 3 lanes
+(a precision per lane) at n = 2048 and n = 16384 + 300, checks that lane i of
+a batched launch has the bits of the single launch on lane i's data, and
+holds them in the same way (plain version, three lanes' bits) and times them
+at the batched main path's shape, 2048 lanes of 2048 elements, in float32
+and float64.
 
 A kernel's bound is the least time the card could take for the function:
 the larger of its bytes (each input read once, each output written once)
@@ -69,6 +100,10 @@ V_MSE_BOUND = 5e-2     # bench.py:118-119, relu_net f32 vs f64
 FLAGSHIP_BAND = 0.25   # __graft_entry__.py:126
 SOLVE = dict(max_iter=500, damping=0.1, tol=1e-6)   # bench.py:1157
 SIZES = (2048, 2**20 + 300)
+LANES = 2048           # lanes of the batched main paths
+LANE_SHAPE = (LANES, 2048)   # the relu net's messages with those lanes
+R_TOL = 1e-3           # batched against single, and f64 against the engine
+BATCH_TOL = 1e-5       # float32 batched relu net: above the metric's floor
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "float64": 33.5e12}
 SOURCES = {"pl_posterior": "tramp_tpu_torch/csrc/pl_posterior.cu",
@@ -119,15 +154,18 @@ def operations(kernel, specs, n):
     return per_element * n
 
 
-def bound_ms(kernel, specs, n, dtype):
-    """(bound in ms, "bytes" or "operations", bytes moved) with scalar
-    precisions: inputs read once (bz, bx, az, ax), outputs written once
-    (five streams, or b_new and a_new)."""
+def bound_ms(kernel, specs, n, dtype, lanes=1):
+    """(bound in ms, "bytes" or "operations", bytes moved) for ``lanes``
+    lanes of n elements with one precision per lane and side: inputs read
+    once (bz, bx, az, ax), outputs written once (five streams, or b_new and
+    a_new)."""
     itemsize = 4 if dtype_name(dtype) == "float32" else 8
-    outputs = 5 * n if kernel == "pl_posterior" else n + 1
-    moved = (2 * n + 2 + outputs) * itemsize
+    total = lanes * n
+    outputs = 5 * total if kernel == "pl_posterior" else total + lanes
+    moved = (2 * total + 2 * lanes + outputs) * itemsize
     by_bytes = moved / HBM_BYTES_PER_S
-    by_ops = operations(kernel, specs, n) / PEAK_OPS_PER_S[dtype_name(dtype)]
+    by_ops = (operations(kernel, specs, total)
+              / PEAK_OPS_PER_S[dtype_name(dtype)])
     which = "bytes" if by_bytes >= by_ops else "operations"
     return 1e3 * max(by_bytes, by_ops), which, moved
 
@@ -166,13 +204,11 @@ def host_ms(fn, calls=300):
     return 1e3 * elapsed / calls
 
 
-def profiled(fn, reps):
-    """(kernels launched per call, device ms per call, wall ms per call) of
-    ``fn`` from torch.profiler over ``reps`` warm calls. The device time is
-    the sum of the device-side events (kernels and copies). The profiler now
-    and then hands back a window with no device event at all; such a window
-    is taken again, at most twice, and the callers fail on a device time of
-    0."""
+def device_events(fn, reps):
+    """(device-side events, wall seconds) of ``reps`` warm calls of ``fn``
+    under torch.profiler. The profiler now and then hands back a window with
+    no device event at all; such a window is taken again, at most twice, and
+    the callers fail on a device time of 0."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -190,10 +226,69 @@ def profiled(fn, reps):
                   if e.device_type == DeviceType.CUDA]
         if events:
             break
+    return events, wall
+
+
+def profiled(fn, reps):
+    """(kernels launched per call, device ms per call, wall ms per call) of
+    ``fn`` from torch.profiler over ``reps`` warm calls. The device time is
+    the sum of the device-side events (kernels and copies)."""
+    events, wall = device_events(fn, reps)
     kernels = [e for e in events
                if not e.name.lower().startswith(("memcpy", "memset"))]
     device_us = sum(e.time_range.elapsed_us() for e in events)
     return len(kernels) / reps, 1e-3 * device_us / reps, 1e3 * wall / reps
+
+
+def loop_window(run, iterations=10):
+    """What one iteration of a solver's loop costs: ``run(k)`` runs the
+    solver for exactly k iterations (with its set-up and its readout), and
+    the per-iteration figures are the run of ``iterations`` less the run of
+    none, both under torch.profiler. Returns a dict: per iteration
+    ``kernels``, ``device_ms`` and ``top`` ([(operation, launches, device
+    ms)] for the five operations with the most device time); and of the
+    whole profiled run of ``iterations`` iterations ``run_device_ms`` and
+    ``run_wall_ms``, whose ratio is the busy share under the profiler,
+    which slows the host."""
+    def reading(k):
+        events, wall = device_events(lambda: run(k), 1)
+        check(events, "torch.profiler shows no device time")
+        by_name = {}
+        for e in events:
+            count, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (count + 1, us + e.time_range.elapsed_us())
+        return by_name, wall
+
+    full, wall_full = reading(iterations)
+    none, _ = reading(0)
+    ops = {}
+    for name, (count, us) in full.items():
+        count0, us0 = none.get(name, (0, 0.0))
+        ops[name] = ((count - count0) / iterations,
+                     1e-3 * (us - us0) / iterations)
+    top = sorted(ops.items(), key=lambda kv: -kv[1][1])[:5]
+    return {
+        "kernels": sum(c for name, (c, _) in ops.items()
+                       if not name.lower().startswith(("memcpy", "memset"))),
+        "device_ms": sum(ms for _, ms in ops.values()),
+        "top": [(name[:70], c, ms) for name, (c, ms) in top],
+        "run_device_ms": 1e-3 * sum(us for _, us in full.values()),
+        "run_wall_ms": 1e3 * wall_full}
+
+
+def print_window(what, window, card):
+    device = window["device_ms"]
+    print(f"{what}, torch.profiler over 10 iterations less set-up and "
+          f"readout: {window['kernels']:.1f} kernels and {device:.4f} ms of "
+          "device time per iteration; the profiled run with set-up and "
+          f"readout: device {window['run_device_ms']:.4f} ms of "
+          f"{window['run_wall_ms']:.4f} ms, busy "
+          f"{100 * window['run_device_ms'] / window['run_wall_ms']:.2f}% "
+          f"[{card}]")
+    for name, count, ms in window["top"]:
+        print(f"    {ms:9.4f} ms in {count:5.1f} launches per iteration "
+              f"({100 * ms / device:5.1f}% of the device time): {name}")
+    return window
 
 
 def inputs(torch, n, dtype, seed, per_element=False):
@@ -207,6 +302,16 @@ def inputs(torch, n, dtype, seed, per_element=False):
         az = torch.tensor(1.7, device="cuda", dtype=dtype)
         ax = torch.tensor(0.9, device="cuda", dtype=dtype)
     return az, bz, ax, bx
+
+
+def lane_inputs(torch, lanes, n, dtype, seed):
+    "Messages (lanes, n) with a precision per lane and side, (lanes, 1)."
+    rng = np.random.RandomState(seed)
+
+    def t(x):
+        return torch.as_tensor(x, device="cuda", dtype=dtype)
+    bz, bx = t(2 * rng.randn(lanes, n)), t(2 * rng.randn(lanes, n))
+    return t(1.2 + rng.rand(lanes, 1)), bz, t(0.4 + rng.rand(lanes, 1)), bx
 
 
 def hold(torch, what, names, got, want, rtol):
@@ -296,6 +401,109 @@ def compare_messages(torch, pl, channels):
     return max_err
 
 
+def compare_lanes(torch, pl, channels, lanes=3):
+    """Phase 3, lanes: all three kernels against their plain versions with a
+    precision per lane, and lane i of a batched launch against the single
+    launch on lane i's data (the same bits). Returns {wrapper name: max abs
+    error}."""
+    messages = {"pl_forward_message": (pl.pl_forward_message,
+                                       pl.pl_forward_message_plain),
+                "pl_backward_message": (pl.pl_backward_message,
+                                        pl.pl_backward_message_plain)}
+    max_err = dict.fromkeys(["pl_posterior", *messages], 0.0)
+    for dtype in (torch.float64, torch.float32):
+        dname = dtype_name(dtype)
+        for n in (2048, pl.CLUSTER_MAX + 300):
+            for channel in channels:
+                az, bz, ax, bx = args = lane_inputs(
+                    torch, lanes, n, dtype, n + len(channel.name))
+                specs = channel.region_specs
+                what = f"{channel.name} {dname} {lanes} lanes of n={n}"
+                got = pl.pl_posterior(*args, specs)
+                want = pl.pl_posterior_plain(*args, specs)
+                worst, err = hold(torch, f"pl_posterior {what}",
+                                  ("rz", "vz", "rx", "vx", "logZ"), got,
+                                  want, RTOL[dname])
+                max_err["pl_posterior"] = max(max_err["pl_posterior"], err)
+                for i in range(lanes):
+                    single = pl.pl_posterior(az[i, 0], bz[i], ax[i, 0],
+                                             bx[i], specs)
+                    check(all(torch.equal(g[i], s_)
+                              for g, s_ in zip(got, single)),
+                          f"pl_posterior {what}: lane {i} differs from its "
+                          "single launch")
+                line = f"lanes vs plain: {what} posterior err/tol={worst:.2e}"
+                for name, (fused, plain) in messages.items():
+                    before = fused.launches
+                    a_new, b_new = fused(*args, specs)
+                    check(fused.launches - before
+                          == (1 if n <= pl.CLUSTER_MAX else 2),
+                          f"{name} {what}: {fused.launches - before} "
+                          "launches")
+                    want = plain(*args, specs)
+                    torch.cuda.synchronize()
+                    worst, err = hold(torch, f"{name} {what}",
+                                      ("a_new", "b_new"), (a_new, b_new),
+                                      want, RTOL[dname])
+                    max_err[name] = max(max_err[name], err)
+                    for i in range(lanes):
+                        a_i, b_i = fused(az[i, 0], bz[i], ax[i, 0], bx[i],
+                                         specs)
+                        check(torch.equal(a_new[i, 0], a_i)
+                              and torch.equal(b_new[i], b_i),
+                              f"{name} {what}: lane {i} differs from its "
+                              "single launch")
+                    line += f" {name[3:]} err/tol={worst:.2e}"
+                print(line + "; every lane bit-identical to its single "
+                      "launch")
+    return max_err
+
+
+def hold_main_shape(torch, pl, channel):
+    """Phase 3, the batched main path's shape (LANES lanes of 2048 elements,
+    a precision per lane), float32 and float64: all three kernels against
+    their plain versions on the same inputs, and three lanes against their
+    single launches (the same bits). Returns ({wrapper name: max abs error},
+    {wrapper name: the plain version's ms per call in float32})."""
+    cases = {
+        "pl_posterior": (pl.pl_posterior, pl.pl_posterior_plain,
+                         ("rz", "vz", "rx", "vx", "logZ")),
+        "pl_forward_message": (pl.pl_forward_message,
+                               pl.pl_forward_message_plain,
+                               ("a_new", "b_new")),
+        "pl_backward_message": (pl.pl_backward_message,
+                                pl.pl_backward_message_plain,
+                                ("a_new", "b_new"))}
+    specs = channel.region_specs
+    lanes, n = LANE_SHAPE
+    max_err, plain_ms = dict.fromkeys(cases, 0.0), {}
+    for dtype in (torch.float32, torch.float64):
+        dname = dtype_name(dtype)
+        az, bz, ax, bx = args = lane_inputs(torch, lanes, n, dtype, 3)
+        line = (f"lanes vs plain: {channel.name} {dname} {lanes} lanes of "
+                f"n={n}")
+        for name, (fused, plain, streams) in cases.items():
+            what = f"{name} {channel.name} {dname} {lanes} lanes of n={n}"
+            got = fused(*args, specs)
+            want = plain(*args, specs)
+            torch.cuda.synchronize()
+            worst, err = hold(torch, what, streams, got, want, RTOL[dname])
+            max_err[name] = max(max_err[name], err)
+            for i in (0, lanes // 2, lanes - 1):
+                single = fused(az[i, 0], bz[i], ax[i, 0], bx[i], specs)
+                check(all(torch.equal(g[i].reshape(s_.shape), s_)
+                          for g, s_ in zip(got, single)),
+                      f"{what}: lane {i} differs from its single launch")
+            line += f" {name[3:]} err/tol={worst:.2e}"
+            del got, want
+            if dtype == torch.float32:
+                plain_ms[name] = per_call_ms(
+                    lambda: plain(*args, specs), calls=3, reps=3)
+        print(line + f" (rtol {RTOL[dname]:g}); lanes 0, {lanes // 2} and "
+              f"{lanes - 1} bit-identical to their single launches")
+    return max_err, plain_ms
+
+
 def time_fusion(torch, pl, base, specs):
     """Phase 3: the composition the sweep ran before the fusion against the
     fused forward message at the main path's case (relu, n = 2048, float32),
@@ -330,8 +538,15 @@ def time_fusion(torch, pl, base, specs):
     print(f"empty kernel: {1e3 * floor[0]:.2f} us per call, "
           f"{1e3 * floor[1]:.2f} us host per call, {1e3 * floor[2]:.2f} us "
           "device")
-    check(out["new"][0][2] == 1.0, "the fused message at n = 2048 is "
-          f"{out['new'][0][2]} kernel launches, want 1")
+    # exactly one launch per call, by the wrapper's own count (the
+    # profiler's count above is printed only: it may drop an event)
+    before = pl.pl_forward_message.launches
+    for _ in range(50):
+        new()
+    torch.cuda.synchronize()
+    launched = pl.pl_forward_message.launches - before
+    check(launched == 50, "the fused message at n = 2048 launched "
+          f"{launched} kernels in 50 calls, want 50")
 
 
 def kernel_table(torch, pl, channels, card):
@@ -364,6 +579,29 @@ def kernel_table(torch, pl, channels, card):
                           f"{1e3 * h_ms:.2f} us, bound {1e3 * b_ms:.4f} us "
                           f"by {by} ({moved} B), share "
                           f"{100 * b_ms / device:.2f}% [{card}]")
+    # the batched main path's shape: LANES lanes of 2048 elements
+    lanes, n = LANE_SHAPE
+    for channel in channels:
+        specs = channel.region_specs
+        for dtype in (torch.float32, torch.float64):
+            args = lane_inputs(torch, lanes, n, dtype, 3)
+            for name, fn in wrappers.items():
+                def call():
+                    return fn(*args, specs)
+                kernels, device, _ = profiled(call, 10)
+                check(device > 0, "torch.profiler shows no device time")
+                b_ms, by, moved = bound_ms(name, specs, n, dtype, lanes)
+                c_ms, h_ms = per_call_ms(call), host_ms(call, calls=100)
+                rows[name, channel.name, dtype_name(dtype), LANE_SHAPE] = \
+                    dict(device_ms=device, per_call_ms=c_ms, host_ms=h_ms,
+                         bound_ms=b_ms, bound_by=by)
+                print(f"kernel time: {name:20s} {channel.name:7s} "
+                      f"{dtype_name(dtype)} {lanes} lanes of n={n} device "
+                      f"{1e3 * device:.2f} us ({kernels:.0f} launches), "
+                      f"per call {1e3 * c_ms:.2f} us, host "
+                      f"{1e3 * h_ms:.2f} us, bound {1e3 * b_ms:.4f} us by "
+                      f"{by} ({moved} B), share "
+                      f"{100 * b_ms / device:.2f}% [{card}]")
     return rows
 
 
@@ -465,6 +703,323 @@ def sweep_window(ep, sweeps=10):
     return kernels / sweeps, device / sweeps, wall_ms / sweeps
 
 
+def rel_to_largest(torch, got, want):
+    "max |got - want| over the largest |want|."
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def batch_of_observations(torch, W, lanes, relu, seed):
+    """One observation per lane, drawn on the card from the teacher
+    x ~ Gauss-Bernoulli(RHO), y = [relu](W x) + noise, with an explicit
+    generator: (x of shape (lanes, N), y of shape (lanes, M))."""
+    g = torch.Generator(device=W.device).manual_seed(seed)
+    kw = dict(generator=g, device=W.device, dtype=W.dtype)
+    M, N = W.shape
+    x = torch.randn((lanes, N), **kw) * (torch.rand((lanes, N), **kw) < RHO)
+    z = x @ W.T
+    if relu:
+        z = torch.relu(z)
+    return x, z + np.sqrt(NOISE) * torch.randn((lanes, M), **kw)
+
+
+def batched_solve(torch, pl, what, run, lanes, card, window, warm_up=True):
+    """Run a batched solve (after a warm-up run of the same, if asked),
+    timed, with the kernels' launch counts set to 0 just before and read
+    just after; ``run()`` returns (post, n_iter, conv). Prints the
+    readings, with the busy share of this unprofiled run: the device time
+    per iteration of ``window`` (loop_window) over the wall time per
+    iteration here. Returns (post, n_iter, conv, launches)."""
+    if warm_up:
+        run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(pl)
+    t0 = time.perf_counter()
+    post, n_iter, conv = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(pl)
+    peak = torch.cuda.max_memory_allocated()
+    check(n_iter.shape == (lanes,) and conv.shape == (lanes,),
+          f"{what}: n_iter {tuple(n_iter.shape)}, conv {tuple(conv.shape)}")
+    for vid, data in post.items():
+        check(data["r"].shape[0] == lanes and data["v"].shape == (lanes,)
+              and bool(torch.isfinite(data["r"]).all())
+              and bool(torch.isfinite(data["v"]).all()),
+              f"{what}: posterior of {vid} has shapes "
+              f"{tuple(data['r'].shape)}, {tuple(data['v'].shape)} or is "
+              "not finite")
+    iterations = int(n_iter.max())
+    lane_iterations = int(n_iter.sum())
+    print(f"{what}: {lanes} lanes, {int(conv.sum())} converged, "
+          f"{iterations} iterations of the loop (per lane "
+          f"{int(n_iter.min())} to {iterations}, mean "
+          f"{lane_iterations / lanes:.2f}), {wall:.4f} s, "
+          f"{lane_iterations / wall:.1f} lane-iterations/s, "
+          f"{1e3 * wall / iterations:.4f} ms per iteration, of which "
+          f"{window['device_ms']:.4f} ms on the device (busy "
+          f"{100 * window['device_ms'] * iterations / (1e3 * wall):.2f}%), "
+          f"peak memory {peak} B ({peak / 2**30:.3f} GiB), launches "
+          f"{launches} [{card}]")
+    return post, n_iter, conv, launches
+
+
+def stop_metric_floor(torch, solver, model, lanes, sweeps=60):
+    """An MLVAMPSolver's stop metric, the largest relative change of a
+    posterior mean, at each of ``sweeps`` sweeps from the initial state, as
+    a tensor (sweeps, lanes) ((sweeps, 1) without lanes): well past the 26
+    sweeps a solve takes, what is left at the end is rounding."""
+    from tramp_tpu_torch.lanes import per_lane
+    inv = solver._invariants(model, lanes)
+    carry = solver._init(model, lanes)
+    old = solver._posterior_r(carry, inv)
+
+    def norm(x):
+        return torch.sqrt(per_lane(x**2, lanes).mean(-1))
+
+    history = []
+    for _ in range(sweeps):
+        carry = solver._step(model, carry, inv)
+        new = solver._posterior_r(carry, inv)
+        history.append(torch.stack(
+            [norm(n - o) / norm(n)
+             for n, o in zip(new, old)]).amax(0).reshape(-1))
+        old = new
+    return torch.stack(history)
+
+
+def lanes_against_singles(torch, what, solver, student, likelihood, ys,
+                          post, n_iter):
+    """Three lanes of a batched solve against their single solves: r within
+    R_TOL of the largest |r|, n_iter within 2 (a GEMM and a GEMV sum in
+    different orders in float32)."""
+    from tramp_tpu_torch.parallel import with_buffers
+    for lane in (0, len(ys) // 2, len(ys) - 1):
+        single = with_buffers(student, {(likelihood, "y"): ys[lane]})
+        post_1, n_1 = solver.solve(single)
+        err = rel_to_largest(torch, post["x"]["r"][lane], post_1["x"]["r"])
+        check(err < R_TOL and abs(int(n_iter[lane]) - int(n_1)) <= 2,
+              f"{what}: lane {lane} is {err:.3g} of the largest |r| off its "
+              f"single solve (bound {R_TOL}), n_iter {int(n_iter[lane])} vs "
+              f"{int(n_1)}")
+        print(f"{what}: lane {lane} vs its single solve: r within "
+              f"{err:.3e} of the largest |r| (bound {R_TOL}), n_iter "
+              f"{int(n_iter[lane])} vs {int(n_1)}")
+
+
+def front_door_flagship(torch, tt, pl, student, teacher_x, linear, engine_v,
+                        card):
+    """Phase 6: the flagship through dispatch_solver, one solve and LANES
+    lanes. Returns the launches of the path (none: it runs no kernel)."""
+    from tramp_tpu_torch.parallel import (
+        SpectralVAMPSolver, dispatch_solver, with_buffers)
+    solver = dispatch_solver(student)
+    check(type(solver) is SpectralVAMPSolver,
+          f"flagship: dispatch_solver gave {type(solver).__name__}")
+    solver.solve(student)
+    torch.cuda.synchronize()
+    reset_launches(pl)
+    t0 = time.perf_counter()
+    post, n_iter, conv = solver.solve_info(student)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(pl)
+    r, v = post["x"]["r"], float(post["x"]["v"])
+    check(bool(conv) and bool(torch.isfinite(r).all()),
+          f"flagship through the front door: conv={bool(conv)}")
+    mse = float(((r - teacher_x) ** 2).mean())
+    band, v_rel = abs(mse - v) / v, abs(v - engine_v) / engine_v
+    check(band < FLAGSHIP_BAND and v_rel < 1e-2,
+          f"flagship through the front door: |mse - v| / v = {band:.3g} "
+          f"(band {FLAGSHIP_BAND}), v {v:.6g} vs the engine's "
+          f"{engine_v:.6g} ({v_rel:.3g}, bound 1e-2)")
+    n_iter = int(n_iter)
+    print(f"flagship GLM N=10000 float32 through dispatch_solver "
+          f"(SpectralVAMPSolver): n_iter={n_iter} mse={mse:.6g} v={v:.6g} "
+          f"|mse-v|/v={band:.3e} v vs engine {v_rel:.3e} wall={wall:.3f} s "
+          f"iterations/s={n_iter / wall:.1f} [{card}]")
+    print_window("flagship, one instance", loop_window(
+        lambda k: SpectralVAMPSolver(student, max_iter=k,
+                                     tol=0.0).solve(student)), card)
+
+    _, ys = batch_of_observations(torch, linear.W, LANES, False, seed=3)
+    stacked = with_buffers(student, {(2, "y"): ys})
+    what = f"flagship, solve_batch over {LANES} lanes"
+    window = print_window(what, loop_window(
+        lambda k: SpectralVAMPSolver(student, max_iter=k,
+                                     tol=0.0).solve_batch(stacked)), card)
+    post, n_iter, conv, batch_launches = batched_solve(
+        torch, pl, what, lambda: solver.solve_info(stacked), LANES, card,
+        window)
+    check(bool(conv.all()), f"{what}: {int((~conv).sum())} lanes did not "
+                            "converge")
+    lanes_against_singles(torch, what, solver, student, 2, ys, post, n_iter)
+    return {k: launches[k] + batch_launches[k] for k in launches}
+
+
+def front_door_relu_net(torch, tt, pl, students, engine_r, card):
+    """Phase 7: the relu net through dispatch_solver, one solve in float32
+    and float64, then LANES lanes in float32 through MLVAMPSolver and through
+    EPSolver. ``students``: {dtype name: (student, x0, linear)} of phase 4;
+    ``engine_r``: the float64 engine's x posterior mean. Returns the
+    launches of the path by kernel."""
+    from tramp_tpu_torch.channels import ReluChannel
+    from tramp_tpu_torch.parallel import (
+        EPSolver, MLVAMPSolver, dispatch_solver, with_buffers)
+    total = dict.fromkeys(read_launches(pl), 0)
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    results, solvers = {}, {}
+    for dname, (student, x0, _) in students.items():
+        solver = solvers[dname] = dispatch_solver(student, **SOLVE)
+        check(type(solver) is MLVAMPSolver,
+              f"relu net: dispatch_solver gave {type(solver).__name__}")
+        solver.solve(student)
+        torch.cuda.synchronize()
+        reset_launches(pl)
+        t0 = time.perf_counter()
+        post, n_iter, conv = solver.solve_info(student)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches(pl)
+        add(launches)
+        n_iter = int(n_iter)
+        check(bool(conv) and launches["pl_forward_message"] == n_iter > 0
+              and launches["pl_backward_message"] == n_iter
+              and launches["pl_posterior"] == 0,
+              f"relu net {dname} through the front door: conv={bool(conv)}, "
+              f"launches {launches} for {n_iter} sweeps")
+        r = post["x"]["r"].double().cpu()
+        check(bool(torch.isfinite(r).all()), "non-finite x posterior")
+        mse = float(((r - torch.as_tensor(x0)) ** 2).mean())
+        v = float(post["x"]["v"])
+        results[dname] = (mse, v, post["x"]["r"])
+        print(f"relu net N=4096 {dname} through dispatch_solver "
+              f"(MLVAMPSolver): n_iter={n_iter} mse={mse:.6g} v={v:.6g} "
+              f"wall={wall:.3f} s sweeps/s={n_iter / wall:.1f} "
+              f"launches={launches} [{card}]")
+    (mse32, v32, _), (mse64, v64, r64) = results["float32"], results["float64"]
+    v_rel, mse_rel = abs(v32 - v64) / v64, abs(mse32 - mse64) / mse64
+    r_rel = rel_to_largest(torch, r64, engine_r)
+    check(v_rel < V_MSE_BOUND and mse_rel < V_MSE_BOUND and r_rel < R_TOL,
+          f"relu net through the front door, f32 vs f64: v {v_rel:.3g}, mse "
+          f"{mse_rel:.3g} (bound {V_MSE_BOUND}); f64 vs the engine's fixed "
+          f"point: r {r_rel:.3g} of the largest |r| (bound {R_TOL})")
+    print(f"relu net through the front door, f32 vs f64: v rel err "
+          f"{v_rel:.3e}, mse rel err {mse_rel:.3e} (bound {V_MSE_BOUND}); "
+          f"f64 vs the engine's fixed point: r within {r_rel:.3e} of the "
+          f"largest |r| (bound {R_TOL})")
+
+    student, _, linear = students["float32"]
+    print_window("relu net float32, one instance, MLVAMPSolver", loop_window(
+        lambda k: MLVAMPSolver(student, damping=0.1, max_iter=k,
+                               tol=0.0).solve(student)), card)
+    likelihood = len(student.factors) - 1
+    _, ys = batch_of_observations(torch, linear.W, LANES, True, seed=4)
+    stacked = with_buffers(student, {(likelihood, "y"): ys})
+    # The float32 stop metric (the relative change of r) has a rounding
+    # floor that grows with the lanes that share W: the float32 GEMM over
+    # 2048 lanes rounds five times as much as one instance's GEMV
+    # (chip_stop_floor.py reads both and the floor with exact products).
+    # Read it, then solve at a tolerance above it
+    # (BATCH_TOL: every lane must converge and follow its single solve) and
+    # at the tolerance of the single solves, which lies at or under the
+    # floor: that run is the fixed work of max_iter sweeps, and its count of
+    # converged lanes is printed, not checked.
+    for label, model, lanes in (("one instance", student, None),
+                                (f"{LANES} lanes", stacked, LANES)):
+        last = stop_metric_floor(torch, solvers["float32"], model,
+                                 lanes)[-1]
+        lo, mid, hi = (float(last.min()), float(last.median()),
+                       float(last.max()))
+        print(f"relu net float32, {label}: the stop metric after 60 sweeps "
+              f"is {lo:.3e} to {hi:.3e} over the lanes, median {mid:.3e} "
+              f"(tol {SOLVE['tol']:g}, BATCH_TOL {BATCH_TOL:g}) [{card}]")
+    windows = {
+        "MLVAMPSolver": lambda k: MLVAMPSolver(
+            student, damping=0.1, max_iter=k, tol=0.0).solve_batch(stacked),
+        "EPSolver": lambda k: EPSolver(
+            student, damping=0.1, max_iter=k, tol=0.0,
+            rollback_increase=float("inf")).solve_batch(stacked)}
+    windows = {
+        name: print_window(f"relu net float32, {name}.solve_batch over "
+                           f"{LANES} lanes", loop_window(run), card)
+        for name, run in windows.items()}
+    state = {}
+    for tol in (BATCH_TOL, SOLVE["tol"]):
+        above_floor = tol == BATCH_TOL
+        kw = dict(SOLVE, tol=tol)
+        solver = dispatch_solver(student, **kw)
+        ep_solver = EPSolver(student, **kw)
+
+        def ep_batch():
+            post, state["ep"], n_iter, conv = ep_solver._solve_batch(
+                stacked, None, None)
+            return post, n_iter, conv
+
+        posts = {}
+        for name, run in (("MLVAMPSolver",
+                           lambda: solver.solve_info(stacked)),
+                          ("EPSolver", ep_batch)):
+            what = (f"relu net float32, {name}.solve_batch over {LANES} "
+                    f"lanes, tol {tol:g}")
+            post, n_iter, conv, launches = batched_solve(
+                torch, pl, what, run, LANES, card, windows[name],
+                warm_up=above_floor)
+            add(launches)
+            sweeps = int(n_iter.max())
+            check(launches["pl_forward_message"] == sweeps
+                  and launches["pl_backward_message"] == sweeps
+                  and launches["pl_posterior"] == 0,
+                  f"{what}: launches {launches} for {sweeps} sweeps (want "
+                  "one of each message per sweep and no five-output kernel)")
+            posts[name] = post
+            if above_floor:
+                check(bool(conv.all()), f"{what}: {int((~conv).sum())} "
+                                        "lanes did not converge")
+                if name == "MLVAMPSolver":
+                    lanes_against_singles(torch, what, solver, student,
+                                          likelihood, ys, post, n_iter)
+        both = posts["MLVAMPSolver"]["x"]["r"], posts["EPSolver"]["x"]["r"]
+        agree = float(((both[0] - both[1]).abs().amax(1)
+                       / both[1].abs().amax(1)).median())
+        check(agree < 1e-2, f"relu net, batched, tol {tol:g}: MLVAMPSolver "
+              f"and EPSolver differ by {agree:.3g} of the largest |r| in the "
+              "median lane")
+        print(f"relu net float32, batched, tol {tol:g}: MLVAMPSolver and "
+              f"EPSolver agree within {agree:.3e} of the largest |r| in the "
+              "median lane")
+    # the relu factor's posteriors of all lanes at EPSolver's fixed point:
+    # the five-output kernel's path, two launches whatever the lanes
+    from tramp_tpu_torch.algos.message_passing import slot, FWD, BWD
+    eng, state = ep_solver.engine, state["ep"]
+    i = next(i for i, n in enumerate(eng.nodes) if isinstance(n, ReluChannel))
+    fwd = state[slot(eng.model.in_edges[i][0], FWD)]
+    bwd = state[slot(eng.model.out_edges[i][0], BWD)]
+    args = (fwd["a"], fwd["b"], bwd["a"], bwd["b"])
+    reset_launches(pl)
+    rx, vx = eng.nodes[i].compute_forward_posterior(*args)
+    rz, vz = eng.nodes[i].compute_backward_posterior(*args)
+    torch.cuda.synchronize()
+    launches = read_launches(pl)
+    add(launches)
+    want = pl.pl_posterior_plain(*args, eng.nodes[i].region_specs)
+    hold(torch, "relu posteriors of all lanes", ("rz", "vz", "rx", "vx"),
+         (rz, vz, rx, vx),
+         (want[0], want[1].mean(1, keepdim=True), want[2],
+          want[3].mean(1, keepdim=True)), RTOL["float32"])
+    check(launches["pl_posterior"] == 2 and rx.shape == LANE_SHAPE
+          and vx.shape == vz.shape == (LANES, 1),
+          f"relu posteriors of all lanes: launches {launches}, shapes "
+          f"{tuple(rx.shape)}, {tuple(vx.shape)}")
+    print(f"relu posteriors of {LANES} lanes: 2 launches of pl_posterior, "
+          "inside the tolerance of phase 3")
+    return total
+
+
 def main():
     import torch
     # phase 1: the device
@@ -507,7 +1062,9 @@ def main():
         check(row["spill_bytes"] == 0 or row["params"][0] > 3,
               f"{row['kernel']} {row['dtype']} {row['params']} spills")
     if log:
-        check(len(report) >= 3 * 2 * 8,
+        # (five-output + two message sides) x (with and without lanes)
+        # x float types x region counts
+        check(len(report) >= 3 * 2 * 2 * 8,
               f"ptxas reported {len(report)} kernels")
         print(f"ptxas: {len(report)} kernels in all, max "
               f"{max(r['registers'] for r in report)} registers, "
@@ -525,6 +1082,8 @@ def main():
     max_err["pl_posterior"], (post_ms, post_plain_ms) = compare_posterior(
         torch, pl, channels)
     max_err.update(compare_messages(torch, pl, channels))
+    for name, err in compare_lanes(torch, pl, (relu, tanh)).items():
+        max_err[name] = max(max_err[name], err)
     time_fusion(torch, pl, base, relu.region_specs)
     table = kernel_table(torch, pl, (relu, tanh), card)
     main_args = inputs(torch, 2048, torch.float32, 3)
@@ -538,6 +1097,12 @@ def main():
     print(f"plain versions at relu n=2048 float32, per call: " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in plain_ms.items())
         + f"; pl_posterior kernel {post_ms:.4f} ms")
+    lanes_err, lanes_plain_ms = hold_main_shape(torch, pl, relu)
+    for name, err in lanes_err.items():
+        max_err[name] = max(max_err[name], err)
+    print(f"plain versions at relu float32, {LANES} lanes of n=2048, per "
+          "call: " + ", ".join(f"{k} {v:.4f} ms"
+                               for k, v in lanes_plain_ms.items()))
 
     # phase 4: the relu net through the kernels, f32 and f64
     class UnfusedReluChannel(ReluChannel):
@@ -546,12 +1111,13 @@ def main():
         compute_forward_message = Channel.compute_forward_message
         compute_backward_message = Channel.compute_backward_message
 
-    results = {}
+    results, students, engine_r = {}, {}, {}
     main_launches = readout_launches = None
     for dtype in (torch.float32, torch.float64):
         dname = dtype_name(dtype)
-        student, x0, _ = relu_net(torch, tt, dtype)
+        student, x0, linear = students[dname] = relu_net(torch, tt, dtype)
         ep, mse, v, wall, launches = solve(torch, tt, pl, student, x0)
+        engine_r[dname] = ep.get_variable_data("x")["r"]
         check(launches["pl_forward_message"] == ep.n_iter > 0
               and launches["pl_backward_message"] == ep.n_iter
               and launches["pl_posterior"] == 0,
@@ -577,7 +1143,7 @@ def main():
               f"relu net {dname}: {unfused_ep.n_iter} sweeps with the "
               f"unfused messages, {ep.n_iter} with the fused ones")
         for label, engine in (("fused", ep), ("unfused", unfused_ep),
-                              ("unfused", unfused_ep), ("fused", ep)):
+                              ("fused", ep)):
             kernels, device, wall_ms = sweep_window(engine)
             print(f"relu net N=4096 {dname}, {label} messages, "
                   f"torch.profiler over 10 warm sweeps: {kernels:.1f} "
@@ -646,25 +1212,46 @@ def main():
           f"v={v:.6g} |mse-v|/v={abs(mse - v) / v:.3e} wall={wall:.3f} s "
           f"sweeps/s={ep.n_iter / wall:.1f} (SVD {svd_s:.2f} s) [{card}]")
 
-    # phase 6: summary. Times at the main path's case (relu, n = 2048,
-    # float32): ms and plain_ms per call by CUDA events, device_ms by
-    # torch.profiler; launches from the float32 solve alone, which runs the
-    # message kernels and never the five-output kernel. That kernel's
-    # launches in the posterior readout after the solve stand under a key of
-    # their own.
+    # phases 6 and 7: the front door, one instance and LANES lanes
+    engine_launches = dict(main_launches, pl_posterior=readout_launches)
+    flagship_launches = front_door_flagship(
+        torch, tt, pl, student, sample["x"], linear, v, card)
+    relu_launches = front_door_relu_net(torch, tt, pl, students,
+                                        engine_r["float64"], card)
+    check(not any(flagship_launches.values()),
+          f"the flagship ran kernels: {flagship_launches}")
+
+    # phase 8: summary. A main path is a solve with the posterior readout
+    # that follows it: the engine's float32 relu-net solve (phase 4) and the
+    # front door's relu-net solves, single and batched (phase 7); the
+    # flagship's paths run no kernel. ``launches`` adds the paths up, each
+    # counted from 0. The message kernels run in the sweeps, the five-output
+    # kernel only in the readouts. Times at the batched main path's shape
+    # (relu, float32, LANES lanes of 2048 elements): ms and plain_ms per call
+    # by CUDA events, device_ms by torch.profiler; the same at one instance
+    # (n = 2048) under ``one_instance``.
     kernels = []
     for name, source in SOURCES.items():
-        row = table[name, "relu", "float32", 2048]
+        row = table[name, "relu", "float32", LANE_SHAPE]
+        one = table[name, "relu", "float32", 2048]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": "tramp_tpu/ops/pl_fused.py:81",
-            "launches": main_launches[name],
+            "launches": engine_launches[name] + relu_launches[name],
+            "launches_by_path": {"engine_relu_net_f32": engine_launches[name],
+                                 "front_door_relu_net": relu_launches[name],
+                                 "front_door_flagship": 0},
             "max_abs_err": max_err[name], "ms": row["per_call_ms"],
-            "plain_ms": plain_ms[name], "bound_ms": row["bound_ms"],
+            "plain_ms": lanes_plain_ms[name], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
-            "device_ms": row["device_ms"], "host_ms": row["host_ms"]})
-        if name == "pl_posterior":
-            kernels[-1]["readout_launches"] = readout_launches
+            "device_ms": row["device_ms"], "host_ms": row["host_ms"],
+            "shape": list(LANE_SHAPE),
+            "one_instance": {
+                "ms": one["per_call_ms"], "plain_ms": plain_ms[name],
+                "bound_ms": one["bound_ms"], "bound_by": one["bound_by"],
+                "device_ms": one["device_ms"], "host_ms": one["host_ms"]}})
+        check(kernels[-1]["launches"] > 0, f"{name} was never launched on "
+                                           "the main paths")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

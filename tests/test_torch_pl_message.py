@@ -134,3 +134,101 @@ def test_message_propagates_nan(direction):
     bz[5] = float("nan")
     a_new, b_new = fused(az, bz, ax, bx, channels.ReluChannel().region_specs)
     assert bool(torch.isnan(a_new)) and bool(torch.isnan(b_new).all())
+
+
+# -- lanes: (B, n) inputs with a precision per lane ---------------------------
+
+B = 3
+
+
+def _lane_inputs(seed=22):
+    "(az, bz, ax, bx) as numpy: B lanes of N elements, precisions (B,)."
+    rng = np.random.RandomState(seed)
+    return (1.2 + rng.rand(B), 2 * rng.randn(B, N), 0.4 + rng.rand(B),
+            2 * rng.randn(B, N))
+
+
+def _lane_tensors(az, bz, ax, bx):
+    "The port's layout: precisions (B, 1) beside messages (B, N)."
+    return _t(az).reshape(B, 1), _t(bz), _t(ax).reshape(B, 1), _t(bx)
+
+
+@pytest.mark.parametrize("direction", list(DIRECTIONS))
+@pytest.mark.parametrize("name", list(PL_CHANNELS))
+def test_lane_message_matches_vmapped_jax_channel(name, direction):
+    """Per-lane precisions against ``jax.vmap`` of the JAX channel's message
+    (its jnp region path on the CPU): rtol 1e-10."""
+    import jax
+    port, ref = _pair(name)
+    fused, plain, method = DIRECTIONS[direction]
+    args = _lane_inputs()
+    a_ref, b_ref = jax.vmap(getattr(ref, method))(*map(jnp.asarray, args))
+    for fn in (fused, plain):
+        a_new, b_new = fn(*_lane_tensors(*args), port.region_specs)
+        assert a_new.shape == (B, 1) and b_new.shape == (B, N)
+        assert_close(a_new.reshape(B), a_ref, 1e-10, what="a_new")
+        assert_close(b_new, b_ref, 1e-10, what="b_new")
+
+
+def test_lane_message_matches_vmapped_pallas_interpret():
+    """The JAX kernel under ``jax.vmap`` in interpret mode, then the JAX
+    ``compute_ab_new`` per lane: rtol 1e-10."""
+    import jax
+    port, ref = _pair("h-tanh")
+    args = _lane_inputs()
+    az, bz, ax, bx = map(jnp.asarray, args)
+    rz, vz, rx, vx, _ = jax.vmap(
+        lambda a, b, c, d: fused_pl_posterior(
+            a, b, c, d, ref.region_specs, interpret=True))(az, bz, ax, bx)
+    wanted = {
+        "forward": jax.vmap(jbase.compute_ab_new)(
+            rx, jnp.mean(vx, axis=1), ax, bx),
+        "backward": jax.vmap(jbase.compute_ab_new)(
+            rz, jnp.mean(vz, axis=1), az, bz),
+    }
+    for direction, (fused, _, _) in DIRECTIONS.items():
+        a_new, b_new = fused(*_lane_tensors(*args), port.region_specs)
+        assert_close(a_new.reshape(B), wanted[direction][0], 1e-10,
+                     what=f"{direction} a_new")
+        assert_close(b_new, wanted[direction][1], 1e-10,
+                     what=f"{direction} b_new")
+
+
+@pytest.mark.parametrize("other", ["scalar", "per_lane", "per_element"])
+@pytest.mark.parametrize("direction", list(DIRECTIONS))
+def test_lane_of_a_batched_message_is_the_single_message(direction, other):
+    """Lane i of a batched call against the single call on lane i's data
+    (rtol 1e-13: a mean along an axis may sum in another order than a mean
+    over everything), whatever the shape of the other side's precision."""
+    fused, _, _ = DIRECTIONS[direction]
+    specs = channels.HardTanhChannel().region_specs
+    az, bz, ax, bx = _lane_tensors(*_lane_inputs(seed=23))
+    others = {"scalar": torch.tensor(0.9, dtype=F64), "per_lane": None,
+              "per_element": 0.4 + torch.rand(B, N, dtype=F64)}
+    if others[other] is not None:
+        if direction == "forward":
+            az = others[other]
+        else:
+            ax = others[other]
+    a_new, b_new = fused(az, bz, ax, bx, specs)
+    assert a_new.shape == (B, 1)
+
+    def lane(a, i):
+        return a if a.ndim == 0 else a[i].reshape(()) if a.shape[1] == 1 \
+            else a[i]
+
+    for i in range(B):
+        a_i, b_i = fused(lane(az, i), bz[i], lane(ax, i), bx[i], specs)
+        assert_close(a_new[i, 0], a_i, 1e-13, what=f"lane {i} a_new")
+        assert_close(b_new[i], b_i, 1e-13, what=f"lane {i} b_new")
+
+
+@pytest.mark.parametrize("direction", list(DIRECTIONS))
+def test_lane_message_keeps_a_nan_in_its_lane(direction):
+    fused, _, _ = DIRECTIONS[direction]
+    az, bz, ax, bx = _lane_tensors(*_lane_inputs())
+    bz = bz.clone()
+    bz[1, 5] = float("nan")
+    a_new, b_new = fused(az, bz, ax, bx, channels.ReluChannel().region_specs)
+    assert torch.isnan(a_new).reshape(B).tolist() == [False, True, False]
+    assert torch.isnan(b_new).all(1).tolist() == [False, True, False]

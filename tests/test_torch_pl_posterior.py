@@ -50,3 +50,26 @@ def test_plain_matches_jax(channel, oracle):
         channel.region_specs)
     for name, g, w in zip(STREAMS, got, want):
         assert_close(g, w, 1e-10, what=name)
+
+
+@pytest.mark.parametrize("oracle", [_jax_kernel, pl_posterior_reference],
+                         ids=["pallas_interpret", "jnp_reference"])
+@pytest.mark.parametrize("channel", CHANNELS[2:5], ids=lambda c: c.name)
+def test_plain_with_lanes_matches_vmapped_jax(channel, oracle):
+    """(B, n) inputs with a precision per lane, (B, 1), against ``jax.vmap``
+    of the JAX kernel (interpret mode) and of its jnp twin: rtol 1e-10."""
+    import jax
+    rng = np.random.RandomState(1)
+    lanes, n = 3, 300
+    az, ax = 1.2 + rng.rand(lanes), 0.4 + rng.rand(lanes)
+    bz, bx = rng.randn(lanes, n) * 2, rng.randn(lanes, n) * 2
+    want = jax.vmap(lambda a, b, c, d: oracle(a, b, c, d,
+                                              channel.region_specs))(
+        *map(jnp.asarray, (az, bz, ax, bx)))
+    got = pl_posterior_plain(
+        torch.as_tensor(az).reshape(lanes, 1), torch.as_tensor(bz),
+        torch.as_tensor(ax).reshape(lanes, 1), torch.as_tensor(bx),
+        channel.region_specs)
+    for name, g, w in zip(STREAMS, got, want):
+        assert g.shape == (lanes, n)
+        assert_close(g, w, 1e-10, what=name)

@@ -52,7 +52,9 @@ def test_port_sources_import_no_jax():
     pattern = re.compile(
         r"^\s*(import|from)\s+(jax|jaxlib|tramp_tpu)(\.|\s|$)", re.M)
     sources = sorted((REPO / "tramp_tpu_torch").rglob("*.py"))
-    sources.append(REPO / "chip_smoke.py")
+    sources += [REPO / "chip_smoke.py", REPO / "chip_kernel_times.py",
+                REPO / "chip_stop_floor.py"]
+    assert any(p.parent.name == "parallel" for p in sources)
     offenders = [str(p) for p in sources if pattern.search(p.read_text())]
     assert len(sources) > 10 and not offenders, offenders
 
@@ -123,6 +125,60 @@ def test_message_wrapper_shape_rule_on_meta(fused, plain, per_element):
         assert g.shape == w.shape and g.dtype == w.dtype
 
 
+def _lane_inputs(lanes, n, dtype, device="cpu", seed=0):
+    "(az, bz, ax, bx) with lanes: messages (lanes, n), precisions (lanes, 1)."
+    rng = np.random.RandomState(seed)
+    def t(x):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+    return (t(1.2 + rng.rand(lanes, 1)), t(2 * rng.randn(lanes, n)),
+            t(0.4 + rng.rand(lanes, 1)), t(2 * rng.randn(lanes, n)))
+
+
+@pytest.mark.parametrize("other", ["per_lane", "scalar", "per_element"])
+@pytest.mark.parametrize("fused,plain", MESSAGES,
+                         ids=["forward", "backward"])
+def test_message_wrapper_shape_rule_on_meta_with_lanes(fused, plain, other):
+    """With lanes the meta shapes are the plain version's: a_new one value
+    per lane, whatever the other side's precision looks like."""
+    az, bz, ax, bx = _lane_inputs(5, 300, torch.float32)
+    others = {"per_lane": None, "scalar": torch.tensor(0.9),
+              "per_element": torch.rand(5, 300) + 0.4}
+    if others[other] is not None:
+        if fused is pl_fused.pl_forward_message:
+            az = others[other]
+        else:
+            ax = others[other]
+    specs = ReluChannel().region_specs
+    want = plain(az, bz, ax, bx, specs)
+    got = fused(*(t.to("meta") for t in (az, bz, ax, bx)), specs)
+    assert want[0].shape == (5, 1) and want[1].shape == (5, 300)
+    for g, w in zip(got, want):
+        assert g.device.type == "meta"
+        assert g.shape == w.shape and g.dtype == w.dtype
+    outs = pl_fused.pl_posterior(
+        *(t.to("meta") for t in (az, bz, ax, bx)), specs)
+    assert all(o.shape == (5, 300) for o in outs)
+
+
+def test_precision_strides_tell_scalar_lane_and_element():
+    "How the kernels are told to read a precision (element, lane strides)."
+    az, bz, ax, bx = _lane_inputs(5, 300, torch.float32)
+    assert pl_fused._lanes(az, bz, ax) == 5
+    assert pl_fused._lanes(az, bz, torch.tensor(0.9)) == 5
+    assert pl_fused._lanes(torch.tensor(1.7), bz, torch.tensor(0.9)) is None
+    assert pl_fused._lanes(torch.rand(5, 300), bz, torch.rand(5, 300)) is None
+    assert pl_fused._strides(az, bz, 5) == (0, 1)
+    assert pl_fused._strides(torch.tensor(0.9), bz, 5) == (0, 0)
+    assert pl_fused._strides(torch.rand(5, 300), bz, 5) == (1, 300)
+    assert pl_fused._strides(torch.rand(5, 300), bz, None) == (1, 1500)
+    assert pl_fused._a_new_shape(ax, bz, 5) == (5, 1)
+    assert pl_fused._a_new_shape(torch.tensor(0.9), bz, 5) == (5, 1)
+    assert pl_fused._a_new_shape(torch.tensor(0.9), bz, None) == ()
+    assert pl_fused._a_new_shape(torch.rand(5, 300), bz, 5) == (5, 300)
+    with pytest.raises(ValueError, match="one value per lane"):
+        pl_fused._precision(torch.rand(4, 1), bz, "az")
+
+
 def test_region_specs_are_converted_once_per_channel_and_dtype():
     tanh, sigm = HardTanhChannel(), HardSigmoidChannel()
     f32, f64 = torch.float32, torch.float64
@@ -150,12 +206,18 @@ def test_ptxas_report_reads_registers_and_spills():
         "17pl_message_kernelIdLi3ELi1EEEvPKT_' for 'sm_90a'\n"
         "    16 bytes stack frame, 12 bytes spill stores, 12 bytes spill "
         "loads\n"
-        "ptxas info    : Used 128 registers, used 1 barriers\n")
+        "ptxas info    : Used 128 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__9c2b"
+        "17pl_message_kernelIfLi2ELi0ELb1EEEvPKT_' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 64 registers, used 1 barriers\n")
     assert pl_fused.ptxas_report(log) == [
         {"kernel": "pl_posterior_kernel", "dtype": "f", "params": [2],
          "registers": 48, "spill_bytes": 0},
         {"kernel": "pl_message_kernel", "dtype": "d", "params": [3, 1],
-         "registers": 128, "spill_bytes": 12}]
+         "registers": 128, "spill_bytes": 12},
+        {"kernel": "pl_message_kernel", "dtype": "f", "params": [2, 0, 1],
+         "registers": 64, "spill_bytes": 0}]
 
 
 NO_CARD = dict(os.environ, CUDA_VISIBLE_DEVICES="")
@@ -236,6 +298,19 @@ def test_kernel_matches_plain_on_card():
                     bound = rtol * (w.abs() + w.abs().max())
                     assert bool(((g - w).abs() <= bound).all()), (
                         channel.name, dtype, n)
+        # lanes: a precision per lane, read as a[lane] on the device
+        for n in (2048, 16684):
+            args = _lane_inputs(3, n, dtype, device="cuda", seed=n)
+            for channel in CHANNELS:
+                got = pl_fused.pl_posterior(*args, channel.region_specs)
+                want = pl_fused.pl_posterior_plain(*args,
+                                                   channel.region_specs)
+                torch.cuda.synchronize()
+                for g, w in zip(got, want):
+                    bound = rtol * (w.abs() + w.abs().max())
+                    assert g.shape == w.shape == (3, n)
+                    assert bool(((g - w).abs() <= bound).all()), (
+                        channel.name, dtype, n, "lanes")
 
 
 @pytest.mark.cuda
@@ -274,3 +349,25 @@ def test_message_kernels_match_plain_on_card():
                             bound = rtol * (w.abs() + w.abs().max())
                             assert bool(((g - w).abs() <= bound).all()), (
                                 channel.name, fused.__name__, dtype, n)
+        # lanes: the mean, the update and the clamps per lane; the launch
+        # count does not depend on the lanes; lane i has the bits of the
+        # single launch on lane i's data
+        for n in (2048, 16684):
+            az, bz, ax, bx = _lane_inputs(3, n, dtype, device="cuda", seed=n)
+            for channel in CHANNELS:
+                for fused, plain in MESSAGES:
+                    before = fused.launches
+                    got = fused(az, bz, ax, bx, channel.region_specs)
+                    per_call = 1 if n <= pl_fused.CLUSTER_MAX else 2
+                    assert fused.launches == before + per_call
+                    want = plain(az, bz, ax, bx, channel.region_specs)
+                    for g, w in zip(got, want):
+                        assert g.shape == w.shape
+                        bound = rtol * (w.abs() + w.abs().max())
+                        assert bool(((g - w).abs() <= bound).all()), (
+                            channel.name, fused.__name__, dtype, n, "lanes")
+                    for i in range(3):
+                        single = fused(az[i, 0], bz[i], ax[i, 0], bx[i],
+                                       channel.region_specs)
+                        assert torch.equal(got[0][i, 0], single[0])
+                        assert torch.equal(got[1][i], single[1])

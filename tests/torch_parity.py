@@ -35,6 +35,14 @@ def describe_model(model):
             "edges": [(index[u], index[v]) for u, v in dag.edges]}
 
 
+def port_model(jax_model, dtype=torch.float64):
+    """The port's Model of a tramp_tpu Model, on the CPU: the same arrays,
+    the JAX SVD carried over."""
+    from tramp_tpu_torch import convert
+    return convert.model_from_description(describe_model(jax_model),
+                                          device="cpu", dtype=dtype)
+
+
 def describe_state(state, n_slots):
     "(slots, cache) of a tramp_tpu engine state, as numpy."
     slots = [{k: np.asarray(v) for k, v in msg.items()}

@@ -15,10 +15,18 @@ tramp_tpu/algos/message_passing.py (EP path).
   ``new = d*old + (1-d)*new`` (reference message_passing.py:119-127).
 
 Slot layout: model edge e gets slots 2e (direction "fwd") and 2e+1 ("bwd").
+
+Lanes (tramp_tpu_torch/lanes.py): a state whose messages carry a first lane
+axis (``b`` of shape ``(B, n)``, ``a`` of shape ``(B, 1)``) is swept by the
+same code against a model whose buffers carry lanes, and ``_metric``,
+``_delta_increase`` and ``_all_finite`` then return one value per lane,
+shape ``(B,)``. ``iterate`` solves one instance; the batched loop is
+``parallel.EPSolver``.
 """
 import torch
 
 from ..base import Variable, Factor
+from ..lanes import lane_count, per_lane
 from ..models import Model
 from .callbacks import EarlyStopping
 from .initial_conditions import ConstantInit
@@ -98,12 +106,15 @@ class MessagePassing:
             state = self._refresh_spectral_cache(state)
         return state
 
-    def _refresh_spectral_cache(self, state):
-        "Recompute each carried spectral image from the current slots."
+    def _refresh_spectral_cache(self, state, model=None):
+        """Recompute each carried spectral image from the current slots,
+        with the operators of ``model`` (None: the engine's own; the batched
+        solver passes the model whose buffers carry the lanes)."""
+        nodes = self.nodes if model is None else model.nodes
         cache = {}
         for i in self.spectral_factors:
             e_out = self.model.out_edges[i][0]
-            cache[str(i)] = self.nodes[i].spectral_image(
+            cache[str(i)] = nodes[i].spectral_image(
                 state[slot(e_out, BWD)]["b"])
         return tuple(state[:self.n_slots]) + (cache,)
 
@@ -223,15 +234,24 @@ class MessagePassing:
         return tuple(state)
 
     # -- convergence metrics ----------------------------------------------
+    @staticmethod
+    def _lanes(state):
+        "B when the state's messages carry a lane axis, else None."
+        return lane_count(state[0]["a"], state[0]["b"])
+
     def _metric(self, state, kind):
         """Per-variable stopping metric: posterior v (kind="v", reference
-        EarlyStopping) or posterior r (kind="r", reference EarlyStoppingEP).
+        EarlyStopping; 0-d, or ``(B,)`` with lanes) or posterior r
+        (kind="r", reference EarlyStoppingEP; the variable's shape).
         """
+        lanes = self._lanes(state)
         out = []
         for i in self.variable_indices:
             post = self._posterior(i, state)
             if kind == "v":
-                out.append(torch.mean(1.0 / post["a"]))
+                v = 1.0 / post["a"]
+                out.append(per_lane(v, True).mean(-1) if lanes
+                           else torch.mean(v))
             else:
                 # NaN-free also on the a=0, b=0 init state
                 a = post["a"]
@@ -239,19 +259,24 @@ class MessagePassing:
                 out.append(post["b"] / torch.clamp(a, min=tiny))
         return out
 
-    def _delta_increase(self, kind, new_m, old_m):
+    def _delta_increase(self, kind, new_m, old_m, lanes=None):
         """(convergence delta, divergence measure) for the chosen metric:
         kind="v": max |dv| and max dv (callbacks.py:220-236);
         kind="r": max relative r change, used for both (callbacks.py:265-277).
+        The maximum is over the variables; with ``lanes`` both come back
+        per lane, shape ``(B,)``.
         """
         if kind == "v":
+            # one mean variance per variable (and lane): nothing to reduce
+            # within a variable
             deltas = torch.stack(
-                [torch.max(torch.abs(n - o)) for n, o in zip(new_m, old_m)])
-            incs = torch.stack(
-                [torch.max(n - o) for n, o in zip(new_m, old_m)])
-            return deltas.max(), incs.max()
+                [torch.abs(n - o) for n, o in zip(new_m, old_m)])
+            incs = torch.stack([n - o for n, o in zip(new_m, old_m)])
+            return deltas.amax(0), incs.amax(0)
 
         def norm(x):
+            if lanes:
+                return torch.sqrt(per_lane(x**2, True).mean(-1))
             return torch.sqrt(torch.mean(x**2))
 
         def rel(n, o):
@@ -259,7 +284,7 @@ class MessagePassing:
             nn = norm(n)
             return norm(n - o) / torch.clamp(nn, min=torch.finfo(nn.dtype).tiny)
 
-        d = torch.stack([rel(n, o) for n, o in zip(new_m, old_m)]).max()
+        d = torch.stack([rel(n, o) for n, o in zip(new_m, old_m)]).amax(0)
         return d, d
 
     def _stop_params(self, early_stop, tol):
@@ -276,11 +301,19 @@ class MessagePassing:
 
     # -- finite guard -----------------------------------------------------
     def _all_finite(self, state):
-        flat = [msg[k].reshape(-1)
-                for msg in state[:self.n_slots] for k in self.message_keys]
+        "One flag; with lanes one per lane, shape ``(B,)``."
+        arrays = [msg[k]
+                  for msg in state[:self.n_slots] for k in self.message_keys]
         if self.spectral_factors:
-            flat += [v.reshape(-1) for v in state[self.n_slots].values()]
-        return torch.isfinite(torch.cat(flat)).all()
+            arrays += list(state[self.n_slots].values())
+        if self._lanes(state):
+            # array by array: one concatenated copy of a batched state
+            # would move every message once more
+            flags = [torch.isfinite(per_lane(x, True)).all(-1)
+                     for x in arrays]
+            return torch.stack(flags).all(0)
+        return torch.isfinite(
+            torch.cat([x.reshape(-1) for x in arrays])).all()
 
     # -- iterate ----------------------------------------------------------
     def iterate(self, max_iter=200, initializer=None, damping=None,

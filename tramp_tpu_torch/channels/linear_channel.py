@@ -5,11 +5,18 @@ EP messages are thin matvecs in the SVD basis against U (Nx, k) and
 V (Nz, k), k = min(Nx, Nz); the matvecs are exact in the working dtype
 (``torch.matmul``). Modes beyond k have resolvent 1/az, restored by the
 projector identity V_perp V_perp^T = I - V V^T
-(spectral_backward_posterior)."""
+(spectral_backward_posterior).
+
+Lanes (tramp_tpu_torch/lanes.py): messages of shape ``(B, n)`` with
+precisions ``(B, 1)``. With one shared operator (two-dimensional factors)
+the B matvecs are one GEMM, ``x @ A``; with an operator per lane (factors
+stacked to ``(B, Nx, k)``) they are one ``torch.bmm``. The spectral sums
+are taken per lane."""
 import torch
 
 from .base_channel import Channel
 from ..config import as_tensor
+from ..lanes import last_axis
 
 
 class LinearChannel(Channel):
@@ -58,12 +65,21 @@ class LinearChannel(Channel):
     def compute_n_eff(self, az, ax):
         "Effective number of parameters / Nz. Reference l:58-67."
         ratio = az / torch.clamp(ax, min=1e-30)
-        n_eff = torch.sum(self.singular / (ratio + self.singular)) / self.Nz
+        n_eff = last_axis(self.singular / (ratio + self.singular),
+                          torch.sum) / self.Nz
         return torch.where(ax == 0, 0.0, n_eff)
 
     @staticmethod
     def _mm(A, x, transpose=False):
-        "``A @ x`` (or ``A.T @ x``) for the SVD-basis factors."
+        """``A @ x`` (or ``A.T @ x``) for the SVD-basis factors, for every
+        lane of ``x``: ``x`` is ``(n,)`` or ``(B, n)``, ``A`` one matrix or
+        one per lane ``(B, rows, columns)``."""
+        if A.ndim == 3:
+            if transpose:
+                return torch.bmm(x.unsqueeze(1), A).squeeze(1)
+            return torch.bmm(A, x.unsqueeze(2)).squeeze(2)
+        if x.ndim == 2:
+            return x @ (A if transpose else A.T)
         return (A.T if transpose else A) @ x
 
     def spectral_image(self, bx):
@@ -105,7 +121,7 @@ class LinearChannel(Channel):
         return (1.0 - n_eff) / az
 
     def compute_forward_variance(self, az, ax):
-        s_mean = torch.mean(self.singular)
+        s_mean = last_axis(self.singular, torch.mean)
         v0 = s_mean * self.rank / (self.Nx * az)  # ax == 0 limit (ref l:97-99)
         n_eff = self.compute_n_eff(az, ax)
         v = n_eff / (self.alpha * torch.clamp(ax, min=1e-30))

@@ -9,9 +9,8 @@ and the moment-matching update); the posteriors go through the five-output
 plain twin on the CPU."""
 import math
 
-import torch
-
 from .base_channel import Channel
+from ..lanes import lane_mean
 from ..ops import pl_posterior, pl_forward_message, pl_backward_message
 from ..utils.linear_region import LinearRegion
 
@@ -39,11 +38,11 @@ class PiecewiseLinearChannel(Channel):
 
     def compute_forward_posterior(self, az, bz, ax, bx):
         _, _, rx, vx, _ = pl_posterior(az, bz, ax, bx, self.region_specs)
-        return rx, torch.mean(vx)
+        return rx, lane_mean(vx, az, ax)
 
     def compute_backward_posterior(self, az, bz, ax, bx):
         rz, vz, _, _, _ = pl_posterior(az, bz, ax, bx, self.region_specs)
-        return rz, torch.mean(vz)
+        return rz, lane_mean(vz, az, ax)
 
     def compute_forward_message(self, az, bz, ax, bx):
         return pl_forward_message(az, bz, ax, bx, self.region_specs)

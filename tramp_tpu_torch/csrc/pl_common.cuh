@@ -34,6 +34,7 @@ namespace pl {
 
 constexpr int kMaxRegions = 8;
 constexpr int kSpecFields = 7;  // zmin, zmax, x0, slope, slope^2, x0^2, kind
+constexpr int64_t kMaxGridY = 65535;  // CUDA's limit on gridDim.y
 
 constexpr double kInvSqrt2 = 0.7071067811865476;
 constexpr double kSqrtPi = 1.7724538509055159;

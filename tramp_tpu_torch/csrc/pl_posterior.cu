@@ -33,11 +33,24 @@
 // no alignment is assumed. Several elements per thread with 16-byte loads
 // and stores were tried and were slower (PERF.md): the arithmetic, not the
 // loads, fills the time, and more elements in flight per thread only cost
-// registers. The precisions az and ax are read on the device (stride 0 for
-// a scalar, 1 for per-element values), so the caller never synchronises to
-// pass them.
+// registers. The precisions az and ax are read on the device, so the caller
+// never synchronises to pass them.
 //
-// C interface (loaded with ctypes): pl_posterior_f32 / pl_posterior_f64,
+// Lanes. The inputs may be `lanes` instances of n elements each, laid out
+// one after another, with a precision per lane (what jax.vmap gives the TPU
+// kernel). Lanes lie on the grid's y axis, so a thread knows its lane
+// without a division, and a precision is read as
+// a[lane * lane_stride + e * element_stride]: strides (0, 0) for one number,
+// (0, 1) for one per lane, (1, n) for one per element. No (lanes, n) copy of
+// a precision is made. The kernel is instantiated twice: with LANED = true
+// as described, and with LANED = false for a single instance (lanes == 1),
+// where the lane loop and the lane offsets fold away at compile time. One
+// instantiation for both cost a single instance 7 to 8 registers and 5-8% of
+// its time in float32 (PERF.md); the arithmetic per element is the same
+// code in both, so a lane has the bits of its single launch.
+//
+// C interface (loaded with ctypes): pl_posterior_f32 / pl_posterior_f64
+// (n is the number of elements of one lane),
 // and pl_launch_floor, an empty kernel whose time is the floor under every
 // launch. They launch on the given stream, allocate nothing, do not
 // synchronise, and return cudaGetLastError() (0 on success). Compile with
@@ -75,56 +88,84 @@ __device__ __forceinline__ void posterior_element(const Regions<T>& rg, T az,
   logz_o = A_max + m_log(Z);
 }
 
-template <typename T, int K>
+template <typename T, int K, bool LANED>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 pl_posterior_kernel(const T* __restrict__ az, int64_t az_stride,
-                    const T* __restrict__ bz, const T* __restrict__ ax,
-                    int64_t ax_stride, const T* __restrict__ bx,
+                    int64_t az_lane, const T* __restrict__ bz,
+                    const T* __restrict__ ax, int64_t ax_stride,
+                    int64_t ax_lane, const T* __restrict__ bx,
                     T* __restrict__ rz_out, T* __restrict__ vz_out,
                     T* __restrict__ rx_out, T* __restrict__ vx_out,
-                    T* __restrict__ logz_out, int64_t n,
+                    T* __restrict__ logz_out, int64_t n, int64_t lanes,
                     const Regions<T> rg) {
   const int64_t step = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += step) {
-    T rz, vz, rx, vx, logz;
-    posterior_element<T, K>(rg, az[i * az_stride], bz[i], ax[i * ax_stride],
-                            bx[i], rz, vz, rx, vx, logz);
-    rz_out[i] = rz;
-    vz_out[i] = vz;
-    rx_out[i] = rx;
-    vx_out[i] = vx;
-    logz_out[i] = logz;
+  // LANED == false: one lane, and the lane arithmetic folds away
+  const int64_t lane_end = LANED ? lanes : 1;
+  for (int64_t lane = LANED ? blockIdx.y : 0; lane < lane_end;
+       lane += LANED ? gridDim.y : 1) {
+    const T* az_l = LANED ? az + lane * az_lane : az;
+    const T* ax_l = LANED ? ax + lane * ax_lane : ax;
+    const int64_t base = LANED ? lane * n : 0;
+    for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
+         e += step) {
+      const int64_t i = base + e;
+      T rz, vz, rx, vx, logz;
+      posterior_element<T, K>(rg, az_l[e * az_stride], bz[i],
+                              ax_l[e * ax_stride], bx[i], rz, vz, rx, vx,
+                              logz);
+      rz_out[i] = rz;
+      vz_out[i] = vz;
+      rx_out[i] = rx;
+      vx_out[i] = vx;
+      logz_out[i] = logz;
+    }
   }
 }
 
 __global__ void pl_empty_kernel() {}
 
+// The grid: x over a lane's elements, y over the lanes, and together at
+// most about the blocks the card holds at once (the loops take the rest).
 template <typename T, int K>
-int launch_k(const T* az, int64_t az_stride, const T* bz, const T* ax,
-             int64_t ax_stride, const T* bx, T* rz, T* vz, T* rx, T* vx,
-             T* logz, int64_t n, const Regions<T>& rg, cudaStream_t s) {
-  static const int64_t resident =
-      resident_blocks(pl_posterior_kernel<T, K>, kThreads);
+int launch_k(const T* az, int64_t az_stride, int64_t az_lane, const T* bz,
+             const T* ax, int64_t ax_stride, int64_t ax_lane, const T* bx,
+             T* rz, T* vz, T* rx, T* vx, T* logz, int64_t n, int64_t lanes,
+             const Regions<T>& rg, cudaStream_t s) {
+  // one instance takes the instantiation without the lane arithmetic
+  static const int64_t resident_one =
+      resident_blocks(pl_posterior_kernel<T, K, false>, kThreads);
+  static const int64_t resident_many =
+      resident_blocks(pl_posterior_kernel<T, K, true>, kThreads);
+  const int64_t resident = lanes == 1 ? resident_one : resident_many;
+  auto kernel = lanes == 1 ? pl_posterior_kernel<T, K, false>
+                           : pl_posterior_kernel<T, K, true>;
   int64_t blocks = (n + kThreads - 1) / kThreads;
   if (blocks > resident) blocks = resident;
-  pl_posterior_kernel<T, K><<<(unsigned)blocks, kThreads, 0, s>>>(
-      az, az_stride, bz, ax, ax_stride, bx, rz, vz, rx, vx, logz, n, rg);
+  int64_t rows = (resident + blocks - 1) / blocks;
+  if (rows > lanes) rows = lanes;
+  if (rows > kMaxGridY) rows = kMaxGridY;
+  kernel<<<dim3((unsigned)blocks, (unsigned)rows), kThreads, 0, s>>>(
+      az, az_stride, az_lane, bz, ax, ax_stride, ax_lane, bx, rz, vz, rx, vx,
+      logz, n, lanes, rg);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const T* az, int64_t az_stride, const T* bz, const T* ax,
-           int64_t ax_stride, const T* bx, T* rz, T* vz, T* rx, T* vx,
-           T* logz, int64_t n, const T* specs, int k, void* stream) {
-  if (k < 1 || k > kMaxRegions || n < 0) return (int)cudaErrorInvalidValue;
+int launch(const T* az, int64_t az_stride, int64_t az_lane, const T* bz,
+           const T* ax, int64_t ax_stride, int64_t ax_lane, const T* bx,
+           T* rz, T* vz, T* rx, T* vx, T* logz, int64_t n, int64_t lanes,
+           const T* specs, int k, void* stream) {
+  if (k < 1 || k > kMaxRegions || n < 0 || lanes < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (n == 0) return (int)cudaGetLastError();
   const Regions<T> rg = regions_from(specs, k);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define PL_LAUNCH(KK)                                                      \
   case KK:                                                                 \
-    return launch_k<T, KK>(az, az_stride, bz, ax, ax_stride, bx, rz, vz,   \
-                           rx, vx, logz, n, rg, s);
+    return launch_k<T, KK>(az, az_stride, az_lane, bz, ax, ax_stride,      \
+                           ax_lane, bx, rz, vz, rx, vx, logz, n, lanes, rg, \
+                           s);
   switch (k) {
     PL_LAUNCH(1)
     PL_LAUNCH(2)
@@ -143,25 +184,28 @@ int launch(const T* az, int64_t az_stride, const T* bz, const T* ax,
 
 #ifndef PL_F64_ONLY
 extern "C" int pl_posterior_f32(const float* az, int64_t az_stride,
-                                const float* bz, const float* ax,
-                                int64_t ax_stride, const float* bx, float* rz,
+                                int64_t az_lane, const float* bz,
+                                const float* ax, int64_t ax_stride,
+                                int64_t ax_lane, const float* bx, float* rz,
                                 float* vz, float* rx, float* vx, float* logz,
-                                int64_t n, const float* specs, int k,
-                                void* stream) {
-  return launch<float>(az, az_stride, bz, ax, ax_stride, bx, rz, vz, rx, vx,
-                       logz, n, specs, k, stream);
+                                int64_t n, int64_t lanes, const float* specs,
+                                int k, void* stream) {
+  return launch<float>(az, az_stride, az_lane, bz, ax, ax_stride, ax_lane, bx,
+                       rz, vz, rx, vx, logz, n, lanes, specs, k, stream);
 }
 #endif
 
 #ifndef PL_F32_ONLY
 extern "C" int pl_posterior_f64(const double* az, int64_t az_stride,
-                                const double* bz, const double* ax,
-                                int64_t ax_stride, const double* bx,
+                                int64_t az_lane, const double* bz,
+                                const double* ax, int64_t ax_stride,
+                                int64_t ax_lane, const double* bx,
                                 double* rz, double* vz, double* rx,
                                 double* vx, double* logz, int64_t n,
-                                const double* specs, int k, void* stream) {
-  return launch<double>(az, az_stride, bz, ax, ax_stride, bx, rz, vz, rx, vx,
-                        logz, n, specs, k, stream);
+                                int64_t lanes, const double* specs, int k,
+                                void* stream) {
+  return launch<double>(az, az_stride, az_lane, bz, ax, ax_stride, ax_lane,
+                        bx, rz, vz, rx, vx, logz, n, lanes, specs, k, stream);
 }
 #endif
 

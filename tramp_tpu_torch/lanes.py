@@ -1,0 +1,171 @@
+"""The lane axis: many instances of one model solved in one loop.
+
+The JAX package batches with ``jax.vmap``; the port writes the batch out.
+With B lanes every per-instance array gains a first axis of length B
+(a message mean ``b`` of a length-n variable is ``(B, n)``) and every
+per-instance scalar (a message precision ``a``, a mean variance) becomes
+one value per lane that broadcasts against it: shape ``(B, 1)``, in general
+``(B,)`` followed by one axis of length 1 per axis of the variable. Without
+lanes nothing changes: precisions stay 0-d.
+
+**The precision tells.** Code that must reduce "over the variable's own
+axes" (the isotropic mean of a variance) cannot know from an array alone
+whether ``(B, n)`` is B lanes or one two-dimensional variable, so it asks
+the precision that travels with it: ``lane_count(a, like)`` is B when ``a``
+has ``like``'s number of axes (at least two), ``like``'s first length, and
+length 1 on every other axis; else None.
+
+Loop flags (done, converged, the iteration count) are 0-d without lanes and
+``(B,)`` with them; ``select`` broadcasts such a flag against a state array.
+"""
+import copy
+
+import torch
+
+
+def lane_count(a, like):
+    """B if the precision ``a`` is one value per lane of ``like`` (see the
+    module docstring), else None."""
+    if (isinstance(a, torch.Tensor) and a.ndim >= 2 and a.ndim == like.ndim
+            and a.shape[0] == like.shape[0] and a.numel() == a.shape[0]):
+        return a.shape[0]
+    return None
+
+
+def lane_mean(v, *precisions):
+    """Mean of ``v`` over the variable's own axes, one value per lane: 0-d
+    without lanes, ``(B, 1, ...)`` when one of ``precisions`` is per lane."""
+    if any(lane_count(a, v) is not None for a in precisions):
+        return v.mean(dim=tuple(range(1, v.ndim)), keepdim=True)
+    return torch.mean(v)
+
+
+def last_axis(x, reduce):
+    """``reduce`` (torch.sum, torch.mean) over a spectrum: the whole of a
+    one-dimensional ``x`` (0-d result), else the last axis, kept, so that
+    the result is one value per lane."""
+    return reduce(x) if x.ndim <= 1 else reduce(x, dim=-1, keepdim=True)
+
+
+def per_lane(x, lanes):
+    "``x`` as ``(B, -1)`` with lanes and as ``(-1,)`` without."
+    return x.reshape(x.shape[0], -1) if lanes else x.reshape(-1)
+
+
+def select(flag, new, old):
+    """``torch.where`` with a loop flag (0-d, or ``(B,)`` with lanes)
+    broadcast from the left against the state arrays."""
+    flag = flag.reshape(flag.shape + (1,) * (new.ndim - flag.ndim))
+    return torch.where(flag, new, old)
+
+
+def lane_values(x, B):
+    """A per-lane scalar of a result, ``(B, 1, ...)``, as ``(B,)``, the shape
+    the JAX package's batched solves return; anything else unchanged."""
+    if B is not None and x.ndim >= 1 and x.numel() == B:
+        return x.reshape(B)
+    return x
+
+
+def to_lanes(x, B):
+    """An array without lanes, repeated for B lanes: ``(n,)`` becomes
+    ``(B, n)`` and a 0-d scalar ``(B,)``. A copy, so that lanes can be
+    written one by one."""
+    return x.expand((B,) + tuple(x.shape)).contiguous()
+
+
+def lane_precision(a, B, var_ndim):
+    """A one-element precision as one value per lane of a variable with
+    ``var_ndim`` axes of its own: shape ``(B, 1, ...)``."""
+    return a.reshape(()).expand(B).reshape((B,) + (1,) * var_ndim).contiguous()
+
+
+def stack_models(models):
+    """Stack same-structure models along a new first axis (the lanes).
+
+    Takes the place of the JAX package's ``stack_pytrees``. The result is a
+    structural copy of ``models[0]`` in which every registered buffer
+    (operators, their SVD factors, observations) is the ``torch.stack`` of
+    the models' buffers. Everything that is not a buffer (region bounds,
+    sizes, the numeric hyperparameters ``rho``, ``var``, ...) is shared by
+    the lanes and must be equal in all models; a difference raises. To stack
+    only some buffers (one operator, one observation per lane), use
+    ``with_buffers``."""
+    first = models[0]
+    for m in models[1:]:
+        if [type(n) for n in m.nodes] != [type(n) for n in first.nodes] \
+                or m.edges != first.edges:
+            raise ValueError("stack_models: the models differ in structure")
+    replace = {}
+    for i, factor in enumerate(first.factors):
+        others = [m.factors[i] for m in models]
+        fields = type(factor)._data_fields + type(factor)._meta_fields
+        for field in fields:
+            if field in factor._buffers:
+                continue
+            values = [getattr(f, field) for f in others]
+            if any(v != values[0] for v in values):
+                raise ValueError(
+                    f"stack_models: {type(factor).__name__}.{field} differs "
+                    f"between the models ({values}); only arrays carry "
+                    "lanes")
+        for name, buf in factor._buffers.items():
+            if buf is not None:
+                replace[i, name] = torch.stack(
+                    [f._buffers[name] for f in others])
+    return with_buffers(first, replace)
+
+
+def with_buffers(model, replace):
+    """A structural copy of ``model`` whose factors hold other buffers:
+    ``replace`` maps ``(index into model.factors, buffer name)`` to the new
+    tensor, for example ``{(2, "y"): ys}`` with ``ys`` of shape ``(B, M)``
+    to give every lane its own observation under one shared operator. The
+    model's own factors are left as they are."""
+    factors = {id(f): f for f in model.factors}
+    copies = {}
+    for (i, name), tensor in replace.items():
+        factor = model.factors[i]
+        if name not in factor._buffers:
+            raise ValueError(f"{type(factor).__name__} has no buffer {name}")
+        if id(factor) not in copies:
+            twin = copy.copy(factor)
+            twin.__dict__["_buffers"] = dict(factor._buffers)
+            copies[id(factor)] = twin
+        copies[id(factor)]._buffers[name] = tensor
+    out = object.__new__(type(model))
+    out.__dict__.update(model.__dict__)
+    out.nodes = [copies.get(id(n), n) if id(n) in factors else n
+                 for n in model.nodes]
+    out.factors = [copies.get(id(f), f) for f in model.factors]
+    return out
+
+
+def model_lanes(model, template):
+    """How a solver tells which buffers carry lanes: a buffer of ``model``
+    carries lanes when it has one axis more than the same buffer of
+    ``template``, the model the solver was built with (one instance).
+    Returns B, the common length of those first axes, or None when no buffer
+    has lanes; raises when two buffers disagree or a shape fits neither."""
+    B = None
+    for factor, ref in zip(model.factors, template.factors):
+        for name, buf in factor._buffers.items():
+            want = ref._buffers.get(name)
+            if buf is None or want is None:
+                if (buf is None) != (want is None):
+                    raise ValueError(f"{type(factor).__name__}.{name}: "
+                                     "present in one model only")
+                continue
+            if tuple(buf.shape) == tuple(want.shape):
+                continue
+            if tuple(buf.shape[1:]) != tuple(want.shape):
+                raise ValueError(
+                    f"{type(factor).__name__}.{name} has shape "
+                    f"{tuple(buf.shape)}: need {tuple(want.shape)} or one "
+                    "lane axis before it")
+            if B is not None and buf.shape[0] != B:
+                raise ValueError(
+                    f"{type(factor).__name__}.{name} has {buf.shape[0]} "
+                    f"lanes, another buffer {B}")
+            B = buf.shape[0]
+    return B

@@ -43,3 +43,13 @@ class GaussianLikelihood(Likelihood):
     def compute_backward_message(self, az, bz):
         "Fast path: constant message. Reference l:68-71."
         return self.a * torch.ones_like(az), self.b
+
+    def constant_backward_message(self):
+        """The backward message as a model constant (a = 1/var, b = y/var),
+        which the chain solver pins; None without an observation. With one
+        observation per lane, ``b`` is ``(B, M)`` and ``a`` stays the one
+        number all lanes share."""
+        if self.y is None:
+            return None
+        return {"a": torch.as_tensor(self.a, dtype=self.y.dtype,
+                                     device=self.y.device), "b": self.b}

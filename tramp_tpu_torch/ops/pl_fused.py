@@ -20,6 +20,18 @@ kernel's oracle; on meta tensors it returns empty outputs of the right
 shapes (the engine's shape sweep). Each wrapper counts the kernels it
 launches in a plain integer, ``<wrapper>.launches``.
 
+Lanes (tramp_tpu_torch/lanes.py). ``bz`` and ``bx`` may carry a first lane
+axis, ``(B, n)``, with a precision per lane, ``(B, 1)``: the JAX kernel gets
+the same from ``jax.vmap``. A precision is then read as ``a[lane]`` on the
+device (no ``(B, n)`` copy of it is made), and a message takes its mean,
+its update and its clamps per lane: ``a_new`` is ``(B, 1)``. There are
+lanes when either precision is one value per lane; the other may be one
+number for all lanes or one per element. On the card lane i of a batched
+message is bit-identical to the single call on lane i's data (a lane's sums
+are laid out by n alone); on the CPU the plain versions agree to rtol 1e-13
+(``torch.mean`` along an axis may sum in another order than over a whole
+array). The launch count does not depend on B.
+
 The kernels are compiled with nvcc at their first launch into
 ``build/tramp_tpu_torch/`` beside the package: one shared library with a
 plain C interface per source and floating type, all compiled at once, named
@@ -39,6 +51,7 @@ import torch
 
 from .. import config
 from ..base import compute_ab_new
+from ..lanes import lane_count, lane_mean
 from ..utils.truncated_normal import (
     truncated_normal_mean, truncated_normal_var, truncated_normal_logZ,
 )
@@ -51,11 +64,13 @@ SOURCES = {"pl_posterior": CSRC / "pl_posterior.cu",
 BUILD_DIR = _PACKAGE.parent / "build" / "tramp_tpu_torch"
 MAX_REGIONS = 8
 #: most elements the message kernel takes in one launch (kClusterMax in
-#: csrc/pl_message.cu); above it the message is two launches with a scratch
-#: array of MAX_PARTIALS doubles, one per block of the first launch (the
-#: card holds fewer blocks than that at once)
+#: csrc/pl_message.cu), per lane; above it the message is two launches with
+#: a scratch array of at most MAX_PARTIALS doubles per lane, one per block
+#: of the first launch (the card holds fewer blocks than that at once)
 CLUSTER_MAX = 16384
 MAX_PARTIALS = 2048
+#: threads of a block of the message kernel (kThreads in csrc/pl_message.cu)
+_BLOCK = 512
 
 _C_TYPES = {torch.float32: ("f32", ctypes.c_float),
             torch.float64: ("f64", ctypes.c_double)}
@@ -112,18 +127,20 @@ def pl_posterior_plain(az, bz, ax, bx, specs):
 
 def pl_forward_message_plain(az, bz, ax, bx, specs):
     """Forward EP message (a_new, b_new) as plain tensor code: the x
-    posterior of ``pl_posterior_plain``, the mean of its variance, and
-    ``compute_ab_new`` against (ax, bx)."""
+    posterior of ``pl_posterior_plain``, the mean of its variance (per lane
+    when a precision is per lane), and ``compute_ab_new`` against
+    (ax, bx)."""
     _, _, rx, vx, _ = pl_posterior_plain(az, bz, ax, bx, specs)
-    return compute_ab_new(rx, torch.mean(vx), ax, bx)
+    return compute_ab_new(rx, lane_mean(vx, az, ax), ax, bx)
 
 
 def pl_backward_message_plain(az, bz, ax, bx, specs):
     """Backward EP message (a_new, b_new) as plain tensor code: the z
-    posterior of ``pl_posterior_plain``, the mean of its variance, and
-    ``compute_ab_new`` against (az, bz)."""
+    posterior of ``pl_posterior_plain``, the mean of its variance (per lane
+    when a precision is per lane), and ``compute_ab_new`` against
+    (az, bz)."""
     rz, vz, _, _, _ = pl_posterior_plain(az, bz, ax, bx, specs)
-    return compute_ab_new(rz, torch.mean(vz), az, bz)
+    return compute_ab_new(rz, lane_mean(vz, az, ax), az, bz)
 
 
 # -- build ------------------------------------------------------------------
@@ -187,15 +204,17 @@ def build():
             lib = ctypes.CDLL(str(lib_path))
             fn = getattr(lib, f"{name}_{suffix}")
             if name == "pl_posterior":
-                fn.argtypes = ([ptr, i64, ptr, ptr, i64, ptr] + [ptr] * 5
-                               + [i64, ptr, ctypes.c_int, ptr])
+                fn.argtypes = ([ptr, i64, i64, ptr, ptr, i64, i64, ptr]
+                               + [ptr] * 5
+                               + [i64, i64, ptr, ctypes.c_int, ptr])
                 lib.pl_launch_floor.argtypes = [ptr]
                 lib.pl_launch_floor.restype = ctypes.c_int
                 fns["pl_launch_floor"] = lib.pl_launch_floor
             else:
-                fn.argtypes = ([ctypes.c_int, ptr, i64, ptr, ptr, i64, ptr]
-                               + [ptr, i64, ptr, ptr, i64, i64, ptr,
-                                  ctypes.c_int, dbl, dbl, dbl, ptr])
+                fn.argtypes = ([ctypes.c_int, ptr, i64, i64, ptr, ptr, i64,
+                                i64, ptr]
+                               + [ptr, ctypes.c_int, ptr, ptr, i64, i64, i64,
+                                  ptr, ctypes.c_int, dbl, dbl, dbl, ptr])
             fn.restype = ctypes.c_int
             fns[name, dtype] = fn
         _fns.update(fns)
@@ -205,12 +224,13 @@ def build():
 def ptxas_report(log):
     """ptxas's ``-v`` report as a list of dicts, one per compiled kernel:
     ``kernel`` (its name), ``dtype`` ("f" or "d"), ``params`` (the integer
-    template arguments: the region count K and, for the message kernel, the
-    side), ``registers`` and ``spill_bytes`` (stores)."""
+    template arguments: the region count K, for the message kernel the
+    side, and 1 for the instantiation that takes lanes, 0 for the one that
+    takes a single instance), ``registers`` and ``spill_bytes`` (stores)."""
     out = []
     for chunk in log.split("Compiling entry function '")[1:]:
         mangled = chunk.split("'", 1)[0]
-        name = re.search(r"\d+(pl_\w+?_kernel)(?:I([fd])((?:Li\d+E)*)E)?",
+        name = re.search(r"\d+(pl_\w+?_kernel)(?:I([fd])((?:L[ib]\d+E)*)E)?",
                          mangled)
         regs = re.search(r"Used (\d+) registers", chunk)
         spill = re.search(r"(\d+) bytes spill stores", chunk)
@@ -218,7 +238,7 @@ def ptxas_report(log):
             continue
         out.append({
             "kernel": name.group(1), "dtype": name.group(2),
-            "params": [int(v) for v in re.findall(r"Li(\d+)E",
+            "params": [int(v) for v in re.findall(r"L[ib](\d+)E",
                                                   name.group(3) or "")],
             "registers": int(regs.group(1)),
             "spill_bytes": int(spill.group(1)) if spill else 0})
@@ -246,15 +266,18 @@ def _spec_array(specs, dtype):
 
 
 def _precision(a, bz, name):
-    "A precision as a tensor on bz's device: 0-d/one element, or bz's shape."
+    """A precision as a tensor on bz's device: one element, one value per
+    lane of bz (``(B, 1, ...)``), or bz's shape."""
     if not isinstance(a, torch.Tensor):
         return torch.as_tensor(a, dtype=bz.dtype, device=bz.device)
     if a.device != bz.device or a.dtype != bz.dtype:
         raise ValueError(f"{name} is {a.dtype} on {a.device}, "
                          f"bz is {bz.dtype} on {bz.device}")
-    if a.numel() != 1 and a.shape != bz.shape:
-        raise ValueError(f"{name} has shape {tuple(a.shape)}: need a scalar "
-                         f"or bz's shape {tuple(bz.shape)}")
+    if (a.numel() != 1 and a.shape != bz.shape
+            and lane_count(a, bz) is None):
+        raise ValueError(f"{name} has shape {tuple(a.shape)}: need a "
+                         f"scalar, one value per lane, or bz's shape "
+                         f"{tuple(bz.shape)}")
     if not a.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
     return a
@@ -277,8 +300,21 @@ def _checked(what, az, bz, ax, bx, specs):
     return _precision(az, bz, "az"), _precision(ax, bz, "ax")
 
 
-def _stride(a):
-    return 0 if a.numel() == 1 else 1
+def _lanes(az, bz, ax):
+    "Lanes of a call: B when either precision is per lane of bz, else None."
+    counts = [lane_count(a, bz) for a in (az, ax)]
+    return next((B for B in counts if B is not None), None)
+
+
+def _strides(a, bz, lanes):
+    """(element stride, lane stride) with which the kernels read a
+    precision: element e of lane l is ``a[l * lane stride + e * element
+    stride]``."""
+    if a.numel() == 1:
+        return 0, 0
+    if a.shape == bz.shape and lane_count(a, bz) is None:
+        return 1, bz.numel() // (lanes or 1)
+    return 0, 1
 
 
 def _stream(device):
@@ -296,7 +332,8 @@ def pl_posterior(az, bz, ax, bx, specs):
     float64) and counts the launch in ``pl_posterior.launches``; it raises on
     anything the kernel does not take. On CPU tensors it is
     ``pl_posterior_plain``. On meta tensors it returns outputs of the right
-    shape and dtype (the engine's shape sweep). ``az``/``ax`` are scalars or
+    shape and dtype (the engine's shape sweep). ``az``/``ax`` are scalars,
+    one value per lane of ``bz`` (``(B, 1)`` with ``bz`` of ``(B, n)``), or
     arrays of ``bz``'s shape; ``bx`` has ``bz``'s shape. The five outputs are
     views of one allocation."""
     if bz.device.type == "cpu":
@@ -306,13 +343,15 @@ def pl_posterior(az, bz, ax, bx, specs):
     az, ax = _checked("pl_posterior", az, bz, ax, bx, specs)
     if not _fns:
         build()
-    n = bz.numel()
+    lanes = _lanes(az, bz, ax)
+    total = bz.numel()
     out = torch.empty((5,) + bz.shape, dtype=bz.dtype, device=bz.device)
-    first, step = out.data_ptr(), n * out.element_size()
+    first, step = out.data_ptr(), total * out.element_size()
     err = _fns["pl_posterior", bz.dtype](
-        az.data_ptr(), _stride(az), bz.data_ptr(), ax.data_ptr(),
-        _stride(ax), bx.data_ptr(), first, first + step, first + 2 * step,
-        first + 3 * step, first + 4 * step, n, _spec_array(specs, bz.dtype),
+        az.data_ptr(), *_strides(az, bz, lanes), bz.data_ptr(),
+        ax.data_ptr(), *_strides(ax, bz, lanes), bx.data_ptr(), first,
+        first + step, first + 2 * step, first + 3 * step, first + 4 * step,
+        total // (lanes or 1), lanes or 1, _spec_array(specs, bz.dtype),
         len(specs), _stream(bz.device))
     if err != 0:
         raise RuntimeError(f"pl_posterior kernel launch failed: CUDA error "
@@ -324,32 +363,51 @@ def pl_posterior(az, bz, ax, bx, specs):
 pl_posterior.launches = 0
 
 
+def _a_new_shape(own, bz, lanes):
+    """Shape of a message's a_new, as the plain version gives it: bz's for
+    a precision per element, one value per lane with lanes, else the own
+    precision's."""
+    if isinstance(own, torch.Tensor) and own.numel() != 1 \
+            and lane_count(own, bz) is None:
+        return bz.shape
+    if lanes is not None:
+        return (lanes,) + (1,) * (bz.ndim - 1)
+    return own.shape if isinstance(own, torch.Tensor) else ()
+
+
 def _message(wrapper, plain, side, az, bz, ax, bx, specs):
     if bz.device.type == "cpu":
         return plain(az, bz, ax, bx, specs)
-    own = ax if side == _FORWARD else az
     if bz.device.type == "meta":
-        shape = own.shape if isinstance(own, torch.Tensor) else ()
+        own = ax if side == _FORWARD else az
+        shape = _a_new_shape(own, bz, _lanes(az, bz, ax))
         return (torch.empty(shape, dtype=bz.dtype, device="meta"),
                 torch.empty_like(bz))
     what = wrapper.__name__
     az, ax = _checked(what, az, bz, ax, bx, specs)
-    n = bz.numel()
-    if n == 0:
+    lanes = _lanes(az, bz, ax)
+    if bz.numel() == 0:
         raise ValueError(f"{what}: the mean of no element is undefined")
+    n = bz.numel() // (lanes or 1)
     if not _fns:
         build()
     own = ax if side == _FORWARD else az
-    a_new, b_new = torch.empty_like(own), torch.empty_like(bz)
-    partials = None
+    a_new = torch.empty(_a_new_shape(own, bz, lanes), dtype=bz.dtype,
+                        device=bz.device)
+    b_new = torch.empty_like(bz)
+    partials, row = None, 0
     if n > CLUSTER_MAX:
-        partials = torch.empty(MAX_PARTIALS, dtype=torch.float64,
+        # one row of block sums per lane; the row's length bounds the first
+        # launch's blocks per lane, as it does without lanes
+        row = min(-(-n // _BLOCK), MAX_PARTIALS)
+        partials = torch.empty((lanes or 1, row), dtype=torch.float64,
                                device=bz.device)
     err = _fns["pl_message", bz.dtype](
-        side, az.data_ptr(), _stride(az), bz.data_ptr(), ax.data_ptr(),
-        _stride(ax), bx.data_ptr(), a_new.data_ptr(), _stride(own),
+        side, az.data_ptr(), *_strides(az, bz, lanes), bz.data_ptr(),
+        ax.data_ptr(), *_strides(ax, bz, lanes), bx.data_ptr(),
+        a_new.data_ptr(), int(a_new.shape == bz.shape),
         b_new.data_ptr(), None if partials is None else partials.data_ptr(),
-        MAX_PARTIALS, n, _spec_array(specs, bz.dtype), len(specs),
+        row, n, lanes or 1, _spec_array(specs, bz.dtype), len(specs),
         config.VMIN, config.AMIN, config.AMAX, _stream(bz.device))
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
@@ -363,11 +421,12 @@ def pl_forward_message(az, bz, ax, bx, specs):
     (ax, bx), fused.
 
     On CUDA tensors this launches the message kernel (one launch up to
-    16384 elements, two above) and counts its launches in
-    ``pl_forward_message.launches``; it raises on anything the kernel does
-    not take. On CPU tensors it is ``pl_forward_message_plain``; on meta
-    tensors it returns empty outputs of the right shapes. ``a_new`` has
-    ``ax``'s shape (0-d for a scalar precision), ``b_new`` has ``bz``'s."""
+    16384 elements per lane, two above, whatever the number of lanes) and
+    counts its launches in ``pl_forward_message.launches``; it raises on
+    anything the kernel does not take. On CPU tensors it is
+    ``pl_forward_message_plain``; on meta tensors it returns empty outputs of
+    the right shapes. ``a_new`` has ``ax``'s shape (0-d for a scalar
+    precision, ``(B, 1)`` with lanes), ``b_new`` has ``bz``'s."""
     return _message(pl_forward_message, pl_forward_message_plain, _FORWARD,
                     az, bz, ax, bx, specs)
 

@@ -1,0 +1,447 @@
+"""ML-VAMP: the spectral fast path for arbitrary SISO chains. Counterpart
+of tramp_tpu/parallel/ml_vamp.py.
+
+Generalizes ``SpectralVAMPSolver`` (vamp_glm.py, exact 3-factor GLM chains)
+to any single-input/single-output factor chain
+
+    prior @ V @ F_1 @ V @ ... @ F_{L-1} @ V @ likelihood
+
+covering the relu-net chain (multi-layer VAMP: Fletcher, Rangan, Schniter,
+"Inference in Deep Networks in High Dimensions", 2018: the same
+moment-matching fixed point as EP on a chain).
+
+The solver runs the engine's serial forward/backward schedule with the
+same moment matching, clipping and damping, and carries each dense linear
+factor's spectral images across passes:
+
+- forward pass: V^T bz (fresh) is computed, used, and kept for the
+  backward pass (bz cannot change in between: the backward pass only
+  writes backward slots);
+- backward pass: U^T bx (fresh) is computed, used, and carried to the
+  next sweep's forward pass (bx next changes in the next backward pass).
+
+Per sweep that is 4 thin products per linear factor (2 Nz k + 2 Nx k MACs).
+
+A terminal ``GaussianLikelihood`` is additionally pinned: its message is a
+model constant (a = 1/var, b = y/var), so its slot is fixed from iteration
+0 (instead of being damped toward the constant) and, when the preceding
+factor is a dense ``LinearChannel``, its spectral image S U^T y / var is a
+loop invariant and the linear factor's forward message is not materialized
+inside the loop at all. Pinning changes the transient, not the fixed point.
+
+Supported factors: any SISO channel/prior/likelihood with the standard
+message contract (compute_forward_message / compute_backward_message);
+``LinearChannel`` (exactly) gets the spectral treatment. Multi-edge
+topologies are not chains: use ``EPSolver``. ``dispatch_solver`` picks.
+
+The loop is a Python loop with one host read per iteration, and batches are
+a lane axis written out, with the semantics of the JAX package's
+``vmap`` of a ``while_loop`` (see vamp_glm.py's module docstring): a step
+that is not finite is dropped and ends its lane, and a lane that is done is
+frozen.
+"""
+import torch
+
+from ..base import compute_ab_new
+from ..channels import LinearChannel
+from ..lanes import lane_values, model_lanes, per_lane, select
+from ..likelihoods import GaussianLikelihood
+
+
+def chain_factors(model):
+    """The model's factors as a SISO chain [prior, F_1, ..., likelihood],
+    or None if the model is not such a chain."""
+    factors = list(model.factors)
+    if len(factors) < 2:
+        return None
+    if not (factors[0].n_prev == 0 and factors[0].n_next == 1):
+        return None
+    if not (factors[-1].n_next == 0 and factors[-1].n_prev == 1
+            and getattr(factors[-1], "y", None) is not None):
+        return None
+    for f in factors[1:-1]:
+        if not (f.n_prev == 1 and f.n_next == 1):
+            return None
+    # interfaces must be plain SISO variables (one in-edge, one out-edge):
+    # a SIMO/MISO variable means the DAG is a tree, not a chain
+    for i, n in enumerate(model.nodes):
+        if n in model.variables:
+            if len(model.in_edges[i]) != 1 or len(model.out_edges[i]) != 1:
+                return None
+    return factors
+
+
+def _is_spectral(f):
+    "Dense LinearChannel exactly (not a subclass with another representation)."
+    return type(f) is LinearChannel
+
+
+def _lin_fwd(lin, az, bz, ax, tx):
+    """Linear forward posterior using the carried spectral image
+    tx = U^T bx; returns (rx, vx, tz) with tz = V^T bz (k-length) for the
+    backward pass. Mirrors LinearChannel._mean_svd (thin factors; only the
+    k signal modes reach x-space)."""
+    tz = lin._mm(lin.V, bz, transpose=True)        # (k,)
+    resolvent = 1.0 / (az + ax * lin.s**2)
+    m = resolvent * (tz + lin.s * tx)
+    rx = lin._mm(lin.U, lin.s * m)
+    vx = lin.compute_forward_variance(az, ax)
+    return rx, vx, tz
+
+
+def _lin_bwd(lin, az, bz, ax, tx, tz):
+    "Linear backward posterior (rz, vz) from tx = U^T bx and tz = V^T bz."
+    resolvent = 1.0 / (az + ax * lin.s**2)
+    m = resolvent * (tz + lin.s * tx)
+    if lin.k == lin.Nz:
+        rz = lin._mm(lin.V, m)
+    else:
+        # complement modes (s=0, resolvent 1/az):
+        # V_perp V_perp^T bz / az = (bz - V_k tz) / az
+        rz = bz / az + lin._mm(lin.V, m - tz / az)
+    vz = lin.compute_backward_variance(az, ax)
+    return rz, vz
+
+
+class MLVAMPSolver:
+    """Spectral chain solver; same call surface as EPSolver and
+    SpectralVAMPSolver: ``solve(model) -> ({id: {r, v}}, n_iter)``, and
+    ``solve_batch`` on a model whose buffers carry lanes (a buffer has lanes
+    when it has one axis more than the same buffer of the ``model`` the
+    solver was built with, ``lanes.model_lanes``).
+
+    ``damping`` mirrors the engine's float damping (applied to every
+    factor-emitted message except pinned constants). The stopping rule is
+    the engine's relative-r criterion over all chain interfaces. In float32
+    that relative change has a rounding floor, which rises with the lanes
+    that share an operator (their products are one float32 GEMM): 4e-7 for
+    one instance and 1.5e-6 at 2048 lanes of the N = 4096 relu net on an
+    NVIDIA H100 (chip_stop_floor.py), so a float32 batch wants
+    ``tol=1e-5``, or ``EPSolver(stop_kind="v")``, where one instance
+    converges at ``tol=1e-6``."""
+
+    def __init__(self, model, damping=None, tol=1e-6, max_iter=200,
+                 pin_terminal=True):
+        factors = chain_factors(model)
+        if factors is None:
+            raise ValueError(
+                f"MLVAMPSolver needs a SISO factor chain, got {model}")
+        self.template = model
+        self.tol = tol
+        self.max_iter = max_iter
+        self.damping = 0.0 if damping is None else float(damping)
+        self.L = L = len(factors) - 1          # interfaces 0..L-1
+        self.var_ids = list(model.variable_ids)
+        self._linear = [_is_spectral(f) for f in factors]
+        # terminal pin: constant likelihood message (Gaussian).
+        # pin_terminal=False keeps the generic damped update instead, which
+        # makes the iterate-by-iterate trajectory exactly the engine's; the
+        # fixed point is the same either way.
+        fn = getattr(factors[-1], "constant_backward_message", None)
+        self._pin_terminal = (pin_terminal and fn is not None
+                              and fn() is not None)
+        # GLM tail: pinned Gaussian likelihood directly after a dense
+        # linear factor -> the linear forward message is never consumed
+        # inside the loop (the likelihood ignores it) and S U^T y / var is
+        # loop-invariant
+        self._skip_fwd_terminal = bool(
+            L >= 2 and self._pin_terminal and self._linear[-2])
+        # interface shapes for the zero init
+        shapes = model.init_shapes()
+        self._shapes = [shapes[i] for i, n in enumerate(model.nodes)
+                        if n in model.variables]
+
+    # -- loop invariants ---------------------------------------------------
+    def _invariants(self, model, B=None):
+        """What a step needs of the model and does not change in the loop:
+        the pinned terminal message (b broadcast to the interface's shape,
+        with the lanes; a one value, per lane with lanes) and, for the GLM
+        tail, its spectral image U^T b."""
+        inv = {"pin": None, "tx": None}
+        if not self._pin_terminal:
+            return inv
+        lik = model.factors[-1]
+        c = lik.constant_backward_message()
+        lanes = () if B is None else (B,)
+        shape = tuple(self._shapes[self.L - 1])
+        inv["pin"] = {
+            "a": c["a"].expand(
+                lanes + (1,) * (len(shape) * len(lanes))).contiguous(),
+            "b": torch.broadcast_to(c["b"], lanes + shape)}
+        if self._skip_fwd_terminal:
+            lin = model.factors[self.L - 1]
+            inv["tx"] = lin._mm(lin.U, inv["pin"]["b"], transpose=True)
+        return inv
+
+    def _carry_lanes(self, carry):
+        fb = carry[0][0]["fb"]
+        return fb.shape[0] if fb.ndim > len(self._shapes[0]) else None
+
+    def _damped(self, a_old, b_old, a_new, b_new):
+        "Engine slot damping: d*old + (1-d)*new, after clipping."
+        damp = self.damping
+        if not damp:
+            return a_new, b_new
+        return (damp * a_old + (1.0 - damp) * a_new,
+                damp * b_old + (1.0 - damp) * b_new)
+
+    def _step(self, model, carry, inv=None):
+        """One engine-identical sweep: forward pass then backward pass.
+        carry = (msgs, txs); msgs[i] = {fa, fb, ba, bb} at interface i,
+        txs[l] = U^T (backward b at factor l's x side) for linear l.
+
+        A pinned terminal's (ba, bb) are not part of the carry: they come
+        from ``inv`` (``_invariants(model)``, computed here when not given;
+        the loop computes it once)."""
+        L = self.L
+        if inv is None:
+            inv = self._invariants(model, self._carry_lanes(carry))
+        factors = list(model.factors)
+        msgs, txs = list(carry[0]), dict(carry[1])
+        if self._pin_terminal:
+            m = dict(msgs[L - 1])
+            m["ba"], m["bb"] = inv["pin"]["a"], inv["pin"]["b"]
+            msgs[L - 1] = m
+        tzs = {}
+        # ---- forward pass ----
+        for l, f in enumerate(factors[:L]):
+            m_out = dict(msgs[l])
+            ax, bx = m_out["ba"], m_out["bb"]
+            if l == 0:
+                a_new, b_new = f.compute_forward_message(ax, bx)
+            else:
+                m_in = msgs[l - 1]
+                az, bz = m_in["fa"], m_in["fb"]
+                if self._linear[l]:
+                    if l == L - 1 and self._skip_fwd_terminal:
+                        # the pinned likelihood never reads this message;
+                        # only cache tz for the backward pass
+                        tzs[l] = f._mm(f.V, bz, transpose=True)
+                        continue
+                    rx, vx, tzs[l] = _lin_fwd(f, az, bz, ax, txs[str(l)])
+                    a_new, b_new = compute_ab_new(rx, vx, ax, bx)
+                else:
+                    a_new, b_new = f.compute_forward_message(az, bz, ax, bx)
+            m_out["fa"], m_out["fb"] = self._damped(
+                m_out["fa"], m_out["fb"], a_new, b_new)
+            msgs[l] = m_out
+        # ---- backward pass ----
+        for l in range(L, 0, -1):
+            f = factors[l]
+            m_out = dict(msgs[l - 1])
+            az, bz = m_out["fa"], m_out["fb"]
+            if l == L:
+                if self._pin_terminal:
+                    continue  # already pinned above
+                a_new, b_new = f.compute_backward_message(az, bz)
+            else:
+                m_in = msgs[l]
+                ax, bx = m_in["ba"], m_in["bb"]
+                if self._linear[l]:
+                    if l == L - 1 and self._skip_fwd_terminal:
+                        # tx = U^T (y/var) is loop-invariant: no carry
+                        tx = inv["tx"]
+                    else:
+                        tx = f._mm(f.U, bx, transpose=True)    # (k,)
+                        txs[str(l)] = tx
+                    rz, vz = _lin_bwd(f, az, bz, ax, tx, tzs[l])
+                    a_new, b_new = compute_ab_new(rz, vz, az, bz)
+                else:
+                    a_new, b_new = f.compute_backward_message(az, bz, ax, bx)
+            m_out["ba"], m_out["bb"] = self._damped(
+                m_out["ba"], m_out["bb"], a_new, b_new)
+            msgs[l - 1] = m_out
+        if self._pin_terminal:
+            # keep the pinned constants out of the loop carry
+            m = dict(msgs[L - 1])
+            m.pop("ba"), m.pop("bb")
+            msgs[L - 1] = m
+        return (tuple(msgs), txs)
+
+    def _posterior_r(self, carry, inv):
+        "Per-interface posterior means (the engine's 'r' stop metric)."
+        L = self.L
+        pin = inv["pin"]
+        out = []
+        for i, m in enumerate(carry[0]):
+            if i == L - 1 and self._skip_fwd_terminal:
+                continue  # fwd slot not updated inside the loop
+            if pin is not None and i == L - 1:
+                a = m["fa"] + pin["a"]
+                b = m["fb"] + pin["b"]
+            else:
+                a = m["fa"] + m["ba"]
+                b = m["fb"] + m["bb"]
+            out.append(b / torch.clamp(a, min=torch.finfo(a.dtype).tiny))
+        return tuple(out)
+
+    def _init(self, model, B=None):
+        """The zero carry, with B lanes; the scalar a-inits are broadcast to
+        the shapes a sweep emits, which two steps over the model's meta copy
+        give without computing anything."""
+        L = self.L
+        y = model.factors[-1].y
+        kw = dict(dtype=y.dtype, device=y.device)
+        lanes = () if B is None else (B,)
+        msgs = []
+        for i, shape in enumerate(self._shapes):
+            shape = tuple(shape)
+            a = torch.zeros(lanes + (1,) * (len(shape) * len(lanes)), **kw)
+            m = {"fa": a, "fb": torch.zeros(lanes + shape, **kw),
+                 "ba": a.clone(), "bb": torch.zeros(lanes + shape, **kw)}
+            if self._pin_terminal and i == L - 1:
+                # pinned slots live outside the carry (see _step)
+                m.pop("ba"), m.pop("bb")
+            msgs.append(m)
+        txs = {}
+        for l, f in enumerate(model.factors):
+            if self._linear[l] and not (
+                    l == L - 1 and self._skip_fwd_terminal):
+                txs[str(l)] = torch.zeros(lanes + (f.k,), **kw)
+        meta_model = model.to_meta()
+        meta = (tuple({k: torch.empty_like(v, device="meta")
+                       for k, v in m.items()} for m in msgs),
+                {k: torch.empty_like(v, device="meta")
+                 for k, v in txs.items()})
+        out = self._step(meta_model, self._step(meta_model, meta))
+        msgs = tuple(
+            {k: torch.broadcast_to(m[k].to(o[k].dtype),
+                                   o[k].shape).contiguous() for k in m}
+            for m, o in zip(msgs, out[0]))
+        return (msgs, txs)
+
+    @staticmethod
+    def _leaves(carry):
+        return [v for m in carry[0] for v in m.values()] + list(
+            carry[1].values())
+
+    @staticmethod
+    def _map(fn, new, old):
+        "``fn(new leaf, old leaf)`` over two carries of one structure."
+        return (tuple({k: fn(n[k], o[k]) for k in n}
+                      for n, o in zip(new[0], old[0])),
+                {k: fn(new[1][k], old[1][k]) for k in new[1]})
+
+    def _run(self, model):
+        B = model_lanes(model, self.template)
+        inv = self._invariants(model, B)
+        carry = self._init(model, B)
+        old_r = self._posterior_r(carry, inv)
+        device = old_r[0].device
+        flags = () if B is None else (B,)
+        n_iter = torch.zeros(flags, dtype=torch.int64, device=device)
+        done = torch.zeros(flags, dtype=torch.bool, device=device)
+        conv = torch.zeros(flags, dtype=torch.bool, device=device)
+
+        def norm(x):
+            return torch.sqrt(per_lane(x**2, B).mean(-1))
+
+        for i in range(self.max_iter):
+            new_carry = self._step(model, carry, inv)
+            ok = torch.stack(
+                [torch.isfinite(per_lane(x, B)).all(-1)
+                 for x in self._leaves(new_carry)]).all(0)
+            new_carry = self._map(lambda n, o: select(ok, n, o),
+                                  new_carry, carry)
+            new_r = self._posterior_r(new_carry, inv)
+            delta = torch.stack([
+                norm(n - o) / torch.clamp(norm(n),
+                                          min=torch.finfo(n.dtype).tiny)
+                for n, o in zip(new_r, old_r)]).amax(0)
+            converged = (delta < self.tol) if i > 0 \
+                else torch.zeros_like(done)
+            # a lane that is done is frozen; without lanes the loop ends
+            # with it
+            active = ~done
+            if B is not None:
+                new_carry = self._map(lambda n, o: select(active, n, o),
+                                      new_carry, carry)
+                new_r = tuple(select(active, n, o)
+                              for n, o in zip(new_r, old_r))
+            carry, old_r = new_carry, new_r
+            n_iter = torch.where(active, i + 1, n_iter)
+            conv = conv | (active & converged)
+            done = done | converged | ~ok
+            # the one host read of the iteration
+            if bool(done.all()):
+                break
+        return self._readout(model, carry, inv, B), n_iter, conv
+
+    def _readout(self, model, carry, inv=None, B=None):
+        "Posterior {id: {r, v}} at every interface from the final state."
+        L = self.L
+        if inv is None:
+            B = self._carry_lanes(carry)
+            inv = self._invariants(model, B)
+        msgs = list(carry[0])
+        if self._pin_terminal:
+            # reconstitute the pinned slots (kept out of the loop carry)
+            m = dict(msgs[L - 1])
+            m["ba"], m["bb"] = inv["pin"]["a"], inv["pin"]["b"]
+            msgs[L - 1] = m
+        if self._skip_fwd_terminal:
+            # materialize the one message the loop never needed: the
+            # linear factor's forward posterior at the terminal interface
+            lin = model.factors[L - 1]
+            m_in = msgs[L - 2]
+            m_out = dict(msgs[L - 1])
+            ax, bx = m_out["ba"], m_out["bb"]
+            rx, vx, _ = _lin_fwd(lin, m_in["fa"], m_in["fb"], ax, inv["tx"])
+            m_out["fa"], m_out["fb"] = compute_ab_new(rx, vx, ax, bx)
+            msgs[L - 1] = m_out
+        post = {}
+        for vid, m in zip(self.var_ids, msgs):
+            a = m["fa"] + m["ba"]
+            b = m["fb"] + m["bb"]
+            post[vid] = {"r": b / a, "v": lane_values(1.0 / a, B)}
+        return post
+
+    def solve(self, model):
+        "One instance: ({id: {r, v}}, n_iter)."
+        post, n_iter, _ = self._run(model)
+        return post, n_iter
+
+    def solve_info(self, model):
+        "Like solve, with the converged flag (True iff delta < tol fired)."
+        return self._run(model)
+
+    def solve_batch(self, stacked_model):
+        """Many instances in one loop: ``r`` comes back ``(B, n)``, ``v`` and
+        ``n_iter`` ``(B,)``. The loop runs until every lane is done."""
+        if model_lanes(stacked_model, self.template) is None:
+            raise ValueError("solve_batch: no buffer of the model has lanes")
+        post, n_iter, _ = self._run(stacked_model)
+        return post, n_iter
+
+
+def dispatch_solver(model, damping=None, tol=1e-6, max_iter=200, **kw):
+    """The production front door: route a model to the fastest solver that
+    provably reaches the same fixed point.
+
+    - exact 3-factor GLM chain (prior @ LinearChannel @ GaussianLikelihood)
+      -> SpectralVAMPSolver (2 Nz k MACs per iteration on the thin factors);
+    - any other supported SISO chain -> MLVAMPSolver (spectral-cached
+      linear factors, pinned Gaussian likelihood);
+    - anything else (trees, SIMO/MISO, multi-edge) -> the generic EPSolver.
+
+    Returns the solver instance; all three share the
+    ``solve(model) -> (post, n_iter)`` and ``solve_batch`` surface. Extra
+    ``**kw`` are forwarded to whichever solver is selected: a keyword the
+    selected solver does not accept raises TypeError (loud beats silently
+    dropping e.g. ``pin_terminal`` or ``rollback_increase`` when the
+    dispatch routes elsewhere than expected).
+    """
+    from .vamp_glm import SpectralVAMPSolver
+    from .solver import EPSolver
+
+    factors = chain_factors(model)
+    if (factors is not None and len(factors) == 3
+            and _is_spectral(factors[1])
+            and isinstance(factors[2], GaussianLikelihood)):
+        return SpectralVAMPSolver(model, damping=damping, tol=tol,
+                                  max_iter=max_iter, **kw)
+    if factors is not None:
+        return MLVAMPSolver(model, damping=damping, tol=tol,
+                            max_iter=max_iter, **kw)
+    return EPSolver(model, damping=0.1 if damping is None else damping,
+                    tol=tol, max_iter=max_iter, **kw)

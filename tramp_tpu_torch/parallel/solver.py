@@ -1,0 +1,167 @@
+"""Batched EP solver: many problem instances in one loop of the generic
+engine. Counterpart of tramp_tpu/parallel/solver.py (``EPSolver``).
+
+The JAX package stacks the instances into one pytree and ``vmap``s a
+compiled ``while_loop``. Here the instances are a lane axis written out
+(tramp_tpu_torch/lanes.py): the engine's ``_sweep`` runs once per iteration
+on a state whose messages are ``(B, n)`` with precisions ``(B, 1)``, against
+a model whose buffers carry the lanes, and the stop flags are one per lane,
+read by the host once per iteration (``done.all()``). The loop keeps the
+``while_loop``'s semantics lane by lane: a sweep that is not finite is
+dropped and ends its lane, a lane whose metric grows past the rollback
+bound goes back to its previous state and ends, and a lane that is done is
+frozen (its state, its metric and its ``n_iter`` stay) while the slower
+lanes go on, so a lane of a batched solve follows the single solve on that
+lane's data.
+"""
+import torch
+
+from ..algos import ExpectationPropagation
+from ..lanes import (
+    lane_precision, lane_values, model_lanes, select, to_lanes,
+)
+
+
+class EPSolver:
+    """The generic EP engine behind the solvers' call surface:
+    ``solve(model) -> ({id: {r, v}}, n_iter)`` and ``solve_batch``.
+
+    ``model`` provides the static structure (one representative instance).
+    Solve calls accept any model of that structure; ``solve_batch`` takes
+    one whose buffers carry lanes. A buffer has lanes when it has one axis
+    more than the same buffer of ``model`` (``lanes.model_lanes``), so both
+    layouts work: whole models stacked (``lanes.stack_models``: an operator,
+    its SVD factors and an observation per lane) and one model with only
+    some buffers stacked (``lanes.with_buffers``: one shared operator, an
+    observation per lane).
+
+    ``wait_increase`` / ``rollback_increase`` tune the divergence rollback
+    (reference EarlyStopping(wait_increase, max_increase) semantics) and
+    default to the engine's values; ``rollback_increase=float("inf")``
+    disables it. ``stop_kind`` overrides the engine's stopping metric: "r"
+    (max relative posterior-mean change, the EP default) or "v" (|delta| of
+    the per-variable mean posterior variance)."""
+
+    def __init__(self, model, damping=None, tol=1e-6, max_iter=200,
+                 wait_increase=None, rollback_increase=None, stop_kind=None):
+        self.engine = eng = ExpectationPropagation(model)
+        self.damp = eng._damping_per_slot(float(damping) if damping else None)
+        self.tol = tol
+        self.max_iter = max_iter
+        self.wait_increase = (eng.wait_increase if wait_increase is None
+                              else wait_increase)
+        self.rollback_increase = (
+            eng.rollback_increase if rollback_increase is None
+            else rollback_increase)
+        self.stop_kind = stop_kind or eng.default_stop_kind
+
+    def init_state(self, initializer=None):
+        "The engine's initial state of one instance (no lanes)."
+        return self.engine.init_state(initializer)
+
+    def _with_lanes(self, state, B):
+        """An initial state without lanes, repeated for B lanes: messages
+        ``(B, n)``, one-element precisions ``(B, 1)``."""
+        eng = self.engine
+        slots = tuple(
+            {"a": (lane_precision(m["a"], B, m["b"].ndim)
+                   if m["a"].numel() == 1 else to_lanes(m["a"], B)),
+             "b": to_lanes(m["b"], B)}
+            for m in state[:eng.n_slots])
+        if eng.spectral_factors:
+            slots += ({k: to_lanes(v, B)
+                       for k, v in state[eng.n_slots].items()},)
+        return slots
+
+    def _run(self, model, state):
+        eng, kind = self.engine, self.stop_kind
+        B = eng._lanes(state)
+        if eng.spectral_factors:
+            # the carried spectral images are derived from this model's
+            # operators, lane by lane (the same matvec the first uncached
+            # forward pass does)
+            state = eng._refresh_spectral_cache(state, model)
+        old_m = eng._metric(state, kind)
+        device = state[0]["b"].device
+        flags = () if B is None else (B,)
+        n_iter = torch.zeros(flags, dtype=torch.int64, device=device)
+        done = torch.zeros(flags, dtype=torch.bool, device=device)
+        conv = torch.zeros(flags, dtype=torch.bool, device=device)
+
+        def keep(flag, kept, other):
+            "``kept`` where flag, else ``other``, over a whole state."
+            return tuple({k: select(flag, a[k], b[k]) for k in a}
+                         for a, b in zip(kept, other))
+
+        for i in range(self.max_iter):
+            swept = eng._sweep(model, state, self.damp)
+            ok = eng._all_finite(swept)
+            swept = keep(ok, swept, state)
+            new_m = eng._metric(swept, kind)
+            delta, inc = eng._delta_increase(kind, new_m, old_m, lanes=B)
+            converged = (delta < self.tol) if i > 0 \
+                else torch.zeros_like(done)
+            # divergence rollback (reference EarlyStopping semantics)
+            rb = (inc > self.rollback_increase) if i > self.wait_increase \
+                else torch.zeros_like(done)
+            swept = keep(rb, state, swept)
+            # a lane that is done is frozen: its fixed point, its metric and
+            # its n_iter stay while the slower lanes go on. Without lanes the
+            # loop ends with it.
+            active = ~done
+            if B is not None:
+                swept = keep(active, swept, state)
+                new_m = [select(active, n, o) for n, o in zip(new_m, old_m)]
+            state, old_m = swept, new_m
+            n_iter = torch.where(active, i + 1, n_iter)
+            # conv records actual convergence (delta < tol), distinct from
+            # done, which also latches on rollback and non-finite sweeps
+            conv = conv | (active & converged)
+            done = done | converged | rb | ~ok
+            # the one host read of the iteration
+            if bool(done.all()):
+                break
+        post = {eng.nodes[vi].id: self._post(vi, state, B)
+                for vi in eng.variable_indices}
+        return post, state, n_iter, conv
+
+    def _post(self, vi, state, B):
+        p = self.engine._posterior(vi, state)
+        return dict(r=p["b"] / p["a"], v=lane_values(1.0 / p["a"], B))
+
+    def solve(self, model, initializer=None):
+        "Solve one instance; returns dict id -> posterior data, and n_iter."
+        post, n_iter, _ = self.solve_info(model, initializer)
+        return post, n_iter
+
+    def solve_info(self, model, initializer=None):
+        """Like solve but also returns the converged flag (True iff the
+        delta < tol criterion fired; False for divergence-rollback,
+        non-finite and max_iter stops)."""
+        post, _, n_iter, conv = self._run(model, self.init_state(initializer))
+        return post, n_iter, conv
+
+    def solve_batch(self, stacked_model, initializer=None, state=None):
+        """Solve a batch of instances (a model whose buffers carry lanes).
+        ``initializer`` gives the initial state of every lane; the loop runs
+        until every lane is done. Passing ``state`` (a state with lanes, as
+        ``solve_batch_with_state`` returns it) resumes from it."""
+        post, _, n_iter, _ = self._solve_batch(stacked_model, initializer,
+                                               state)
+        return post, n_iter
+
+    def solve_batch_with_state(self, stacked_model, initializer=None,
+                               state=None):
+        """Like solve_batch but also returns the final message state with
+        its lanes, for warm restarts."""
+        post, state, n_iter, _ = self._solve_batch(
+            stacked_model, initializer, state)
+        return post, state, n_iter
+
+    def _solve_batch(self, stacked_model, initializer, state):
+        B = model_lanes(stacked_model, self.engine.model)
+        if B is None:
+            raise ValueError("solve_batch: no buffer of the model has lanes")
+        if state is None:
+            state = self._with_lanes(self.init_state(initializer), B)
+        return self._run(stacked_model, state)

@@ -7,6 +7,7 @@ import torch
 from .base_prior import Prior
 from ..beliefs import normal, sparse
 from ..config import default_device, DEFAULT_DTYPE
+from ..lanes import lane_mean
 
 
 class GaussBernoulliPrior(Prior):
@@ -68,5 +69,5 @@ class GaussBernoulliPrior(Prior):
         rx = sparse.r(a, b, eta)
         vx = sparse.v(a, b, eta)
         if self.isotropic:
-            vx = torch.mean(vx)
+            vx = lane_mean(vx, ax)
         return rx, vx
