@@ -68,7 +68,34 @@ line is printed):
    and three lanes are held against their single solves, and at the single
    solve's 1e-6, where the count of converged lanes is only printed;
 8. a JSON line on the kernels, then the result line
-   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
+9. (run before the summary) the state evolution, all in float64:
+   a. the compressed-sensing golden rows of tests/test_golden_csv.py through
+      ``StateEvolution(glm_state_evolution(...)).iterate`` on the card;
+   b. the phase grid at the repo's own width (bench.py:742-754): alpha =
+      linspace(0.02, 2, 100) plus the golden alphas, rho = linspace(0.05,
+      0.95, 10), 1030 lanes in one ``SESolver.solve_batch`` through
+      ``se_phase_grid_records`` (``run_se_phase_grid`` without pandas): every
+      v finite, the golden rows inside their tolerances, lanes 0, middle and
+      last equal to their single solves (v to rtol 1e-10, equal n_iter);
+      seconds, points/s, and per iteration the kernels, the device time and
+      the busy share; then the 19 critical lines of that test file through
+      ``find_critical_alpha_batched``, within alpha_tol = 1e-3 of the pinned
+      values, with the count of bit-equal lines;
+   c. the five-output kernel as the SE integrand: ``StateEvolution`` of the
+      relu-net student of phase 4 (float64) on the card against the same on
+      the CPU with the plain version (equal n_iter, v of x, z, a to rtol
+      1e-8), with exactly 2 launches of ``pl_posterior`` per sweep, none of
+      the message kernels and no call of the region-by-region path or the
+      plain version; then prior -> Marchenko-Pastur -> relu -> Gaussian
+      likelihood over alpha = linspace(0.1, 2, 64) x rho = linspace(0.05,
+      0.95, 16), 1024 lanes in one solve_batch: every v finite, 2 launches
+      per iteration, three lanes equal to their single solves (rtol 1e-8), a
+      profiled window with the five operations that take most time, peak
+      memory. Phase 3 holds the kernel against its plain version at this
+      shape, (1024, 20000) float64, and times it beside its bound;
+   d. EP against SE on one instance: the flagship's |v_EP - v_SE| / v_SE
+      < 0.25; the relu net's v_SE, v_EP and MSE are printed.
 
 Phase 3 also holds the kernels against their plain versions with 3 lanes
 (a precision per lane) at n = 2048 and n = 16384 + 300, checks that lane i of
@@ -106,6 +133,28 @@ R_TOL = 1e-3           # batched against single, and f64 against the engine
 BATCH_TOL = 1e-5       # float32 batched relu net: above the metric's floor
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "float64": 33.5e12}
+SE_LANE_SHAPE = (1024, 20000)   # 64 x 16 grid points, 2 regions x 100 x 100
+CS = dict(prior_type="gauss_bernoulli", output_type="gaussian",
+          output_var=1e-11)
+# tests/test_golden_csv.py:132-143 (alpha, v, rtol), rho = 0.25, and the
+# universality row :261-265
+CS_SE_ROWS = [
+    (0.02040816326530612, 2.449736425973765e-01, 1e-3),
+    (0.40816326530612240, 5.299215508244257e-02, 1e-2),
+    (0.81632653061224480, 5.553835940647028e-08, 5e-2),
+]
+CS_UNIVERSALITY_ROW = (0.02040816326530612, 0.24497364259772186, 1e-3)
+# tests/test_golden_csv.py:156-164: rho = linspace(0.05, 0.95, 19)
+CS_CRITICAL_REF = [
+    0.11866175048828126, 0.20752849365234377, 0.28565310302734376,
+    0.3559652514648438, 0.4204180541992188, 0.48096462646484384,
+    0.5366284106445314, 0.5893625219726562, 0.6391669604492187,
+    0.6860417260742188, 0.7299868188476561, 0.7719787963867187,
+    0.8100645434570313, 0.8461971752929689, 0.8803766918945313,
+    0.9116265356445312, 0.9389701489257812, 0.9643606469726562,
+    0.9858449145507813,
+]
+ALPHA_TOL = 1e-3
 SOURCES = {"pl_posterior": "tramp_tpu_torch/csrc/pl_posterior.cu",
            "pl_forward_message": "tramp_tpu_torch/csrc/pl_message.cu",
            "pl_backward_message": "tramp_tpu_torch/csrc/pl_message.cu"}
@@ -268,6 +317,7 @@ def loop_window(run, iterations=10):
                      1e-3 * (us - us0) / iterations)
     top = sorted(ops.items(), key=lambda kv: -kv[1][1])[:5]
     return {
+        "iterations": iterations,
         "kernels": sum(c for name, (c, _) in ops.items()
                        if not name.lower().startswith(("memcpy", "memset"))),
         "device_ms": sum(ms for _, ms in ops.values()),
@@ -278,7 +328,8 @@ def loop_window(run, iterations=10):
 
 def print_window(what, window, card):
     device = window["device_ms"]
-    print(f"{what}, torch.profiler over 10 iterations less set-up and "
+    print(f"{what}, torch.profiler over {window['iterations']} iterations "
+          "less set-up and "
           f"readout: {window['kernels']:.1f} kernels and {device:.4f} ms of "
           "device time per iteration; the profiled run with set-up and "
           f"readout: device {window['run_device_ms']:.4f} ms of "
@@ -1020,6 +1071,354 @@ def front_door_relu_net(torch, tt, pl, students, engine_r, card):
     return total
 
 
+def hold_se_shape(torch, pl, channel, card):
+    """Phase 3, the shape of the batched SE integrand: SE_LANE_SHAPE in
+    float64 with a precision per lane, and one instance's grid of the same
+    channel. The five-output kernel against its plain version (rtol 1e-10
+    with phase 3's floor), three lanes against their single launches (the
+    same bits), and its times beside its bound. Returns (max abs error,
+    {shape: row of times})."""
+    specs = channel.region_specs
+    lanes, n = SE_LANE_SHAPE
+    dtype = torch.float64
+    streams = ("rz", "vz", "rx", "vx", "logZ")
+    rows, max_err = {}, 0.0
+    for shape, args in ((SE_LANE_SHAPE, lane_inputs(torch, lanes, n, dtype, 5)),
+                        (n, inputs(torch, n, dtype, 5))):
+        what = f"pl_posterior {channel.name} float64 {shape}"
+        got = pl.pl_posterior(*args, specs)
+        want = pl.pl_posterior_plain(*args, specs)
+        torch.cuda.synchronize()
+        worst, err = hold(torch, what, streams, got, want, RTOL["float64"])
+        max_err = max(max_err, err)
+        if shape == SE_LANE_SHAPE:
+            az, bz, ax, bx = args
+            for i in (0, lanes // 2, lanes - 1):
+                single = pl.pl_posterior(az[i, 0], bz[i], ax[i, 0], bx[i],
+                                         specs)
+                check(all(torch.equal(g[i], s_)
+                          for g, s_ in zip(got, single)),
+                      f"{what}: lane {i} differs from its single launch")
+        del got, want
+
+        def call():
+            return pl.pl_posterior(*args, specs)
+
+        def plain():
+            return pl.pl_posterior_plain(*args, specs)
+
+        kernels, device, _ = profiled(call, 5)
+        check(device > 0, "torch.profiler shows no device time")
+        one = shape != SE_LANE_SHAPE
+        b_ms, by, moved = bound_ms("pl_posterior", specs, n, dtype,
+                                   1 if one else lanes)
+        rows[shape] = dict(
+            device_ms=device, per_call_ms=per_call_ms(call, calls=5, reps=3),
+            host_ms=host_ms(call, calls=20), bound_ms=b_ms, bound_by=by,
+            plain_ms=per_call_ms(plain, calls=2, reps=3))
+        row = rows[shape]
+        print(f"SE integrand vs plain: {what} err/tol={worst:.2e} (rtol "
+              f"{RTOL['float64']:g}); kernel time: device "
+              f"{1e3 * device:.2f} us ({kernels:.0f} launches), per call "
+              f"{1e3 * row['per_call_ms']:.2f} us, host "
+              f"{1e3 * row['host_ms']:.2f} us, plain "
+              f"{row['plain_ms']:.4f} ms, bound {1e3 * b_ms:.4f} us by {by} "
+              f"({moved} B), share {100 * b_ms / device:.2f}% [{card}]")
+    return max_err, rows
+
+
+class RegionPathCounter:
+    """Counts, while active, the calls of the plain five-output posterior
+    and of the region-by-region moments (``LinearRegion``): the eager path
+    that the kernel replaces on the card."""
+    METHODS = ("backward_mean", "backward_variance", "forward_mean",
+               "forward_variance", "log_partitions")
+
+    def __init__(self, pl):
+        from tramp_tpu_torch.utils.linear_region import LinearRegion
+        self.pl, self.region, self.calls, self.saved = pl, LinearRegion, 0, {}
+
+    def _counting(self, fn):
+        def counted(*args, **kwargs):
+            self.calls += 1
+            return fn(*args, **kwargs)
+        return counted
+
+    def __enter__(self):
+        self.saved = {m: getattr(self.region, m) for m in self.METHODS}
+        self.saved["plain"] = self.pl.pl_posterior_plain
+        for m in self.METHODS:
+            setattr(self.region, m, self._counting(self.saved[m]))
+        self.pl.pl_posterior_plain = self._counting(self.saved["plain"])
+        return self
+
+    def __exit__(self, *exc):
+        self.pl.pl_posterior_plain = self.saved.pop("plain")
+        for m, fn in self.saved.items():
+            setattr(self.region, m, fn)
+
+
+def timed_solve(torch, run):
+    "Wall seconds of ``run()`` on a drained device."
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def se_v(se, ids):
+    return {id: float(se.get_variable_data(id)["v"].double().mean())
+            for id in ids}
+
+
+def phase_9a_goldens(torch, tt, card):
+    from tramp_tpu_torch.algos import CustomInit
+    for alpha, v_ref, rtol in CS_SE_ROWS + [CS_UNIVERSALITY_ROW]:
+        model = tt.glm_state_evolution(alpha=alpha, prior_rho=0.25, **CS)
+        se = tt.StateEvolution(model)
+        se.iterate(max_iter=200,
+                   initializer=CustomInit(a_init=[("x", "bwd", 0)]))
+        v = se.get_variable_data("x")["v"]
+        check(v.device.type == "cuda" and v.dtype == torch.float64,
+              f"SE golden: v is {v.dtype} on {v.device}")
+        err = abs(float(v) - v_ref) / v_ref
+        check(err <= rtol, f"SE golden alpha={alpha}: v={float(v):.12g}, "
+              f"pinned {v_ref:.12g}, rel err {err:.3g} (rtol {rtol:g})")
+        print(f"SE golden on the card: alpha={alpha:.6f} rho=0.25 "
+              f"n_iter={se.n_iter} v={float(v):.12g} pinned {v_ref:.12g} "
+              f"rel err {err:.3e} (rtol {rtol:g}) [{card}]")
+
+
+def phase_9b_grid(torch, tt, pl, card):
+    """The 1030-point grid of the compressed-sensing GLM and the 19 critical
+    lines. Returns the launches of the path (none: it runs no kernel)."""
+    from tramp_tpu_torch.algos import CustomInit
+    from tramp_tpu_torch.experiments import find_critical_alpha_batched
+    from tramp_tpu_torch.parallel import (
+        SESolver, grid_combos, se_phase_grid_records, stack_models)
+    golden_alphas = [a for a, _, _ in CS_SE_ROWS]
+    alphas = sorted(set(np.linspace(0.02, 2.0, 100)) | set(golden_alphas))
+    rhos = list(np.linspace(0.05, 0.95, 10))
+    grid = {"alpha": alphas, "prior_rho": rhos}
+    kw = dict(grid_kwargs=grid, ids=("x",), a0=0.0, max_iter=200, tol=1e-6,
+              **CS)
+    se_phase_grid_records(tt.glm_state_evolution, **kw)      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(pl)
+    t0 = time.perf_counter()
+    records = se_phase_grid_records(tt.glm_state_evolution, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(pl)
+    peak = torch.cuda.max_memory_allocated()
+    n = len(records)
+    check(n == len(alphas) * len(rhos) == 1030, f"SE grid: {n} records")
+    v = np.array([r["v"] for r in records])
+    n_iter = np.array([r["n_iter"] for r in records])
+    check(np.isfinite(v).all() and (v > 0).all(),
+          f"SE grid: {int((~np.isfinite(v)).sum())} values are not finite")
+    for alpha, v_ref, rtol in CS_SE_ROWS:
+        row = [r for r in records if r["alpha"] == alpha
+               and abs(r["prior_rho"] - 0.25) < 1e-12]
+        check(len(row) == 1, f"SE grid: {len(row)} rows at alpha={alpha}")
+        err = abs(row[0]["v"] - v_ref) / v_ref
+        check(err <= rtol, f"SE grid, golden alpha={alpha}: v="
+              f"{row[0]['v']:.12g}, pinned {v_ref:.12g} (rtol {rtol:g})")
+        print(f"SE grid, golden row alpha={alpha:.6f}: v={row[0]['v']:.12g} "
+              f"rel err {err:.3e} (rtol {rtol:g})")
+    # three lanes against their single solves
+    combos = grid_combos(grid)
+    models = [tt.glm_state_evolution(
+        **{k: val.item() for k, val in c.items()}, **CS) for c in combos]
+    solver = SESolver(models[0], max_iter=200, tol=1e-6)
+    init = CustomInit(a_init=[("x", "bwd", 0.0)])
+    for lane in (0, n // 2, n - 1):
+        post, n_1 = solver.solve(models[lane], init)
+        v_1 = float(post["x"]["v"])
+        err = abs(v[lane] - v_1) / v_1
+        check(err <= 1e-10 and int(n_1) == n_iter[lane],
+              f"SE grid: lane {lane} v={v[lane]:.15g} n_iter={n_iter[lane]}, "
+              f"single solve v={v_1:.15g} n_iter={int(n_1)}")
+        print(f"SE grid: lane {lane} vs its single solve: v rel err "
+              f"{err:.3e} (rtol 1e-10), n_iter {n_iter[lane]} both")
+    stacked = stack_models(models)
+    window = print_window(
+        f"SE grid of the compressed-sensing GLM, {n} lanes", loop_window(
+            lambda k: SESolver(models[0], max_iter=k, tol=0.0).solve_batch(
+                stacked, init)), card)
+    iterations = int(n_iter.max())
+    solve_wall = timed_solve(torch, lambda: solver.solve_batch(stacked, init))
+    print(f"SE grid of the compressed-sensing GLM: {n} points in one "
+          f"solve_batch, {iterations} iterations of the loop (per lane "
+          f"{int(n_iter.min())} to {iterations}, mean {n_iter.mean():.2f}), "
+          f"{wall:.4f} s with building and stacking the models, "
+          f"{n / wall:.1f} points/s; the solve alone {solve_wall:.4f} s, "
+          f"{1e3 * solve_wall / iterations:.4f} ms per iteration, of which "
+          f"{window['device_ms']:.4f} ms on the device (busy "
+          f"{100 * window['device_ms'] * iterations / (1e3 * solve_wall):.2f}"
+          f"%), peak memory {peak} B, launches {launches} [{card}]")
+    check(not any(launches.values()), f"SE grid ran kernels: {launches}")
+
+    t0 = time.perf_counter()
+    lines = find_critical_alpha_batched(
+        id="x", a0=0, mse_criterion="perfect", alpha_min=1e-5, alpha_max=2.0,
+        alpha_tol=ALPHA_TOL, model_builder=tt.glm_state_evolution,
+        grid_kwargs={"prior_rho": list(np.linspace(0.05, 0.95, 19))}, **CS)
+    wall = time.perf_counter() - t0
+    off = np.abs(np.asarray(lines) - np.asarray(CS_CRITICAL_REF))
+    check(lines.shape == (19,) and (off <= ALPHA_TOL).all(),
+          f"critical lines: off the pinned values by up to {off.max():.3g} "
+          f"(alpha_tol {ALPHA_TOL})")
+    print(f"critical lines of compressed sensing, 19 lines in one batched "
+          f"bisection: {wall:.3f} s, max |alpha - pinned| = {off.max():.3e} "
+          f"(alpha_tol {ALPHA_TOL}), {int((off <= 1e-12).sum())} of 19 "
+          f"bit-equal to the pinned values [{card}]")
+    return launches
+
+
+def relu_channel_model(tt, alpha, prior_rho):
+    "prior -> Marchenko-Pastur -> relu -> Gaussian likelihood, SE only."
+    from tramp_tpu_torch.channels import MarchenkoPasturChannel, ReluChannel
+    from tramp_tpu_torch.likelihoods import GaussianLikelihood
+    from tramp_tpu_torch.priors import GaussBernoulliPrior
+    return (GaussBernoulliPrior(size=1, rho=prior_rho) @ tt.V(id="x")
+            @ MarchenkoPasturChannel(alpha) @ tt.V(id="z") @ ReluChannel()
+            @ tt.V(id="a") @ GaussianLikelihood(y=None, var=NOISE)).to_model()
+
+
+def phase_9c_kernel_on_the_se_path(torch, tt, pl, student, linear, card):
+    """The five-output kernel as the SE integrand, one instance and 1024
+    lanes. Returns (launches by path, v of the student's SE by variable)."""
+    from tramp_tpu_torch.parallel import (
+        SESolver, grid_combos, se_phase_grid_records, stack_models)
+    ids = ("x", "z", "a")
+    # one instance: the relu-net student of phase 4, card against CPU
+    tt.StateEvolution(student).iterate(max_iter=200)         # warm-up
+    torch.cuda.synchronize()
+    reset_launches(pl)
+    with RegionPathCounter(pl) as eager:
+        t0 = time.perf_counter()
+        se = tt.StateEvolution(student).iterate(max_iter=200)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    one = read_launches(pl)
+    check(one == {"pl_posterior": 2 * se.n_iter, "pl_forward_message": 0,
+                  "pl_backward_message": 0} and se.n_iter > 1
+          and eager.calls == 0,
+          f"SE of the relu-net student: launches {one} for {se.n_iter} "
+          f"sweeps (want 2 of pl_posterior per sweep and no message), "
+          f"{eager.calls} calls of the region-by-region path (want 0)")
+    svd = tuple(t.cpu() for t in (linear.U, linear.s, linear.V.T))
+    cpu_student, _, _ = relu_net(torch, tt, torch.float64, device="cpu",
+                                 svd=svd)
+    with RegionPathCounter(pl) as cpu_eager:
+        cpu_se = tt.StateEvolution(cpu_student).iterate(max_iter=200)
+    v, v_cpu = se_v(se, ids), se_v(cpu_se, ids)
+    err = max(abs(v[id] - v_cpu[id]) / v_cpu[id] for id in ids)
+    check(se.n_iter == cpu_se.n_iter and err <= 1e-8
+          and cpu_se.device.type == "cpu" and cpu_eager.calls > 0
+          and read_launches(pl) == one,
+          f"SE of the relu-net student: card n_iter {se.n_iter} vs CPU "
+          f"{cpu_se.n_iter}, v rel err {err:.3g} (rtol 1e-8), the CPU run "
+          f"made {cpu_eager.calls} calls of the plain version")
+    kernels, device, wall_ms = profiled(
+        lambda: tt.StateEvolution(student).iterate(max_iter=10, tol=0.0), 1)
+    print(f"SE of the relu-net student N=4096 float64: n_iter={se.n_iter} "
+          f"v={v} wall={wall:.3f} s sweeps/s={se.n_iter / wall:.1f} "
+          f"launches={one}, region-by-region path {eager.calls} calls; card "
+          f"vs CPU (plain version): n_iter equal, v rel err {err:.3e} (rtol "
+          f"1e-8); torch.profiler over 10 sweeps with set-up: "
+          f"{kernels / 10:.1f} kernels per sweep, device "
+          f"{device / 10:.4f} ms of {wall_ms / 10:.4f} ms per sweep, busy "
+          f"{100 * device / wall_ms:.2f}% [{card}]")
+
+    # 1024 lanes: the relu-channel model over an (alpha, rho) grid
+    grid = {"alpha": list(np.linspace(0.1, 2.0, 64)),
+            "prior_rho": list(np.linspace(0.05, 0.95, 16))}
+
+    def relu_model(alpha, prior_rho):
+        return relu_channel_model(tt, alpha, prior_rho)
+
+    kw = dict(grid_kwargs=grid, ids=ids, max_iter=200, tol=1e-6)
+    se_phase_grid_records(relu_model, **dict(kw, max_iter=3))    # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(pl)
+    with RegionPathCounter(pl) as eager:
+        t0 = time.perf_counter()
+        records = se_phase_grid_records(relu_model, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    batch = read_launches(pl)
+    peak = torch.cuda.max_memory_allocated()
+    lanes = SE_LANE_SHAPE[0]
+    by_id = {id: np.array([r["v"] for r in records if r["id"] == id])
+             for id in ids}
+    n_iter = np.array([r["n_iter"] for r in records if r["id"] == "x"])
+    check(all(a.shape == (lanes,) and np.isfinite(a).all()
+              for a in by_id.values()), "SE of the relu-channel grid: a v "
+          "is missing or not finite")
+    iterations = int(n_iter.max())
+    check(batch == {"pl_posterior": 2 * iterations, "pl_forward_message": 0,
+                    "pl_backward_message": 0} and eager.calls == 0,
+          f"SE of the relu-channel grid: launches {batch} for {iterations} "
+          f"iterations (want 2 of pl_posterior per iteration), "
+          f"{eager.calls} calls of the region-by-region path (want 0)")
+    combos = grid_combos(grid)
+    models = [relu_model(**{k: val.item() for k, val in c.items()})
+              for c in combos]
+    solver = SESolver(models[0], max_iter=200, tol=1e-6)
+    for lane in (0, lanes // 2, lanes - 1):
+        post, n_1 = solver.solve(models[lane])
+        err = max(abs(by_id[id][lane] - float(post[id]["v"]))
+                  / float(post[id]["v"]) for id in ids)
+        check(err <= 1e-8 and int(n_1) == n_iter[lane],
+              f"SE of the relu-channel grid: lane {lane} is {err:.3g} off "
+              f"its single solve (rtol 1e-8), n_iter {n_iter[lane]} vs "
+              f"{int(n_1)}")
+        print(f"SE of the relu-channel grid: lane {lane} vs its single "
+              f"solve: v of x, z, a within {err:.3e} (rtol 1e-8), n_iter "
+              f"{n_iter[lane]} both")
+    stacked = stack_models(models)
+    window = print_window(
+        f"SE of the relu-channel model, {lanes} lanes", loop_window(
+            lambda k: SESolver(models[0], max_iter=k,
+                               tol=0.0).solve_batch(stacked), 5), card)
+    solve_wall = timed_solve(torch, lambda: solver.solve_batch(stacked))
+    print(f"SE of the relu-channel model: {lanes} points in one "
+          f"solve_batch, {iterations} iterations of the loop (per lane "
+          f"{int(n_iter.min())} to {iterations}, mean {n_iter.mean():.2f}), "
+          f"{wall:.4f} s with building and stacking the models, "
+          f"{lanes / wall:.1f} points/s; the solve alone {solve_wall:.4f} s, "
+          f"{1e3 * solve_wall / iterations:.4f} ms per iteration, of which "
+          f"{window['device_ms']:.4f} ms on the device (busy "
+          f"{100 * window['device_ms'] * iterations / (1e3 * solve_wall):.2f}"
+          f"%), peak memory {peak} B ({peak / 2**30:.3f} GiB), launches "
+          f"{batch} [{card}]")
+    return {"se_relu_student": one, "se_relu_channel_grid": batch}, v
+
+
+def phase_9d_ep_against_se(torch, tt, flagship_student, flagship_v, relu_v_se,
+                           relu_ep, card):
+    se = tt.StateEvolution(flagship_student).iterate(max_iter=200)
+    v_se = float(se.get_variable_data("x")["v"])
+    gap = abs(flagship_v - v_se) / v_se
+    check(gap < FLAGSHIP_BAND,
+          f"flagship: |v_EP - v_SE| / v_SE = {gap:.3g} (band "
+          f"{FLAGSHIP_BAND})")
+    print(f"EP against SE, flagship GLM N=10000: v_SE={v_se:.6g} "
+          f"(n_iter={se.n_iter}) v_EP={flagship_v:.6g} |v_EP-v_SE|/v_SE="
+          f"{gap:.3e} (band {FLAGSHIP_BAND}) [{card}]")
+    mse, v_ep = relu_ep
+    print(f"EP against SE, relu net N=4096 float64 (readings, no limit): "
+          f"v_SE={relu_v_se['x']:.6g} v_EP={v_ep:.6g} mse={mse:.6g} "
+          f"|v_EP-v_SE|/v_SE={abs(v_ep - relu_v_se['x']) / relu_v_se['x']:.3e}"
+          f" |mse-v_SE|/v_SE={abs(mse - relu_v_se['x']) / relu_v_se['x']:.3e}"
+          f" [{card}]")
+
+
 def main():
     import torch
     # phase 1: the device
@@ -1103,6 +1502,8 @@ def main():
     print(f"plain versions at relu float32, {LANES} lanes of n=2048, per "
           "call: " + ", ".join(f"{k} {v:.4f} ms"
                                for k, v in lanes_plain_ms.items()))
+    se_err, se_rows = hold_se_shape(torch, pl, relu, card)
+    max_err["pl_posterior"] = max(max_err["pl_posterior"], se_err)
 
     # phase 4: the relu net through the kernels, f32 and f64
     class UnfusedReluChannel(ReluChannel):
@@ -1221,6 +1622,15 @@ def main():
     check(not any(flagship_launches.values()),
           f"the flagship ran kernels: {flagship_launches}")
 
+    # phase 9: the state evolution, float64
+    phase_9a_goldens(torch, tt, card)
+    phase_9b_grid(torch, tt, pl, card)
+    relu_student, _, relu_linear = students["float64"]
+    se_launches, relu_v_se = phase_9c_kernel_on_the_se_path(
+        torch, tt, pl, relu_student, relu_linear, card)
+    phase_9d_ep_against_se(torch, tt, student, v, relu_v_se,
+                           results["float64"], card)
+
     # phase 8: summary. A main path is a solve with the posterior readout
     # that follows it: the engine's float32 relu-net solve (phase 4) and the
     # front door's relu-net solves, single and batched (phase 7); the
@@ -1229,7 +1639,10 @@ def main():
     # kernel only in the readouts. Times at the batched main path's shape
     # (relu, float32, LANES lanes of 2048 elements): ms and plain_ms per call
     # by CUDA events, device_ms by torch.profiler; the same at one instance
-    # (n = 2048) under ``one_instance``.
+    # (n = 2048) under ``one_instance``. The SE paths of phase 9c launch the
+    # five-output kernel alone, twice per sweep; its times at their shapes
+    # (float64, 1024 lanes of 20000 nodes and one instance's 20000) are under
+    # ``se_integrand``.
     kernels = []
     for name, source in SOURCES.items():
         row = table[name, "relu", "float32", LANE_SHAPE]
@@ -1237,10 +1650,13 @@ def main():
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": "tramp_tpu/ops/pl_fused.py:81",
-            "launches": engine_launches[name] + relu_launches[name],
-            "launches_by_path": {"engine_relu_net_f32": engine_launches[name],
-                                 "front_door_relu_net": relu_launches[name],
-                                 "front_door_flagship": 0},
+            "launches": (engine_launches[name] + relu_launches[name]
+                         + sum(path[name] for path in se_launches.values())),
+            "launches_by_path": dict(
+                {"engine_relu_net_f32": engine_launches[name],
+                 "front_door_relu_net": relu_launches[name],
+                 "front_door_flagship": 0, "se_cs_grid": 0},
+                **{k: path[name] for k, path in se_launches.items()}),
             "max_abs_err": max_err[name], "ms": row["per_call_ms"],
             "plain_ms": lanes_plain_ms[name], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
@@ -1250,6 +1666,15 @@ def main():
                 "ms": one["per_call_ms"], "plain_ms": plain_ms[name],
                 "bound_ms": one["bound_ms"], "bound_by": one["bound_by"],
                 "device_ms": one["device_ms"], "host_ms": one["host_ms"]}})
+        if name == "pl_posterior":
+            kernels[-1]["se_integrand"] = {
+                str(shape): {"ms": row["per_call_ms"],
+                             "plain_ms": row["plain_ms"],
+                             "bound_ms": row["bound_ms"],
+                             "bound_by": row["bound_by"],
+                             "device_ms": row["device_ms"],
+                             "host_ms": row["host_ms"]}
+                for shape, row in se_rows.items()}
         check(kernels[-1]["launches"] > 0, f"{name} was never launched on "
                                            "the main paths")
     print(json.dumps({"kernels": kernels}))

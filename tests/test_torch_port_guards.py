@@ -3,8 +3,10 @@ the JAX package; the piecewise-linear wrappers take their plain versions
 for CPU tensors and a shape rule for meta tensors, and convert each
 channel's regions once; their module imports without nvcc or a GPU (the
 kernels are built at first launch); a model built without a device needs a
-card, and one built with ``device="cpu"`` does not; and, on a card, the
-kernels agree with their plain versions.
+card, and one built with ``device="cpu"`` does not; the state-evolution
+entry points keep the same rule, take the plain twin for their integrands on
+the CPU, refuse a mesh, and import no pandas until a DataFrame is asked for;
+and, on a card, the kernels agree with their plain versions.
 
 This file imports no JAX, so the card-only test runs on a machine without
 it: ``python -m pytest --noconftest -p no:cacheprovider -m cuda
@@ -263,6 +265,112 @@ def test_explicit_cpu_model_solves_without_a_card():
         "assert bool(torch.isfinite(r).all()) and ep.n_iter > 1\n")
     proc = _run(code, env=NO_CARD)
     assert proc.returncode == 0, proc.stderr + proc.stdout
+
+
+def test_se_entry_points_need_a_card_or_an_explicit_cpu():
+    code = (
+        "import torch\n"
+        "import tramp_tpu_torch as tt\n"
+        "from tramp_tpu_torch import experiments, parallel\n"
+        "kw = dict(prior_type='gauss_bernoulli', output_type='gaussian',\n"
+        "          output_var=1e-11)\n"
+        "model = tt.glm_state_evolution(alpha=0.5, prior_rho=0.25, **kw)\n"
+        "grid = dict(grid_kwargs={'alpha': [0.3, 0.6]}, prior_rho=0.25, **kw)\n"
+        "line = dict(id='x', a0=0, mse_criterion='perfect', alpha_min=1e-5,\n"
+        "            alpha_max=2.0, alpha_tol=0.5, prior_rho=0.25,\n"
+        "            model_builder=tt.glm_state_evolution, **kw)\n"
+        "calls = {\n"
+        "    'StateEvolution': lambda **d: tt.StateEvolution(model, **d),\n"
+        "    'SESolver': lambda **d: parallel.SESolver(model, **d),\n"
+        "    'grid': lambda **d: parallel.se_phase_grid_records(\n"
+        "        tt.glm_state_evolution, **grid, **d),\n"
+        "    'critical': lambda **d: experiments.find_critical_alpha(\n"
+        "        **line, **d),\n"
+        "    'stack': lambda **d: parallel.stack_models(\n"
+        "        [model, tt.glm_state_evolution(alpha=0.6, prior_rho=0.25,\n"
+        "                                       **kw)], **d)}\n"
+        "for name, call in calls.items():\n"
+        "    try:\n"
+        "        call()\n"
+        "    except RuntimeError as e:\n"
+        "        assert \"device='cpu'\" in str(e), (name, e)\n"
+        "    else:\n"
+        "        raise SystemExit(name + ': no error without a card')\n"
+        "    call(device='cpu')\n"
+        "se = calls['StateEvolution'](device='cpu').iterate(max_iter=50)\n"
+        "v = se.get_variable_data('x')['v']\n"
+        "assert v.device.type == 'cpu' and v.dtype == torch.float64\n"
+        "assert 0 < float(v) < 0.25 and se.n_iter > 2\n")
+    proc = _run(code, env=NO_CARD)
+    assert proc.returncode == 0, proc.stderr + proc.stdout
+
+
+def test_port_imports_no_pandas_until_a_dataframe_is_asked_for():
+    code = (
+        "import sys\n"
+        "import tramp_tpu_torch as tt\n"
+        "from tramp_tpu_torch import algos, experiments, parallel\n"
+        "kw = dict(prior_type='gauss_bernoulli', output_type='gaussian',\n"
+        "          output_var=1e-11)\n"
+        "records = parallel.se_phase_grid_records(\n"
+        "    tt.glm_state_evolution, {'alpha': [0.3, 0.6]}, device='cpu',\n"
+        "    prior_rho=0.25, **kw)\n"
+        "assert len(records) == 2 and 'pandas' not in sys.modules\n"
+        "track = algos.TrackEvolution()\n"
+        "tt.StateEvolution(tt.glm_state_evolution(alpha=0.5, **kw),\n"
+        "                  device='cpu').iterate(max_iter=3, callback=track)\n"
+        "assert len(track.records) == 6 and 'pandas' not in sys.modules\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr + proc.stdout
+
+
+def test_se_integrands_take_the_plain_twin_on_cpu():
+    """The piecewise-linear channel's scalar_* integrands are outputs of the
+    five-output posterior: on CPU tensors its plain twin, with no launch
+    counted, and no isotropic mean taken (one value per node)."""
+    az, bz, ax, bx = _inputs(257, torch.float64)
+    before = pl_fused.pl_posterior.launches
+    for channel in CHANNELS:
+        want = pl_fused.pl_posterior_plain(az, bz, ax, bx,
+                                           channel.region_specs)
+        for method, stream in (("scalar_backward_variance", 1),
+                               ("scalar_forward_variance", 3),
+                               ("scalar_log_partition", 4)):
+            got = getattr(channel, method)(az, bz, ax, bx)
+            assert got.shape == bz.shape and torch.equal(got, want[stream])
+    assert pl_fused.pl_posterior.launches == before
+
+
+def test_se_measure_calls_the_integrand_once_for_all_regions():
+    """One call of the integrand per error, whatever the number of regions:
+    on a card that is one launch of the five-output kernel, two per sweep."""
+    az, ax, tau = (torch.tensor(v, dtype=torch.float64)
+                   for v in (1.7, 0.9, 1.2))
+    for channel in CHANNELS:
+        shapes = []
+
+        def f(bz, bx):
+            shapes.append((tuple(bz.shape), tuple(bx.shape),
+                           bz.is_contiguous() and bx.is_contiguous()))
+            return bz
+
+        channel.beliefs_measure(az, ax, tau, f)
+        nodes = len(channel.region_specs) * 100 * 100
+        assert shapes == [((nodes,), (nodes,), True)]
+        shapes.clear()
+        channel.beliefs_measure(az.expand(4, 1), ax.expand(4, 1),
+                                tau.expand(4, 1), f)
+        assert shapes == [((4, nodes), (4, nodes), True)]
+
+
+def test_phase_grid_refuses_a_mesh():
+    import tramp_tpu_torch as tt
+    from tramp_tpu_torch import parallel
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        parallel.run_se_phase_grid(
+            tt.glm_state_evolution, {"alpha": [0.3]}, mesh=object(),
+            device="cpu", prior_type="gauss_bernoulli",
+            output_type="gaussian")
 
 
 def test_kernel_module_imports_without_nvcc_or_gpu():

@@ -216,7 +216,14 @@ def test_solve_batch_needs_lanes_and_equal_hyperparameters():
     solver, models, _, _, _ = solved("SpectralVAMPSolver", "stacked_models")
     with pytest.raises(ValueError, match="lanes"):
         solver.solve_batch(models[0])
+    # a numeric hyperparameter that differs becomes one value per lane, an
+    # equal one stays the number it was; a structural field must be equal
     other = port_model(student("glm", np.eye(72, 96), np.zeros(72)))
     other.factors[2].var = 0.5
-    with pytest.raises(ValueError, match="var differs"):
+    stacked = parallel.stack_models([models[0], other])
+    assert stacked.factors[2].var.tolist() == [[NOISE], [0.5]]
+    assert stacked.factors[0].rho == RHO["glm"]
+    assert model_lanes(stacked, models[0]) == 2
+    other.factors[0].isotropic = False
+    with pytest.raises(ValueError, match="isotropic differs"):
         parallel.stack_models([models[0], other])

@@ -10,6 +10,10 @@ import torch
 
 from tramp_tpu.base import Variable
 
+# The suite runs one process per core (pytest-xdist): a thread pool per
+# process on top of that slows every test down, and the arrays here are small.
+torch.set_num_threads(1)
+
 
 def _np(x):
     return None if x is None else np.asarray(x)
@@ -18,9 +22,14 @@ def _np(x):
 def describe_factor(factor):
     "The convert.factor_from_description dict of a tramp_tpu factor."
     cls = type(factor)
+    meta = {f: getattr(factor, f) for f in cls._meta_fields}
+    if "ensemble" in meta:
+        # by class name and constructor keywords: the port builds its own
+        meta["ensemble"] = {"class": type(meta["ensemble"]).__name__,
+                            "alpha": float(meta["ensemble"].alpha)}
     return {"class": cls.__name__,
             "data": {f: _np(getattr(factor, f)) for f in cls._data_fields},
-            "meta": {f: getattr(factor, f) for f in cls._meta_fields}}
+            "meta": meta}
 
 
 def describe_model(model):
@@ -51,6 +60,12 @@ def describe_state(state, n_slots):
     if len(state) > n_slots:
         cache = {k: np.asarray(v) for k, v in state[n_slots].items()}
     return slots, cache
+
+
+def describe_second_moments(model):
+    "{variable id: tau} of a tramp_tpu Model (init_second_moments), as numpy."
+    return {id: np.asarray(tau)
+            for id, tau in model.get_second_moments().items()}
 
 
 def to_numpy(x):

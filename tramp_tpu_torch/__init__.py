@@ -3,21 +3,33 @@
 Models are DAGs of priors, channels and likelihoods composed with ``@``;
 ``ExpectationPropagation(model).iterate(...)`` runs EP message passing over
 the statically lowered schedule; ``parallel.dispatch_solver(model)`` picks
-the fastest solver for a model, with single and batched solves. The
-piecewise-linear posterior runs as a
-hand-written CUDA kernel on NVIDIA Hopper GPUs and as plain PyTorch on the
-CPU. The JAX package tramp_tpu is the reference this port is held against.
+the fastest solver for a model, with single and batched solves.
+``StateEvolution(model).iterate(...)`` runs the scalar state evolution of
+the same model (float64 unless asked otherwise), ``parallel.SESolver`` and
+``parallel.run_se_phase_grid`` batch it over a grid of hyperparameters, and
+``experiments`` holds the teacher-student scenarios and the critical-line
+searches. The piecewise-linear posterior runs as a hand-written CUDA kernel
+on NVIDIA Hopper GPUs and as plain PyTorch on the CPU, in the EP readouts
+and as the integrand of the piecewise-linear channels' state evolution. The
+JAX package tramp_tpu is the reference this port is held against.
 """
-from . import beliefs, utils, ops, priors, channels, likelihoods, parallel
-from .variables import V, O
-from .models import Model
-from .algos import (
-    ExpectationPropagation, ConstantInit, EarlyStopping, EarlyStoppingEP,
+from . import (
+    beliefs, utils, ops, priors, channels, likelihoods, ensembles, parallel,
+    experiments,
 )
+from .variables import V, O
+from .models import Model, glm_generative, glm_state_evolution
+from .algos import (
+    ExpectationPropagation, StateEvolution, ConstantInit, NoisyInit,
+    CustomInit, EarlyStopping, EarlyStoppingEP,
+)
+from .experiments import TeacherStudentScenario, BayesOptimalScenario
 
 __all__ = [
     "beliefs", "utils", "ops", "priors", "channels", "likelihoods",
-    "parallel", "V", "O",
-    "Model", "ExpectationPropagation", "ConstantInit", "EarlyStopping",
-    "EarlyStoppingEP",
+    "ensembles", "parallel", "experiments", "V", "O",
+    "Model", "glm_generative", "glm_state_evolution",
+    "ExpectationPropagation", "StateEvolution", "ConstantInit", "NoisyInit",
+    "CustomInit", "EarlyStopping", "EarlyStoppingEP",
+    "TeacherStudentScenario", "BayesOptimalScenario",
 ]

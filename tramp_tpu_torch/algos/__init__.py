@@ -1,7 +1,23 @@
-"""Inference engines."""
-from .callbacks import EarlyStopping, EarlyStoppingEP
+"""Inference engines, initializers, metrics and callbacks."""
+from .message_passing import MessagePassing
 from .expectation_propagation import ExpectationPropagation
-from .initial_conditions import ConstantInit
+from .state_evolution import StateEvolution
+from .initial_conditions import ConstantInit, NoisyInit, CustomInit
+from .metrics import (
+    METRICS, mean_squared_error, sign_symmetric_mse, phase_symmetric_mse,
+    overlap,
+)
+from .callbacks import (
+    Callback, PassCallback, JoinCallback, LogProgress, TrackMessages,
+    TrackObjective, TrackEvolution, TrackEstimate, TrackErrors,
+    TrackOverlaps, EarlyStopping, EarlyStoppingEP,
+)
 
-__all__ = ["EarlyStopping", "EarlyStoppingEP", "ExpectationPropagation",
-           "ConstantInit"]
+__all__ = [
+    "MessagePassing", "ExpectationPropagation", "StateEvolution",
+    "ConstantInit", "NoisyInit", "CustomInit", "METRICS",
+    "mean_squared_error", "sign_symmetric_mse", "phase_symmetric_mse",
+    "overlap", "Callback", "PassCallback", "JoinCallback", "LogProgress",
+    "TrackMessages", "TrackObjective", "TrackEvolution", "TrackEstimate",
+    "TrackErrors", "TrackOverlaps", "EarlyStopping", "EarlyStoppingEP",
+]

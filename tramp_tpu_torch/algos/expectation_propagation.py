@@ -1,6 +1,10 @@
 """Expectation Propagation engine. Counterpart of
-tramp_tpu/algos/expectation_propagation.py:17-144."""
-from ..base import compute_ab_new
+tramp_tpu/algos/expectation_propagation.py."""
+import math
+
+import torch
+
+from ..base import Variable, compute_ab_new
 from ..channels import LinearChannel
 from .message_passing import MessagePassing, slot, FWD, BWD
 
@@ -38,7 +42,7 @@ class ExpectationPropagation(MessagePassing):
     # -- factor ops -------------------------------------------------------
     # Every factor ported so far has at most one input and one output
     # variable (n_prev, n_next <= 1).
-    def _factor_forward(self, i, node, state):
+    def _factor_forward(self, i, node, state, aux=None):
         e_out = self.model.out_edges[i][0]
         ax, bx = _ab(state[slot(e_out, BWD)])
         if node.n_prev == 0:
@@ -54,7 +58,7 @@ class ExpectationPropagation(MessagePassing):
                 a_new, b_new = node.compute_forward_message(az, bz, ax, bx)
         return {slot(e_out, FWD): {"a": a_new, "b": b_new}}
 
-    def _factor_backward(self, i, node, state):
+    def _factor_backward(self, i, node, state, aux=None):
         e_in = self.model.in_edges[i][0]
         az, bz = _ab(state[slot(e_in, FWD)])
         if node.n_next == 0:
@@ -74,3 +78,34 @@ class ExpectationPropagation(MessagePassing):
     def update(self, variable, post):
         a_hat, b_hat = post["a"], post["b"]
         return dict(r=b_hat / a_hat, v=1.0 / a_hat)
+
+    # -- objective ---------------------------------------------------------
+    def variable_objective(self, var, v_idx, post):
+        "Variable log partition. Reference base.py:146-150."
+        ax, bx = post["a"], post["b"]
+        logZ = 0.5 * torch.sum(
+            bx**2 / ax + torch.log(2 * math.pi / ax) * torch.ones_like(bx))
+        return torch.where(torch.all(ax > 0), logZ, math.inf)
+
+    def node_objective_at(self, i, state):
+        node = self.nodes[i]
+        if isinstance(node, Variable):
+            return self.variable_objective(node, i, self._posterior(i, state))
+        if node.n_prev == 0:
+            ax, bx = _ab(state[slot(self.model.out_edges[i][0], BWD)])
+            return node.compute_log_partition(ax, bx)
+        az, bz = _ab(state[slot(self.model.in_edges[i][0], FWD)])
+        if node.n_next == 0:
+            return node.compute_log_partition(az, bz, node.y)
+        ax, bx = _ab(state[slot(self.model.out_edges[i][0], BWD)])
+        return node.compute_log_partition(az, bz, ax, bx)
+
+    def log_evidence(self, update=True):
+        """The Bethe log evidence of one instance at the engine's state
+        (reference expectation_propagation.py:169-175)."""
+        if update:
+            self.update_objective()
+        return self.A_model
+
+    def surprisal(self, update=True):
+        return -self.log_evidence(update)

@@ -1,14 +1,17 @@
 """Message-passing engine base. Counterpart of
-tramp_tpu/algos/message_passing.py (EP path).
+tramp_tpu/algos/message_passing.py.
 
 - Message state is a tuple of per-directed-edge dicts
   ``{"a": tensor, "b": tensor}`` (``a`` is 0-d for isotropic messages,
-  ``b`` has the variable's shape), followed by one dict holding the
-  spectral-image cache when the engine carries one.
+  ``b`` has the variable's shape; the state evolution keeps ``a`` alone),
+  followed by one dict holding the spectral-image cache when the engine
+  carries one.
 - One iteration is a forward + backward sweep over the static schedule
   (``_sweep``); ``iterate`` runs it in a Python loop with the semantics of
   the JAX package's compiled ``while_loop``, reading the stop flags from
-  the device once per sweep.
+  the device once per sweep; with ``callback=`` it runs the JAX package's
+  Python loop, in which the callback sees the live engine after every sweep
+  and decides when to stop.
 - NaN guard: if a sweep produces any non-finite message the previous state
   is kept and the loop stops (reference message_passing.py:187-209).
 - Damping: constant per-edge factor->variable damping
@@ -28,7 +31,7 @@ import torch
 from ..base import Variable, Factor
 from ..lanes import lane_count, per_lane
 from ..models import Model
-from .callbacks import EarlyStopping
+from .callbacks import EarlyStopping, EarlyStoppingEP
 from .initial_conditions import ConstantInit
 
 FWD, BWD = 0, 1
@@ -47,6 +50,11 @@ class MessagePassing:
     rollback_increase = None
     wait_increase = 5
 
+    #: SE messages are scalar precisions: no variable shapes are required,
+    #: so SE-only factors skip shape propagation (the reference builds SE
+    #: GLMs with size=None, generalized_linear_model.py:45)
+    needs_shapes = True
+
     def __init__(self, model, message_keys):
         if not isinstance(model, Model):
             raise ValueError(f"model {model} is not a Model")
@@ -54,6 +62,7 @@ class MessagePassing:
         self.message_keys = message_keys
         self.n_iter = 0
         self.state = None
+        self.A_model = None
 
         # static schedule ------------------------------------------------
         self.nodes = model.nodes
@@ -80,11 +89,20 @@ class MessagePassing:
         "Engine hook: factor indices that carry a spectral image. Default: none."
         return ()
 
+    def _prepare(self, model):
+        """Auxiliary data of a run that the sweeps share (the second moments
+        for SE), computed once per run from the model that is swept."""
+        return None
+
+    def device_dtype(self):
+        "Device and dtype of the message state."
+        return self.model.device_dtype()
+
     # -- initial state ---------------------------------------------------
     def init_state(self, initializer=None):
         initializer = initializer or ConstantInit(a=0, b=0)
-        shapes = self.model.init_shapes()
-        device, dtype = self.model.device_dtype()
+        shapes = self.model.init_shapes() if self.needs_shapes else {}
+        device, dtype = self.device_dtype()
         state = []
         for e in range(len(self.edges)):
             v_idx = self.edge_variable[e]
@@ -99,7 +117,9 @@ class MessagePassing:
                 str(i): torch.zeros(self.nodes[i].k, device=device,
                                     dtype=dtype)
                 for i in self.spectral_factors})
-        state = self._harmonize_state(tuple(state))
+        state = tuple(state)
+        if self.needs_shapes:
+            state = self._harmonize_state(state)
         if self.spectral_factors:
             # the cache must equal U^T bx0 of the initialized slots (the
             # value the uncached engine's first forward pass computes)
@@ -190,9 +210,10 @@ class MessagePassing:
         return {key: sum(state[s][key] for s in in_slots)
                 for key in self.message_keys}
 
-    def _sweep(self, model, state, damp):
+    def _sweep(self, model, state, damp, aux=None):
         """One forward + backward sweep of ``model`` (the engine's model or
-        its meta copy) from ``state``. Returns the new state tuple."""
+        its meta copy) from ``state``; ``aux`` is ``_prepare(model)``.
+        Returns the new state tuple."""
         state = list(state)
         if self.spectral_factors:
             # local cache copy at index n_slots; spectral factor reads go
@@ -221,7 +242,7 @@ class MessagePassing:
             if isinstance(node, Variable):
                 write(self._variable_out(i, state, FWD))
             else:
-                write(self._factor_forward(i, node, state))
+                write(self._factor_forward(i, node, state, aux))
         # backward pass
         for i in reversed(range(len(model.nodes))):
             node = model.nodes[i]
@@ -230,12 +251,11 @@ class MessagePassing:
             if isinstance(node, Variable):
                 write(self._variable_out(i, state, BWD))
             else:
-                write(self._factor_backward(i, node, state))
+                write(self._factor_backward(i, node, state, aux))
         return tuple(state)
 
     # -- convergence metrics ----------------------------------------------
-    @staticmethod
-    def _lanes(state):
+    def _lanes(self, state):
         "B when the state's messages carry a lane axis, else None."
         return lane_count(state[0]["a"], state[0]["b"])
 
@@ -293,7 +313,7 @@ class MessagePassing:
         if early_stop is None:
             return (self.default_stop_kind, tol, self.wait_increase,
                     self.rollback_increase)
-        if not isinstance(early_stop, EarlyStopping):
+        if not isinstance(early_stop, (EarlyStopping, EarlyStoppingEP)):
             raise ValueError(f"early_stop must be EarlyStopping or "
                              f"EarlyStoppingEP, got {early_stop}")
         return (early_stop.kind, early_stop.tol, early_stop.wait_increase,
@@ -316,12 +336,21 @@ class MessagePassing:
             torch.cat([x.reshape(-1) for x in arrays])).all()
 
     # -- iterate ----------------------------------------------------------
-    def iterate(self, max_iter=200, initializer=None, damping=None,
-                warm_start=False, tol=1e-6, check_nan=True, early_stop=None):
+    def iterate(self, max_iter=200, callback=None, initializer=None,
+                damping=None, warm_start=False, tol=1e-6, check_nan=True,
+                early_stop=None):
         """Run message passing until the stop rule fires or ``max_iter``
         sweeps have run.
 
-        The loop follows the JAX package's compiled ``while_loop``
+        With a ``callback`` the loop is the JAX package's Python loop
+        (message_passing.py:610-630): after every finite sweep the engine's
+        state and ``n_iter`` are brought up to date and
+        ``callback(self, i, max_iter)`` is called, which may read the engine,
+        put back an earlier state and stop the loop by returning true; a
+        sweep that is not finite ends the loop and is dropped. ``tol``,
+        ``early_stop`` and ``check_nan`` belong to the loop without callback.
+
+        Without one the loop follows the JAX package's compiled ``while_loop``
         (tramp_tpu/algos/message_passing.py:631-680): a sweep whose state is
         not all finite is dropped and stops the loop; ``converged`` is
         ``(i > 0) & (delta < tol)``; the divergence rollback keeps the
@@ -336,6 +365,9 @@ class MessagePassing:
             self.state = self.init_state(initializer)
             self.n_iter = 0
         damp = self._damping_per_slot(damping)
+        aux = self._prepare(self.model)
+        if callback is not None:
+            return self._iterate_python(max_iter, damp, callback, aux)
         kind, tol, wait_increase, max_increase = self._stop_params(
             early_stop, tol)
 
@@ -345,7 +377,7 @@ class MessagePassing:
         old_m = self._metric(state, kind)
         i = 0
         while i < max_iter:
-            new_state = self._sweep(self.model, state, damp)
+            new_state = self._sweep(self.model, state, damp, aux)
             new_m = self._metric(new_state, kind)
             delta, inc = self._delta_increase(kind, new_m, old_m)
             true = torch.ones((), dtype=torch.bool, device=delta.device)
@@ -363,6 +395,19 @@ class MessagePassing:
         self.n_iter += i
         return self
 
+    def _iterate_python(self, max_iter, damp, callback, aux):
+        if self.spectral_factors:
+            self.state = self._refresh_spectral_cache(self.state)
+        for i in range(max_iter):
+            new_state = self._sweep(self.model, self.state, damp, aux)
+            if not bool(self._all_finite(new_state)):
+                break
+            self.state = new_state
+            self.n_iter += 1
+            if callback(self, i, max_iter):
+                break
+        return self
+
     # -- data access (reference message_passing.py:265-304) ---------------
     def get_variables_data(self, ids="all"):
         data = {}
@@ -378,3 +423,35 @@ class MessagePassing:
         if id not in data:
             raise ValueError(f"id={id} not in variables")
         return data[id]
+
+    def get_edges_data(self, keys):
+        records = []
+        for e, (ui, vi) in enumerate(self.edges):
+            var = self.nodes[self.edge_variable[e]]
+            fac = (self.nodes[ui] if isinstance(self.nodes[ui], Factor)
+                   else self.nodes[vi])
+            for direction, dname in ((FWD, "fwd"), (BWD, "bwd")):
+                msg = self.state[slot(e, direction)]
+                record = dict(x_id=var.id, f_id=fac.id, direction=dname)
+                for key in keys:
+                    if key in msg:
+                        record[key] = msg[key].detach().cpu().numpy()
+                records.append(record)
+        return records
+
+    # -- objective (Bethe free entropy, reference l:306-328) ---------------
+    # Engines implement ``node_objective_at(i, state)`` and
+    # ``variable_objective(variable, node index, posterior)``.
+    def update_objective(self):
+        A_nodes = 0.0
+        for i in range(len(self.nodes)):
+            A_nodes = A_nodes + self.node_objective_at(i, self.state)
+        A_edges = 0.0
+        for e in range(len(self.edges)):
+            v_idx = self.edge_variable[e]
+            msgs = [self.state[slot(e, FWD)], self.state[slot(e, BWD)]]
+            post = {k: sum(m[k] for m in msgs) for k in self.message_keys}
+            A_edges = A_edges + self.variable_objective(
+                self.nodes[v_idx], v_idx, post)
+        self.A_model = A_nodes - A_edges
+        return self.A_model

@@ -1,0 +1,116 @@
+"""State evolution engine: scalar-precision messages, ensemble-averaged
+errors. Counterpart of tramp_tpu/algos/state_evolution.py.
+
+The whole SE state is one precision per directed edge: a 0-d tensor, or
+``(B, 1)`` with lanes (tramp_tpu_torch/lanes.py), so thousands of
+(alpha, rho) grid points are one batched state swept by the same code
+(``parallel.SESolver``). The state is float64 unless the caller asks for
+another dtype: SE fixed points are compared in their last digits (golden
+values, bisection decisions), and its arithmetic is a handful of scalars
+and quadrature sums."""
+import math
+
+import torch
+
+from ..base import Variable
+from ..config import default_device
+from .message_passing import MessagePassing, slot, FWD, BWD
+
+
+class StateEvolution(MessagePassing):
+    """``StateEvolution(model).iterate(...)``; ``device`` is that of the
+    model's arrays, else the one its factors were built with, else the first
+    card (``device="cpu"`` runs on the CPU); ``dtype`` defaults to
+    float64."""
+
+    # reference default SE callback: EarlyStopping(max_increase=0.2,
+    # wait_increase=5) with rollback (callbacks.py:195-243)
+    default_stop_kind = "v"
+    rollback_increase = 0.2
+    wait_increase = 5
+
+    needs_shapes = False
+
+    def __init__(self, model, device=None, dtype=None):
+        super().__init__(model, message_keys=["a"])
+        if device is None:
+            for f in model.factors:
+                found = next((b.device for b in f.buffers()),
+                             getattr(f, "device", None))
+                if found is not None:
+                    device = found
+                    break
+        self.device = torch.device(device) if device is not None \
+            else default_device()
+        self.dtype = dtype or torch.float64
+
+    def device_dtype(self):
+        return self.device, self.dtype
+
+    def _lanes(self, state):
+        a = state[0]["a"]
+        return a.shape[0] if a.ndim else None
+
+    def _prepare(self, model):
+        "tau per variable node index, as tensors of the state's kind."
+        return {i: torch.as_tensor(tau, device=self.device, dtype=self.dtype)
+                for i, tau in model.init_second_moments().items()}
+
+    # Every factor ported so far has at most one input and one output
+    # variable (n_prev, n_next <= 1).
+    def _tau_prev(self, i, aux):
+        return aux[self.model.edges[self.model.in_edges[i][0]][0]]
+
+    def _factor_forward(self, i, node, state, aux):
+        e_out = self.model.out_edges[i][0]
+        ax = state[slot(e_out, BWD)]["a"]
+        if node.n_prev == 0:
+            a_new = node.compute_forward_state_evolution(ax)
+        else:
+            az = state[slot(self.model.in_edges[i][0], FWD)]["a"]
+            a_new = node.compute_forward_state_evolution(
+                az, ax, self._tau_prev(i, aux))
+        return {slot(e_out, FWD): {"a": a_new}}
+
+    def _factor_backward(self, i, node, state, aux):
+        e_in = self.model.in_edges[i][0]
+        az = state[slot(e_in, FWD)]["a"]
+        tau_z = self._tau_prev(i, aux)
+        if node.n_next == 0:
+            a_new = node.compute_backward_state_evolution(az, tau_z)
+        else:
+            ax = state[slot(self.model.out_edges[i][0], BWD)]["a"]
+            a_new = node.compute_backward_state_evolution(az, ax, tau_z)
+        return {slot(e_in, BWD): {"a": a_new}}
+
+    # -- posterior update (reference state_evolution.py:17-19) ------------
+    def update(self, variable, post):
+        return dict(v=1.0 / post["a"])
+
+    # -- objective ---------------------------------------------------------
+    def variable_objective(self, var, v_idx, post):
+        "Variable free energy. Reference base.py:133-136."
+        ax = post["a"]
+        tau_x = self._prepare(self.model)[v_idx]
+        I = 0.5 * torch.log(ax * tau_x)
+        return (0.5 * ax * tau_x - I
+                + 0.5 * torch.log(2 * math.pi * tau_x / math.e))
+
+    def node_objective_at(self, i, state):
+        node = self.nodes[i]
+        if isinstance(node, Variable):
+            return self.variable_objective(node, i, self._posterior(i, state))
+        if node.n_prev == 0:
+            ax = state[slot(self.model.out_edges[i][0], BWD)]["a"]
+            return node.compute_free_energy(ax)
+        aux = self._prepare(self.model)
+        az = state[slot(self.model.in_edges[i][0], FWD)]["a"]
+        if node.n_next == 0:
+            return node.compute_free_energy(az, self._tau_prev(i, aux))
+        ax = state[slot(self.model.out_edges[i][0], BWD)]["a"]
+        return node.compute_free_energy(az, ax, self._tau_prev(i, aux))
+
+    def entropy(self, update=True):
+        if update:
+            self.update_objective()
+        return -self.A_model

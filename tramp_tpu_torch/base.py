@@ -77,10 +77,12 @@ class Factor(_Node, nn.Module):
     Subclasses declare ``_data_fields`` (arrays, registered as buffers, and
     numeric hyperparameters) and ``_meta_fields`` (shapes, names, flags),
     the same split as the JAX package, which the converter
-    (tramp_tpu_torch/convert.py) reads. They implement the EP part of the
-    reference Factor contract (sample / compute_*_posterior /
-    compute_*_message) and ``out_shape``, the shape of the variable they
-    emit given the shapes of their inputs.
+    (tramp_tpu_torch/convert.py) reads. They implement the reference Factor
+    contract (sample / second_moment / compute_*_posterior /
+    compute_*_message / compute_*_error / compute_log_partition / ...) and
+    ``out_shape``, the shape of the variable they emit given the shapes of
+    their inputs. A numeric hyperparameter is a Python number, or one value
+    per lane as a tensor ``(B, 1)`` (tramp_tpu_torch/lanes.py).
     """
 
     _data_fields = ()
@@ -95,3 +97,12 @@ class Factor(_Node, nn.Module):
     def out_shape(self, *shapes):
         "Shape of the emitted variable. Default: elementwise in the input."
         return tuple(shapes[0])
+
+    # -- state evolution (reference base.py:440-453) -----------------------
+    def compute_forward_state_evolution(self, az, ax, tau_z):
+        vx = self.compute_forward_error(az, ax, tau_z)
+        return compute_a_new(vx, ax)
+
+    def compute_backward_state_evolution(self, az, ax, tau_z):
+        vz = self.compute_backward_error(az, ax, tau_z)
+        return compute_a_new(vz, az)

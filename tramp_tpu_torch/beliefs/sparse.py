@@ -1,5 +1,6 @@
 """Sparse (spike-and-slab) belief. Counterpart of tramp_tpu/beliefs/sparse.py.
-``eta`` is a Python float (the prior's constant)."""
+``eta`` is the prior's constant: a Python float, or one value per lane as a
+tensor that broadcasts against ``a`` and ``b``."""
 import torch
 
 from . import normal
@@ -7,7 +8,9 @@ from . import normal
 
 def A(a, b, eta):
     A_slab = normal.A(a, b)
-    return torch.logaddexp(torch.full_like(A_slab, eta), A_slab)
+    if not isinstance(eta, torch.Tensor):
+        eta = torch.full_like(A_slab, eta)
+    return torch.logaddexp(eta, A_slab)
 
 
 def p(a, b, eta):

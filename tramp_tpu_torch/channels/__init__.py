@@ -1,5 +1,8 @@
-"""Channels of the EP slice."""
-from .base_channel import Channel
+"""Channels. The registry mirrors tramp_tpu/channels/__init__.py for the
+ported types."""
+from .base_channel import Channel, SIFactor, SOFactor
+from .analytical_linear_channel import (
+    AnalyticalLinearChannel, MarchenkoPasturChannel)
 from .gaussian_channel import GaussianChannel
 from .linear_channel import LinearChannel
 from .piecewise_linear_channel import (
@@ -8,8 +11,38 @@ from .piecewise_linear_channel import (
     SymmetricDoorChannel,
 )
 
+CHANNEL_CLASSES = {
+    "gaussian": GaussianChannel,
+    "linear": LinearChannel,
+    "marchenko": MarchenkoPasturChannel,
+    "analytical": AnalyticalLinearChannel,
+    "sgn": SgnChannel,
+    "abs": AbsChannel,
+    "a-abs": AsymmetricAbsChannel,
+    "relu": ReluChannel,
+    "l-relu": LeakyReluChannel,
+    "h-tanh": HardTanhChannel,
+    "h-sigm": HardSigmoidChannel,
+    "door": SymmetricDoorChannel,
+}
+#: channel types of the JAX package that are not ported yet
+_WAITING = ("complex_linear", "conv", "blur_1d", "blur_2d", "differential",
+            "laplacian", "gradient", "dft", "rotation", "unitary", "modulus",
+            "bias", "sum", "duplicate", "concat", "reshape", "tanh")
+
+
+def get_channel(channel_type, **kwargs):
+    if channel_type in _WAITING:
+        raise NotImplementedError(
+            f"channel {channel_type!r} is not ported yet (ROADMAP Queue 1 "
+            "items 3 and 4)")
+    return CHANNEL_CLASSES[channel_type](**kwargs)
+
+
 __all__ = [
-    "Channel", "GaussianChannel", "LinearChannel", "PiecewiseLinearChannel",
+    "Channel", "SIFactor", "SOFactor", "AnalyticalLinearChannel",
+    "MarchenkoPasturChannel", "CHANNEL_CLASSES", "get_channel",
+    "GaussianChannel", "LinearChannel", "PiecewiseLinearChannel",
     "SgnChannel", "AbsChannel", "AsymmetricAbsChannel", "ReluChannel",
     "LeakyReluChannel", "HardTanhChannel", "HardSigmoidChannel",
     "SymmetricDoorChannel",

@@ -1,5 +1,5 @@
 """Dense linear channel x = W z, diagonalized once in the SVD basis.
-Counterpart of tramp_tpu/channels/linear_channel.py (EP part).
+Counterpart of tramp_tpu/channels/linear_channel.py.
 
 EP messages are thin matvecs in the SVD basis against U (Nx, k) and
 V (Nz, k), k = min(Nx, Nz); the matvecs are exact in the working dtype
@@ -12,6 +12,8 @@ precisions ``(B, 1)``. With one shared operator (two-dimensional factors)
 the B matvecs are one GEMM, ``x @ A``; with an operator per lane (factors
 stacked to ``(B, Nx, k)``) they are one ``torch.bmm``. The spectral sums
 are taken per lane."""
+import math
+
 import torch
 
 from .base_channel import Channel
@@ -61,6 +63,9 @@ class LinearChannel(Channel):
 
     def sample(self, generator, Z):
         return self.W @ Z
+
+    def second_moment(self, tau_z):
+        return tau_z * last_axis(self.spectrum, torch.sum) / self.Nx
 
     def compute_n_eff(self, az, ax):
         "Effective number of parameters / Nz. Reference l:58-67."
@@ -133,3 +138,28 @@ class LinearChannel(Channel):
     def compute_forward_posterior(self, az, bz, ax, bx):
         return self.spectral_forward_posterior(az, bz, ax,
                                                self.spectral_image(bx))
+
+    # -- SE and the Bethe objective (reference l:168-187) ------------------
+    def compute_backward_error(self, az, ax, tau_z):
+        return self.compute_backward_variance(az, ax)
+
+    def compute_forward_error(self, az, ax, tau_z):
+        return self.compute_forward_variance(az, ax)
+
+    def compute_log_partition(self, az, bz, ax, bx):
+        rz = self.compute_backward_posterior(az, bz, ax, bx)[0]
+        b = bz + self._mm(self.W, bx, transpose=True)
+        a = az + ax * self.spectrum
+        return (0.5 * last_axis(b * rz, torch.sum).reshape(a.shape[:-1])
+                + 0.5 * last_axis(torch.log(2 * math.pi / a),
+                                  torch.sum).reshape(a.shape[:-1]))
+
+    def compute_mutual_information(self, az, ax, tau_z):
+        return last_axis(
+            0.5 * torch.log((az + ax * self.spectrum) * tau_z), torch.mean)
+
+    def compute_free_energy(self, az, ax, tau_z):
+        tau_x = self.second_moment(tau_z)
+        I = self.compute_mutual_information(az, ax, tau_z)
+        return (0.5 * (az * tau_z + self.alpha * ax * tau_x) - I
+                + 0.5 * torch.log(2 * math.pi * tau_z / math.e))

@@ -1,16 +1,26 @@
 """The generic nonlinearity engine: activations as mixtures of linear
 regions, merged by a softmax over per-region log partitions.
-Counterpart of tramp_tpu/channels/piecewise_linear_channel.py (EP part).
+Counterpart of tramp_tpu/channels/piecewise_linear_channel.py.
 
 The EP messages are one fused call each, ``ops.pl_forward_message`` and
 ``ops.pl_backward_message`` (posterior of one side, mean of its variance
 and the moment-matching update); the posteriors go through the five-output
-``ops.pl_posterior``. Each is a hand-written CUDA kernel on a GPU and its
-plain twin on the CPU."""
+``ops.pl_posterior``, and so do the elementwise integrands of the state
+evolution (``scalar_*``): its outputs vx, vz and logZ on the quadrature
+grid of (bz, bx). Each is a hand-written CUDA kernel on a GPU and its plain
+twin on the CPU.
+
+The SE measure of the channel is the sum of its regions' measures
+(utils/linear_region.py). ``beliefs_measure`` lays the K regions' grids end
+to end along the node axis and calls the integrand once on all of them, so
+an error or a free energy is one launch of ``pl_posterior`` whatever K, and
+one sweep of the state evolution, a forward and a backward error, is two."""
 import math
 
+import torch
+
 from .base_channel import Channel
-from ..lanes import lane_mean
+from ..lanes import lane_count, lane_mean, per_lane
 from ..ops import pl_posterior, pl_forward_message, pl_backward_message
 from ..utils.linear_region import LinearRegion
 
@@ -35,6 +45,41 @@ class PiecewiseLinearChannel(Channel):
 
     def sample(self, generator, Z):
         return sum(region.sample(Z) for region in self.regions)
+
+    @property
+    def n_regions(self):
+        return len(self.region_specs)
+
+    def second_moment(self, tau_z):
+        return sum(region.proba_tau(tau_z) * region.second_moment(tau_z)
+                   for region in self.regions)
+
+    # elementwise SE integrands (see Channel.scalar_* in base_channel.py):
+    # outputs of the five-output posterior, no isotropic mean
+    def scalar_forward_variance(self, az, bz, ax, bx):
+        return pl_posterior(az, bz, ax, bx, self.region_specs)[3]
+
+    def scalar_backward_variance(self, az, bz, ax, bx):
+        return pl_posterior(az, bz, ax, bx, self.region_specs)[1]
+
+    def scalar_log_partition(self, az, bz, ax, bx):
+        return pl_posterior(az, bz, ax, bx, self.region_specs)[4]
+
+    def compute_log_partition(self, az, bz, ax, bx):
+        logZ = self.scalar_log_partition(az, bz, ax, bx)
+        if lane_count(az, bz) is None and lane_count(ax, bz) is None:
+            return torch.sum(logZ)
+        return per_lane(logZ, True).sum(-1)
+
+    def beliefs_measure(self, az, ax, tau_z, f):
+        """SE measure of f over (bz, bx): the K regions' grids
+        (``LinearRegion.beliefs_grid``) end to end, one call of ``f``."""
+        grids = [region.beliefs_grid(az, ax, tau_z)
+                 for region in self.regions]
+        bz, bx, w = (torch.cat([g[i] for g in grids], -1).contiguous()
+                     for i in range(3))
+        weighted = w * f(bz, bx)
+        return weighted.sum(-1, keepdim=True) if az.ndim else weighted.sum()
 
     def compute_forward_posterior(self, az, bz, ax, bx):
         _, _, rx, vx, _ = pl_posterior(az, bz, ax, bx, self.region_specs)

@@ -7,13 +7,15 @@ A model is described as a dict:
   ``"class"`` (the class name, the same in both packages) and either
   ``"id"`` (variables) or ``"data"`` / ``"meta"`` (factors: the values of
   the class's ``_data_fields``, as numpy arrays or numbers, and of its
-  ``_meta_fields``);
+  ``_meta_fields``; an ``ensemble`` is described by its class name and
+  constructor keywords);
 - ``"edges"``: the DAG's edges as (source, target) indices into
   ``"nodes"``, in the DAG's edge order.
 
 Rebuilding the DAG in that order reproduces the JAX model's topological
 node order and edge (message-slot) order. A message state is a list of
-``{"a", "b"}`` numpy dicts, one per slot, plus the spectral cache
+``{"a", "b"}`` numpy dicts, one per slot (``{"a"}`` alone for a
+state-evolution state), plus the spectral cache
 ``{str(node index): array}`` when the engine carries one. The JAX linear
 channel's SVD factors travel with it: JAX's and torch's SVDs differ in
 column signs, so recomputing them would change every message.
@@ -22,11 +24,13 @@ import numpy as np
 
 from .base import Factor
 from .channels import (
+    AnalyticalLinearChannel, MarchenkoPasturChannel,
     GaussianChannel, LinearChannel, SgnChannel, AbsChannel,
     AsymmetricAbsChannel, ReluChannel, LeakyReluChannel, HardTanhChannel,
     HardSigmoidChannel, SymmetricDoorChannel,
 )
 from .config import as_tensor
+from .ensembles import MarchenkoPasturEnsemble
 from .likelihoods import GaussianLikelihood
 from .models import Model, ModelDAG
 from .models.graph import DiGraph
@@ -37,8 +41,9 @@ FACTOR_CLASSES = {cls.__name__: cls for cls in (
     GaussBernoulliPrior, LinearChannel, GaussianChannel, SgnChannel,
     AbsChannel, AsymmetricAbsChannel, ReluChannel, LeakyReluChannel,
     HardTanhChannel, HardSigmoidChannel, SymmetricDoorChannel,
-    GaussianLikelihood,
+    GaussianLikelihood, MarchenkoPasturChannel, AnalyticalLinearChannel,
 )}
+ENSEMBLE_CLASSES = {"MarchenkoPasturEnsemble": MarchenkoPasturEnsemble}
 VARIABLE_CLASSES = {cls.__name__: cls for cls in (
     SISOVariable, SILeafVariable)}
 
@@ -60,6 +65,10 @@ def factor_from_description(desc, device=None, dtype=None):
         else:
             setattr(factor, field, float(value))
     for field, value in desc["meta"].items():
+        if field == "ensemble":
+            # {"class": name, **constructor keywords}
+            kw = dict(value)
+            value = ENSEMBLE_CLASSES[kw.pop("class")](**kw)
         setattr(factor, field, value)
     return factor
 

@@ -17,10 +17,20 @@ length 1 on every other axis; else None.
 
 Loop flags (done, converged, the iteration count) are 0-d without lanes and
 ``(B,)`` with them; ``select`` broadcasts such a flag against a state array.
+
+**Hyperparameters.** A factor's numbers (``rho``, ``mean``, ``var``,
+``alpha``) are Python floats shared by all lanes, or one value per lane as a
+tensor ``(B, 1)`` like a precision (``stack_models`` makes them so where the
+models differ). Factor code uses them in tensor expressions, which take
+both; ``log`` and ``sqrt`` here cover an expression of hyperparameters alone.
+The state evolution's messages are precisions only, ``(B, 1)`` with lanes.
 """
 import copy
+import math
 
 import torch
+
+from . import config as _config
 
 
 def lane_count(a, like):
@@ -80,59 +90,105 @@ def lane_precision(a, B, var_ndim):
     return a.reshape(()).expand(B).reshape((B,) + (1,) * var_ndim).contiguous()
 
 
-def stack_models(models):
+def log(x):
+    "``log`` of a hyperparameter: a Python float, or a tensor per lane."
+    return torch.log(x) if isinstance(x, torch.Tensor) else math.log(x)
+
+
+def sqrt(x):
+    "``sqrt`` of a hyperparameter: a Python float, or a tensor per lane."
+    return torch.sqrt(x) if isinstance(x, torch.Tensor) else math.sqrt(x)
+
+
+def hyperparameters(factor):
+    """Names of the numeric hyperparameters of ``factor``: its data fields
+    that are not registered buffers (``rho``, ``mean``, ``var``, ``alpha``).
+    Each is a Python number shared by all lanes, or one value per lane as a
+    tensor ``(B, 1, ...)``."""
+    return [f for f in type(factor)._data_fields if f not in factor._buffers]
+
+
+def stack_models(models, device=None, dtype=None):
     """Stack same-structure models along a new first axis (the lanes).
 
     Takes the place of the JAX package's ``stack_pytrees``. The result is a
     structural copy of ``models[0]`` in which every registered buffer
     (operators, their SVD factors, observations) is the ``torch.stack`` of
-    the models' buffers. Everything that is not a buffer (region bounds,
-    sizes, the numeric hyperparameters ``rho``, ``var``, ...) is shared by
-    the lanes and must be equal in all models; a difference raises. To stack
-    only some buffers (one operator, one observation per lane), use
-    ``with_buffers``."""
+    the models' buffers, and every numeric hyperparameter (``rho``, ``mean``,
+    ``var``, ``alpha``) that differs between the models is one value per
+    lane, a tensor ``(B, 1)`` (``(B, 1, ...)`` for a prior of a variable with
+    more axes); a hyperparameter that is equal in all models stays the
+    Python number it was. The structural fields (region bounds, sizes,
+    names) are shared by the lanes and must be equal in all models; a
+    difference raises. ``device`` and ``dtype`` are those of the
+    hyperparameter tensors (None: those of the models' buffers, and for a
+    model without any, as a state-evolution model, the first card and
+    float64). To stack only some fields, use ``with_buffers``."""
     first = models[0]
     for m in models[1:]:
         if [type(n) for n in m.nodes] != [type(n) for n in first.nodes] \
                 or m.edges != first.edges:
             raise ValueError("stack_models: the models differ in structure")
-    replace = {}
+    replace, columns = {}, {}
     for i, factor in enumerate(first.factors):
         others = [m.factors[i] for m in models]
-        fields = type(factor)._data_fields + type(factor)._meta_fields
-        for field in fields:
-            if field in factor._buffers:
-                continue
+        for field in type(factor)._meta_fields:
             values = [getattr(f, field) for f in others]
             if any(v != values[0] for v in values):
                 raise ValueError(
                     f"stack_models: {type(factor).__name__}.{field} differs "
-                    f"between the models ({values}); only arrays carry "
-                    "lanes")
+                    f"between the models ({values}); only arrays and "
+                    "numeric hyperparameters carry lanes")
+        for field in hyperparameters(factor):
+            values = [getattr(f, field) for f in others]
+            if any(isinstance(v, torch.Tensor) for v in values):
+                raise ValueError(
+                    f"stack_models: {type(factor).__name__}.{field} already "
+                    "carries lanes")
+            if any(v != values[0] for v in values):
+                size = getattr(factor, "size", None)
+                ndim = len(size) if isinstance(size, tuple) else 1
+                columns[i, field] = (values, ndim)
         for name, buf in factor._buffers.items():
             if buf is not None:
                 replace[i, name] = torch.stack(
                     [f._buffers[name] for f in others])
+    if columns:
+        like = next(iter(replace.values()), None)
+        if device is None:
+            device = like.device if like is not None \
+                else _config.default_device()
+        if dtype is None:
+            dtype = like.dtype if like is not None else torch.float64
+        for key, (values, ndim) in columns.items():
+            replace[key] = torch.tensor(
+                [float(v) for v in values], dtype=dtype,
+                device=device).reshape((len(values),) + (1,) * ndim)
     return with_buffers(first, replace)
 
 
 def with_buffers(model, replace):
     """A structural copy of ``model`` whose factors hold other buffers:
-    ``replace`` maps ``(index into model.factors, buffer name)`` to the new
+    ``replace`` maps ``(index into model.factors, field name)`` to the new
     tensor, for example ``{(2, "y"): ys}`` with ``ys`` of shape ``(B, M)``
-    to give every lane its own observation under one shared operator. The
-    model's own factors are left as they are."""
+    to give every lane its own observation under one shared operator, or
+    ``{(0, "rho"): rhos}`` with ``rhos`` of shape ``(B, 1)`` to give every
+    lane its own sparsity. The model's own factors are left as they are."""
     factors = {id(f): f for f in model.factors}
     copies = {}
     for (i, name), tensor in replace.items():
         factor = model.factors[i]
-        if name not in factor._buffers:
-            raise ValueError(f"{type(factor).__name__} has no buffer {name}")
+        if name not in factor._buffers and name not in hyperparameters(factor):
+            raise ValueError(f"{type(factor).__name__} has no buffer or "
+                             f"hyperparameter {name}")
         if id(factor) not in copies:
             twin = copy.copy(factor)
             twin.__dict__["_buffers"] = dict(factor._buffers)
             copies[id(factor)] = twin
-        copies[id(factor)]._buffers[name] = tensor
+        if name in factor._buffers:
+            copies[id(factor)]._buffers[name] = tensor
+        else:
+            copies[id(factor)].__dict__[name] = tensor
     out = object.__new__(type(model))
     out.__dict__.update(model.__dict__)
     out.nodes = [copies.get(id(n), n) if id(n) in factors else n
@@ -144,11 +200,23 @@ def with_buffers(model, replace):
 def model_lanes(model, template):
     """How a solver tells which buffers carry lanes: a buffer of ``model``
     carries lanes when it has one axis more than the same buffer of
-    ``template``, the model the solver was built with (one instance).
-    Returns B, the common length of those first axes, or None when no buffer
-    has lanes; raises when two buffers disagree or a shape fits neither."""
+    ``template``, the model the solver was built with (one instance), and a
+    numeric hyperparameter carries lanes when it is a tensor ``(B, 1, ...)``.
+    Returns B, the common length of those first axes, or None when nothing
+    has lanes; raises when two fields disagree or a shape fits neither."""
     B = None
     for factor, ref in zip(model.factors, template.factors):
+        for name in hyperparameters(factor):
+            value = getattr(factor, name)
+            if not isinstance(value, torch.Tensor) or value.ndim == 0:
+                continue
+            if value.numel() != value.shape[0] or (
+                    B is not None and value.shape[0] != B):
+                raise ValueError(
+                    f"{type(factor).__name__}.{name} has shape "
+                    f"{tuple(value.shape)}: need one value per lane, "
+                    f"(B, 1, ...){'' if B is None else f' with B = {B}'}")
+            B = value.shape[0]
         for name, buf in factor._buffers.items():
             want = ref._buffers.get(name)
             if buf is None or want is None:

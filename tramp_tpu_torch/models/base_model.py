@@ -43,6 +43,7 @@ class Model:
         self.n_variables = len(self.variables)
         self.n_factors = len(self.factors)
         self._shapes = None
+        self._second_moments = None
 
     def __repr__(self):
         return f"Model(n_factors={self.n_factors}, n_variables={self.n_variables})"
@@ -112,6 +113,31 @@ class Model:
                 shapes[self.edges[e][1]] = out
         self._shapes = shapes
         return shapes
+
+    def init_second_moments(self):
+        """Propagate tau through the factors: {node index of a variable:
+        its second moment}, each a Python number or a tensor (per lane when
+        a hyperparameter is). Reference base_model.py:111-124."""
+        taus = {}
+        for i, node in enumerate(self.nodes):
+            if not isinstance(node, Factor) or node.n_next == 0:
+                continue
+            tau_prev = [taus[self.edges[e][0]] for e in self.in_edges[i]]
+            tau = node.second_moment(*tau_prev)
+            for e in self.out_edges[i]:
+                taus[self.edges[e][1]] = tau
+        self._second_moments = taus
+        return taus
+
+    def get_shapes(self):
+        shapes = self.init_shapes()
+        return {n.id: shapes[i] for i, n in enumerate(self.nodes)
+                if isinstance(n, Variable) and i in shapes}
+
+    def get_second_moments(self):
+        taus = self.init_second_moments()
+        return {n.id: taus[i] for i, n in enumerate(self.nodes)
+                if isinstance(n, Variable) and i in taus}
 
 
 def _meta_factor(factor):

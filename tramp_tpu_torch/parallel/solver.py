@@ -1,5 +1,6 @@
-"""Batched EP solver: many problem instances in one loop of the generic
-engine. Counterpart of tramp_tpu/parallel/solver.py (``EPSolver``).
+"""Batched EP and SE solvers: many problem instances in one loop of the
+generic engine. Counterpart of tramp_tpu/parallel/solver.py (``EPSolver``,
+``SESolver``).
 
 The JAX package stacks the instances into one pytree and ``vmap``s a
 compiled ``while_loop``. Here the instances are a lane axis written out
@@ -16,15 +17,15 @@ lane's data.
 """
 import torch
 
-from ..algos import ExpectationPropagation
+from ..algos import ExpectationPropagation, StateEvolution
 from ..lanes import (
     lane_precision, lane_values, model_lanes, select, to_lanes,
 )
 
 
-class EPSolver:
-    """The generic EP engine behind the solvers' call surface:
-    ``solve(model) -> ({id: {r, v}}, n_iter)`` and ``solve_batch``.
+class _Solver:
+    """A generic engine behind the solvers' call surface:
+    ``solve(model) -> ({id: posterior data}, n_iter)`` and ``solve_batch``.
 
     ``model`` provides the static structure (one representative instance).
     Solve calls accept any model of that structure; ``solve_batch`` takes
@@ -33,7 +34,8 @@ class EPSolver:
     layouts work: whole models stacked (``lanes.stack_models``: an operator,
     its SVD factors and an observation per lane) and one model with only
     some buffers stacked (``lanes.with_buffers``: one shared operator, an
-    observation per lane).
+    observation per lane); numeric hyperparameters that differ between the
+    stacked models are one value per lane too.
 
     ``wait_increase`` / ``rollback_increase`` tune the divergence rollback
     (reference EarlyStopping(wait_increase, max_increase) semantics) and
@@ -42,9 +44,12 @@ class EPSolver:
     (max relative posterior-mean change, the EP default) or "v" (|delta| of
     the per-variable mean posterior variance)."""
 
+    engine_cls = None
+
     def __init__(self, model, damping=None, tol=1e-6, max_iter=200,
-                 wait_increase=None, rollback_increase=None, stop_kind=None):
-        self.engine = eng = ExpectationPropagation(model)
+                 wait_increase=None, rollback_increase=None, stop_kind=None,
+                 **engine_kwargs):
+        self.engine = eng = self.engine_cls(model, **engine_kwargs)
         self.damp = eng._damping_per_slot(float(damping) if damping else None)
         self.tol = tol
         self.max_iter = max_iter
@@ -76,13 +81,14 @@ class EPSolver:
     def _run(self, model, state):
         eng, kind = self.engine, self.stop_kind
         B = eng._lanes(state)
+        aux = eng._prepare(model)
         if eng.spectral_factors:
             # the carried spectral images are derived from this model's
             # operators, lane by lane (the same matvec the first uncached
             # forward pass does)
             state = eng._refresh_spectral_cache(state, model)
         old_m = eng._metric(state, kind)
-        device = state[0]["b"].device
+        device = state[0]["a"].device
         flags = () if B is None else (B,)
         n_iter = torch.zeros(flags, dtype=torch.int64, device=device)
         done = torch.zeros(flags, dtype=torch.bool, device=device)
@@ -94,7 +100,7 @@ class EPSolver:
                          for a, b in zip(kept, other))
 
         for i in range(self.max_iter):
-            swept = eng._sweep(model, state, self.damp)
+            swept = eng._sweep(model, state, self.damp, aux)
             ok = eng._all_finite(swept)
             swept = keep(ok, swept, state)
             new_m = eng._metric(swept, kind)
@@ -125,10 +131,6 @@ class EPSolver:
                 for vi in eng.variable_indices}
         return post, state, n_iter, conv
 
-    def _post(self, vi, state, B):
-        p = self.engine._posterior(vi, state)
-        return dict(r=p["b"] / p["a"], v=lane_values(1.0 / p["a"], B))
-
     def solve(self, model, initializer=None):
         "Solve one instance; returns dict id -> posterior data, and n_iter."
         post, n_iter, _ = self.solve_info(model, initializer)
@@ -143,9 +145,10 @@ class EPSolver:
 
     def solve_batch(self, stacked_model, initializer=None, state=None):
         """Solve a batch of instances (a model whose buffers carry lanes).
-        ``initializer`` gives the initial state of every lane; the loop runs
-        until every lane is done. Passing ``state`` (a state with lanes, as
-        ``solve_batch_with_state`` returns it) resumes from it."""
+        ``initializer`` gives the initial state of every lane, or is a list
+        of initializers, one per lane (an informed ``CustomInit`` each); the
+        loop runs until every lane is done. Passing ``state`` (a state with
+        lanes, as ``solve_batch_with_state`` returns it) resumes from it."""
         post, _, n_iter, _ = self._solve_batch(stacked_model, initializer,
                                                state)
         return post, n_iter
@@ -162,6 +165,40 @@ class EPSolver:
         B = model_lanes(stacked_model, self.engine.model)
         if B is None:
             raise ValueError("solve_batch: no buffer of the model has lanes")
-        if state is None:
+        if state is None and isinstance(initializer, (list, tuple)):
+            if len(initializer) != B:
+                raise ValueError(f"solve_batch: {len(initializer)} "
+                                 f"initializers for {B} lanes")
+            states = [self._with_lanes(self.init_state(iz), 1)
+                      for iz in initializer]
+            state = tuple({k: torch.cat([st[s][k] for st in states])
+                           for k in states[0][s]}
+                          for s in range(len(states[0])))
+        elif state is None:
             state = self._with_lanes(self.init_state(initializer), B)
         return self._run(stacked_model, state)
+
+
+class EPSolver(_Solver):
+    "``_Solver`` on ``ExpectationPropagation``: posterior data ``{r, v}``."
+    engine_cls = ExpectationPropagation
+
+    def _post(self, vi, state, B):
+        p = self.engine._posterior(vi, state)
+        return dict(r=p["b"] / p["a"], v=lane_values(1.0 / p["a"], B))
+
+
+class SESolver(_Solver):
+    """``_Solver`` on ``StateEvolution``: posterior data ``{v}``, 0-d for
+    one instance and ``(B,)`` for a batch. ``device`` and ``dtype`` go to
+    the engine (the first card and float64 unless given); the per-lane
+    hyperparameters of a stacked model must lie on that device
+    (``stack_models(models, device=...)``)."""
+    engine_cls = StateEvolution
+
+    def _with_lanes(self, state, B):
+        return tuple({"a": lane_precision(m["a"], B, 1)} for m in state)
+
+    def _post(self, vi, state, B):
+        p = self.engine._posterior(vi, state)
+        return dict(v=lane_values(1.0 / p["a"], B))
