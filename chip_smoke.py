@@ -96,6 +96,40 @@ line is printed):
       shape, (1024, 20000) float64, and times it beside its bound;
    d. EP against SE on one instance: the flagship's |v_EP - v_SE| / v_SE
       < 0.25; the relu net's v_SE, v_EP and MSE are printed.
+10. (run before the summary) the priors and likelihoods of ROADMAP Queue 1
+    item 3, none of which reaches a kernel (every path's launches are
+    checked to be 0 and listed in the kernels line):
+   a. the 27 golden SE rows of tests/test_golden_csv.py that need them
+      (relu, sign retrieval, door, phase retrieval, perceptron, phase
+      retrieval EP-vs-SE), float64, within that file's tolerances (copied
+      below); each family one ``SESolver.solve_batch`` with its rows as
+      lanes (alpha, rho, p_pos per lane, a0 per lane through the list of
+      initializers; the door's EarlyStopping(max_increase=0.1) as
+      ``rollback_increase``, the EP-vs-SE rows' damping and
+      EarlyStopping(wait_increase=10) as the solver's), and one lane per
+      family against the golden test's own call, ``StateEvolution.iterate``
+      with its callback (v to rtol 1e-10, equal n_iter);
+   b. the relu (4 lines), sign-retrieval (2 x 2) and door critical lines
+      through ``find_critical_alpha_batched``, within alpha_tol = 1e-3 of
+      the pinned values, with the count of bit-equal lines and each
+      family's seconds;
+   c. the perceptron of bench.py:504-533 (N = 1000, alpha = 1, p_pos = 0.25,
+      RandomState(21)) through ``EPSolver`` and ``dispatch_solver`` (an
+      MLVAMPSolver) in float32 and float64: f32 against f64 within 5e-2 in v
+      and MSE, |v_EP - v_SE| / v_SE < 0.25 against the alpha = 1 golden
+      lane of part a; then 2048 lanes on one W, a teacher and observation
+      each, in float32 at tol 1e-5 through both solvers: every lane
+      converged, three lanes of the MLVAMPSolver batch against their single
+      solves (r within 1e-3 of the largest |r|, n_iter within 2), with the
+      readings of phase 7;
+   d. sign retrieval (abs output, alpha = 1.2) and the relu GLM (alpha =
+      1.34) at rho = 0.4, N = 4096, float64, built by ``glm_generative``
+      and observed through ``channel2likelihood``: EP from an informed start
+      (a0 = 1000 on x) beside SE from a0 = 1000, with a profiled sweep
+      window (readings, no limit);
+   e. the perceptron at N = 256 in float64 through ``EPSolver`` on the card
+      and on the CPU: equal n_iter, r to rtol 1e-8; two card solves with the
+      same bits.
 
 Phase 3 also holds the kernels against their plain versions with 3 lanes
 (a precision per lane) at n = 2048 and n = 16384 + 300, checks that lane i of
@@ -1419,6 +1453,461 @@ def phase_9d_ep_against_se(torch, tt, flagship_student, flagship_v, relu_v_se,
           f" [{card}]")
 
 
+
+# -- phase 10: the priors, likelihoods and GLMs of Queue 1 item 3 ------------
+# tests/test_golden_csv.py, values and tolerances copied: the relu GLM
+# (:29-41, a0 = 0, rho = 0.4, rtol 2e-3, atol 1e-8)
+RELU_ROWS = [(0.02, 3.934630e-01), (0.68, 1.447860e-01),
+             (1.34, 8.171982e-07), (2.00, 1.498413e-07)]
+# sign retrieval (:47-66, (a0, alpha, v), rho = 0.4, rtol 5e-2, atol 1e-9)
+SGN_RETRIEVAL_ROWS = [
+    (0.1, 0.02, 4.000000e-01), (0.1, 0.42, 3.999986e-01),
+    (0.1, 1.20, 1.173827e-11), (1000.0, 0.02, 4.000000e-01),
+    (1000.0, 0.82, 3.139240e-08), (1000.0, 1.20, 4.906084e-11)]
+# the door (:72-85, binary prior p_pos = 0.51, width 0.5, a0 = 0.1,
+# EarlyStopping(max_increase=0.1), rtol 2e-3, atol 1e-9)
+DOOR_ROWS = [(0.55, 9.994379e-01), (1.35, 9.986345e-01),
+             (2.20, 1.000000e-11), (3.00, 1.000000e-11)]
+# phase retrieval (:92-106, (alpha, rho, v), a0 = 0.1, rtol 2e-3, atol 1e-9)
+PHASE_RETRIEVAL_ROWS = [
+    (0.02, 0.4, 3.999999999984001e-01), (0.78, 0.4, 3.9999888831043146e-01),
+    (1.48, 0.4, 4.0751071795360275e-07), (2.98, 0.4, 9.331278199196563e-08),
+    (0.98, 0.6, 5.999765079941322e-01), (2.58, 0.6, 1.701603759962448e-07)]
+# the perceptron (:115-127, (alpha, v, rtol), p_pos = 0.25, a0 = 0,
+# atol 1e-8)
+PERCEPTRON_SE_ROWS = [
+    (0.02, 7.414219343897764e-01, 1e-4), (0.50, 5.313722052339810e-01, 1e-3),
+    (1.00, 3.107288020924469e-01, 2e-3), (1.50, 2.199742009303205e-09, 1.0)]
+# phase retrieval, EP against SE (:237-253, rho = 0.5, mean = 0.01, no
+# informed start, damping 0.3, EarlyStopping(wait_increase=10), rtol 1e-5)
+PR_EP_VS_SE_ROWS = [(0.02, 5.00024499743053e-01),
+                    (0.20, 5.000188335458711e-01),
+                    (0.40, 5.000086073600495e-01)]
+# critical lines (:182-230)
+RELU_CRITICAL_REF = [0.18799734130859375, 0.3354575415039062,
+                     0.4682693774414063, 0.5913156372070312]
+SGN_CRITICAL_CASES = [
+    ("random", [0.5458062329101563, 0.5159236694335938]),
+    ("perfect", [0.5458062329101563, 0.5504936938476563])]
+DOOR_CRITICAL_REF = [2.5458129882812504]
+# the perceptron of bench.py:504-533
+PERCEPTRON = dict(N=1000, alpha=1.0, p_pos=0.25, seed=21)
+EP_SE_BAND = 0.25      # phase 9d's band of |v_EP - v_SE| / v_SE
+
+
+def se_families():
+    """The golden families of tests/test_golden_csv.py as batched SE solves:
+    (name, shared builder keywords, per-lane builder keywords, per-lane a0
+    (None: the default start), rows' (v, rtol, atol), SESolver keywords,
+    iterate keywords of the golden test's own call, the lane also solved
+    singly)."""
+    def early_stop(**kw):
+        from tramp_tpu_torch.algos import EarlyStopping
+        return lambda: EarlyStopping(**kw)
+
+    gb = dict(prior_type="gauss_bernoulli", prior_mean=0.0)
+    return [
+        ("relu", dict(gb, output_type="relu", prior_rho=0.4),
+         [dict(alpha=a) for a, _ in RELU_ROWS], [0.0] * 4,
+         [(v, 2e-3, 1e-8) for _, v in RELU_ROWS], {}, {}, 1),
+        ("sign retrieval", dict(gb, output_type="abs", prior_rho=0.4),
+         [dict(alpha=a) for _, a, _ in SGN_RETRIEVAL_ROWS],
+         [a0 for a0, _, _ in SGN_RETRIEVAL_ROWS],
+         [(v, 5e-2, 1e-9) for _, _, v in SGN_RETRIEVAL_ROWS], {}, {}, 3),
+        ("door", dict(prior_type="binary", output_type="door",
+                      output_width=0.5, prior_p_pos=0.51),
+         [dict(alpha=a) for a, _ in DOOR_ROWS], [0.1] * 4,
+         [(v, 2e-3, 1e-9) for _, v in DOOR_ROWS],
+         dict(rollback_increase=0.1),
+         dict(callback=early_stop(max_increase=0.1)), 0),
+        ("phase retrieval", dict(gb, output_type="modulus"),
+         [dict(alpha=a, prior_rho=r) for a, r, _ in PHASE_RETRIEVAL_ROWS],
+         [0.1] * 6, [(v, 2e-3, 1e-9) for _, _, v in PHASE_RETRIEVAL_ROWS],
+         {}, {}, 1),
+        ("perceptron", dict(prior_type="binary", output_type="sgn",
+                            prior_p_pos=0.25),
+         [dict(alpha=a) for a, _, _ in PERCEPTRON_SE_ROWS], [0.0] * 4,
+         [(v, rtol, 1e-8) for _, v, rtol in PERCEPTRON_SE_ROWS], {}, {}, 1),
+        ("phase retrieval EP vs SE",
+         dict(prior_type="gauss_bernoulli", output_type="modulus",
+              prior_rho=0.5, prior_mean=0.01),
+         [dict(alpha=a) for a, _ in PR_EP_VS_SE_ROWS], None,
+         [(v, 1e-5, 0.0) for _, v in PR_EP_VS_SE_ROWS],
+         dict(damping=0.3, wait_increase=10),
+         dict(damping=0.3, callback=early_stop(wait_increase=10)), 1),
+    ]
+
+
+def phase_10a_goldens(torch, tt, pl, card):
+    """Every golden row of the new families on the card, each family one
+    SESolver.solve_batch with its rows as lanes (alpha, rho, p_pos per
+    lane, a0 through the per-lane initializer list); one lane per family
+    against the golden test's own call, StateEvolution.iterate with its
+    callback (v to rtol 1e-10, equal n_iter). Returns (launches of the
+    path, v of the perceptron's alpha = 1 row, seconds by family)."""
+    from tramp_tpu_torch.algos import CustomInit
+    from tramp_tpu_torch.parallel import SESolver, stack_models
+    reset_launches(pl)
+    perceptron_v, seconds, rows = None, {}, 0
+    for (name, shared, lanes, a0s, refs, solver_kw, iterate_kw,
+         single) in se_families():
+        models = [tt.glm_state_evolution(**shared, **kw) for kw in lanes]
+        stacked = stack_models(models)
+        inits = None if a0s is None else [
+            CustomInit(a_init=[("x", "bwd", a0)]) for a0 in a0s]
+        solver = SESolver(models[0], max_iter=200, tol=1e-6, **solver_kw)
+        out = {}
+        wall = timed_solve(torch, lambda: out.update(
+            res=solver.solve_batch(stacked, inits)))
+        post, n_iter = out["res"]
+        v = post["x"]["v"].double().cpu().numpy()
+        n_iter = n_iter.cpu().numpy()
+        check(post["x"]["v"].device.type == "cuda" and v.shape == (
+            len(lanes),), f"{name}: v of shape {v.shape}")
+        for i, ((v_ref, rtol, atol), kw) in enumerate(zip(refs, lanes)):
+            err = abs(v[i] - v_ref)
+            check(np.isfinite(v[i]) and err <= atol + rtol * abs(v_ref),
+                  f"SE golden, {name} {kw} a0={None if a0s is None else a0s[i]}"
+                  f": v={v[i]:.12g}, pinned {v_ref:.12g} (rtol {rtol:g}, "
+                  f"atol {atol:g})")
+            print(f"SE golden on the card, {name} {kw}"
+                  f"{'' if a0s is None else f' a0={a0s[i]:g}'}: "
+                  f"n_iter={n_iter[i]} v={v[i]:.12g} pinned {v_ref:.12g} "
+                  f"|v - pinned| = {err:.3e} (bound "
+                  f"{atol + rtol * abs(v_ref):.3e}) [{card}]")
+            rows += 1
+        kw = {k: (f() if k == "callback" else f)
+              for k, f in iterate_kw.items()}
+        if a0s is not None:
+            kw["initializer"] = CustomInit(a_init=[("x", "bwd",
+                                                    a0s[single])])
+        se = tt.StateEvolution(models[single]).iterate(max_iter=200, **kw)
+        v_1 = float(se.get_variable_data("x")["v"])
+        err = abs(v[single] - v_1) / v_1
+        check(err <= 1e-10 and se.n_iter == n_iter[single],
+              f"{name}: lane {single} v={v[single]:.15g} n_iter="
+              f"{n_iter[single]}, StateEvolution.iterate v={v_1:.15g} "
+              f"n_iter={se.n_iter}")
+        seconds[name] = wall
+        iterations = int(n_iter.max())
+        window = print_window(f"SE goldens of {name}, {len(lanes)} lanes",
+                              loop_window(lambda k: SESolver(
+                                  models[0], max_iter=k, tol=0.0,
+                                  **dict(solver_kw, rollback_increase=float(
+                                      "inf"))).solve_batch(stacked, inits)),
+                              card)
+        print(f"SE goldens of {name}: {len(lanes)} rows in one solve_batch, "
+              f"{wall:.3f} s, {iterations} iterations of the loop, "
+              f"{1e3 * wall / iterations:.4f} ms per iteration, of which "
+              f"{window['device_ms']:.4f} ms on the device (busy "
+              f"{100 * window['device_ms'] * iterations / (1e3 * wall):.2f}"
+              f"%); lane {single} against StateEvolution.iterate: v rel err "
+              f"{err:.3e} (rtol 1e-10), n_iter {se.n_iter} both [{card}]")
+        if name == "perceptron":
+            perceptron_v = float(v[[a for a, _, _ in
+                                    PERCEPTRON_SE_ROWS].index(1.0)])
+    launches = read_launches(pl)
+    check(rows == 27 and not any(launches.values()),
+          f"SE goldens: {rows} rows, launches {launches}")
+    return launches, perceptron_v, seconds
+
+
+def phase_10b_critical_lines(torch, tt, pl, card):
+    """The relu, sign-retrieval and door critical lines through
+    find_critical_alpha_batched, within ALPHA_TOL of the pinned values.
+    Returns (launches of the path, seconds by family)."""
+    from tramp_tpu_torch.experiments import find_critical_alpha_batched
+    gb = dict(prior_type="gauss_bernoulli", prior_mean=0.0)
+    searches = [
+        ("relu", RELU_CRITICAL_REF, dict(
+            a0=0, mse_criterion="perfect", alpha_min=1e-5, alpha_max=2.0,
+            grid_kwargs={"prior_rho": [0.05, 0.1, 0.15, 0.2]},
+            output_type="relu", **gb))]
+    for criterion, ref in SGN_CRITICAL_CASES:
+        searches.append((f"sign retrieval {criterion}", ref, dict(
+            a0=0.1, mse_criterion=criterion, alpha_min=1e-5, alpha_max=1.2,
+            grid_kwargs={"prior_rho": [0.05, 0.15]}, output_type="abs",
+            **gb)))
+    searches.append(("door", DOOR_CRITICAL_REF, dict(
+        a0=0.1, mse_criterion="random", alpha_min=0.1, alpha_max=3.0,
+        grid_kwargs={"prior_p_pos": [0.51]}, prior_type="binary",
+        output_type="door", output_width=0.25)))
+    reset_launches(pl)
+    seconds = {}
+    for name, ref, kw in searches:
+        t0 = time.perf_counter()
+        lines = find_critical_alpha_batched(
+            id="x", alpha_tol=ALPHA_TOL, model_builder=tt.glm_state_evolution,
+            **kw)
+        seconds[name] = time.perf_counter() - t0
+        off = np.abs(np.asarray(lines) - np.asarray(ref))
+        check(lines.shape == (len(ref),) and (off <= ALPHA_TOL).all(),
+              f"critical lines of {name}: {lines.tolist()}, pinned {ref} "
+              f"(alpha_tol {ALPHA_TOL})")
+        print(f"critical lines of {name}, {len(ref)} in one batched "
+              f"bisection: {seconds[name]:.3f} s, max |alpha - pinned| = "
+              f"{off.max():.3e} (alpha_tol {ALPHA_TOL}), "
+              f"{int((off <= 1e-12).sum())} of {len(ref)} bit-equal to the "
+              f"pinned values [{card}]")
+    launches = read_launches(pl)
+    check(not any(launches.values()), f"critical lines ran kernels: "
+                                      f"{launches}")
+    return launches, seconds
+
+
+def perceptron_student(torch, tt, dtype, N=PERCEPTRON["N"], device="cuda",
+                       svd=None):
+    """The perceptron of bench.py:504-533: binary prior (p_pos), W, sign
+    output, data from np.random.RandomState(seed). Returns (student,
+    teacher x, linear channel)."""
+    from tramp_tpu_torch.channels import LinearChannel
+    from tramp_tpu_torch.likelihoods import SgnLikelihood
+    from tramp_tpu_torch.priors import BinaryPrior
+    M = int(PERCEPTRON["alpha"] * N)
+    rng = np.random.RandomState(PERCEPTRON["seed"])
+    W = rng.randn(M, N) / np.sqrt(N)
+    x0 = np.where(rng.rand(N) < PERCEPTRON["p_pos"], 1.0, -1.0)
+    y = np.sign(W @ x0)
+    y[y == 0] = 1.0
+    linear = LinearChannel(W, name="W", svd=svd, device=device, dtype=dtype)
+    student = (
+        BinaryPrior(size=N, p_pos=PERCEPTRON["p_pos"], device=device,
+                    dtype=dtype)
+        @ tt.V(id="x") @ linear @ tt.V(id="z")
+        @ SgnLikelihood(y=y, device=device, dtype=dtype)).to_model()
+    return student, x0, linear
+
+
+def perceptron_batch(torch, W, lanes, seed):
+    """One teacher and observation per lane, drawn on the card: x = +-1
+    with P(+1) = p_pos, y = sgn(W x) (0 counted as +1)."""
+    g = torch.Generator(device=W.device).manual_seed(seed)
+    kw = dict(generator=g, device=W.device, dtype=W.dtype)
+    x = torch.where(torch.rand((lanes, W.shape[1]), **kw)
+                    < PERCEPTRON["p_pos"], 1.0, -1.0).to(W.dtype)
+    y = torch.sign(x @ W.T)
+    return x, torch.where(y == 0, 1.0, y)
+
+
+def phase_10c_perceptron(torch, tt, pl, v_se, card):
+    """The perceptron's EP path: EPSolver and dispatch_solver in float32 and
+    float64, f32 against f64, EP against SE, then LANES lanes in float32.
+    Returns the launches of the path."""
+    from tramp_tpu_torch.parallel import (
+        EPSolver, MLVAMPSolver, dispatch_solver, with_buffers)
+    kw = dict(damping=0.1, max_iter=500, tol=1e-6)
+    reset_launches(pl)
+    results, students = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        dname = dtype_name(dtype)
+        student, x0, linear = students[dname] = perceptron_student(
+            torch, tt, dtype)
+        for name, make in (("EPSolver", EPSolver),
+                           ("dispatch_solver", dispatch_solver)):
+            solver = make(student, **kw)
+            if name == "dispatch_solver":
+                check(type(solver) is MLVAMPSolver,
+                      f"perceptron: dispatch_solver gave "
+                      f"{type(solver).__name__}")
+            solver.solve(student)                       # warm-up
+            out = {}
+            wall = timed_solve(torch, lambda: out.update(
+                res=solver.solve_info(student)))
+            post, n_iter, conv = out["res"]
+            r = post["x"]["r"].double().cpu().numpy()
+            v = float(post["x"]["v"])
+            check(bool(conv) and np.isfinite(r).all() and r.shape == x0.shape,
+                  f"perceptron {dname} {name}: conv={bool(conv)}")
+            mse = float(np.mean((r - x0) ** 2))
+            results[dname, name] = (mse, v)
+            print(f"perceptron N={PERCEPTRON['N']} {dname} through {name} "
+                  f"({type(solver).__name__}): n_iter={int(n_iter)} "
+                  f"mse={mse:.6g} v={v:.6g} wall={wall:.3f} s "
+                  f"iterations/s={int(n_iter) / wall:.1f} [{card}]")
+    for name in ("EPSolver", "dispatch_solver"):
+        (mse32, v32), (mse64, v64) = (results["float32", name],
+                                      results["float64", name])
+        v_rel, mse_rel = abs(v32 - v64) / v64, abs(mse32 - mse64) / mse64
+        check(v_rel < V_MSE_BOUND and mse_rel < V_MSE_BOUND,
+              f"perceptron {name} f32 vs f64: v {v_rel:.3g}, mse "
+              f"{mse_rel:.3g} (bound {V_MSE_BOUND})")
+        print(f"perceptron {name}, f32 vs f64: v rel err {v_rel:.3e}, mse "
+              f"rel err {mse_rel:.3e} (bound {V_MSE_BOUND})")
+    v_ep = results["float64", "EPSolver"][1]
+    gap = abs(v_ep - v_se) / v_se
+    check(gap < EP_SE_BAND, f"perceptron: |v_EP - v_SE| / v_SE = {gap:.3g} "
+                            f"(band {EP_SE_BAND})")
+    print(f"EP against SE, perceptron N={PERCEPTRON['N']} alpha=1: v_SE="
+          f"{v_se:.6g} v_EP={v_ep:.6g} |v_EP-v_SE|/v_SE={gap:.3e} (band "
+          f"{EP_SE_BAND}) [{card}]")
+    single = read_launches(pl)
+    student = students["float32"][0]
+    print_window("perceptron float32, one instance, MLVAMPSolver",
+                 loop_window(lambda k: MLVAMPSolver(
+                     student, damping=0.1, max_iter=k, tol=0.0).solve(
+                         student)), card)
+
+    # LANES lanes on one W, float32, at BATCH_TOL (the float32 stop
+    # metric's floor with many lanes on one operator)
+    student, _, linear = students["float32"]
+    xs, ys = perceptron_batch(torch, linear.W, LANES, seed=5)
+    stacked = with_buffers(student, {(2, "y"): ys})
+    bkw = dict(kw, tol=BATCH_TOL)
+    solver, ep_solver = dispatch_solver(student, **bkw), \
+        EPSolver(student, **bkw)
+    total = dict(single)
+    for name, run, window in (
+            ("MLVAMPSolver", lambda: solver.solve_info(stacked),
+             lambda k: MLVAMPSolver(student, damping=0.1, max_iter=k,
+                                    tol=0.0).solve_batch(stacked)),
+            ("EPSolver", lambda: _ep_batch(ep_solver, stacked),
+             lambda k: EPSolver(student, damping=0.1, max_iter=k, tol=0.0,
+                                rollback_increase=float("inf")).solve_batch(
+                                    stacked))):
+        what = (f"perceptron float32, {name}.solve_batch over {LANES} lanes, "
+                f"tol {BATCH_TOL:g}")
+        w = print_window(what, loop_window(window), card)
+        post, n_iter, conv, launches = batched_solve(
+            torch, pl, what, run, LANES, card, w)
+        for k, v in launches.items():
+            total[k] += v
+        check(bool(conv.all()), f"{what}: {int((~conv).sum())} lanes did not "
+                                "converge")
+        mse = ((post["x"]["r"] - xs) ** 2).mean(1)
+        print(f"{what}: mse per lane {float(mse.min()):.4g} to "
+              f"{float(mse.max()):.4g}, median {float(mse.median()):.4g}")
+        if name == "MLVAMPSolver":
+            lanes_against_singles(torch, what, solver, student, 2, ys, post,
+                                  n_iter)
+    check(not any(total.values()), f"the perceptron ran kernels: {total}")
+    return total
+
+
+def _ep_batch(ep_solver, stacked):
+    "EPSolver's batched solve as (post, n_iter, conv)."
+    post, _, n_iter, conv = ep_solver._solve_batch(stacked, None, None)
+    return post, n_iter, conv
+
+
+def phase_10d_sign_retrieval_and_relu(torch, tt, pl, card, N=4096):
+    """Sign retrieval (abs output) and the relu GLM through glm_generative
+    and channel2likelihood, float64, EP from an informed start (a0 = 1000
+    and b = a0 times the teacher on x) against SE from a0 = 1000. Returns
+    the launches of the path."""
+    from tramp_tpu_torch.algos import CustomInit
+    from tramp_tpu_torch.likelihoods import AbsLikelihood, ReluLikelihood
+    reset_launches(pl)
+    for kind, alpha, cls in (("abs", 1.20, AbsLikelihood),
+                             ("relu", 1.34, ReluLikelihood)):
+        g = torch.Generator(device="cuda").manual_seed(7)
+        t0 = time.perf_counter()
+        teacher = tt.glm_generative(
+            N=N, alpha=alpha, ensemble_type="gaussian",
+            prior_type="gauss_bernoulli", output_type=kind, generator=g,
+            device="cuda", dtype=torch.float64, prior_rho=0.4,
+            prior_mean=0.0)
+        sample = teacher.sample(g)
+        student = teacher.to_observed({"y": sample["y"]})
+        torch.cuda.synchronize()
+        build = time.perf_counter() - t0
+        check(type(student.factors[-1]) is cls,
+              f"{kind} GLM: the likelihood is "
+              f"{type(student.factors[-1]).__name__}")
+        x0 = sample["x"]
+        init = CustomInit(a_init=[("x", "bwd", 1000.0)],
+                          b_init=[("x", "bwd", 1000.0 * x0)])
+        ep = tt.ExpectationPropagation(student)
+        wall = timed_solve(torch, lambda: ep.iterate(initializer=init,
+                                                     **SOLVE))
+        x = ep.get_variable_data("x")
+        check(bool(torch.isfinite(x["r"]).all()), f"{kind} GLM: non-finite r")
+        v_ep = float(x["v"])
+        mse = float(((x["r"] - x0) ** 2).mean())
+        se = tt.StateEvolution(tt.glm_state_evolution(
+            alpha=alpha, prior_type="gauss_bernoulli", output_type=kind,
+            prior_rho=0.4, prior_mean=0.0)).iterate(
+                max_iter=200, initializer=CustomInit(
+                    a_init=[("x", "bwd", 1000.0)]))
+        v_se = float(se.get_variable_data("x")["v"])
+        kernels, device, wall_ms = sweep_window(ep)
+        print(f"{kind} GLM N={N} alpha={alpha} rho=0.4 float64 through "
+              f"glm_generative ({cls.__name__}), EP from a0=1000: "
+              f"n_iter={ep.n_iter} mse={mse:.6g} v_EP={v_ep:.6g} "
+              f"v_SE={v_se:.6g} (SE n_iter={se.n_iter}) wall={wall:.3f} s "
+              f"sweeps/s={ep.n_iter / wall:.1f} (model and sample "
+              f"{build:.2f} s); torch.profiler over 10 warm sweeps: "
+              f"{kernels:.1f} kernels per sweep, device {device:.4f} ms of "
+              f"{wall_ms:.4f} ms per sweep, busy "
+              f"{100 * device / wall_ms:.2f}% [{card}]")
+    launches = read_launches(pl)
+    check(not any(launches.values()), f"the GLMs ran kernels: {launches}")
+    return launches
+
+
+def phase_10e_card_against_cpu(torch, tt, pl):
+    """The perceptron at N = 256 in float64 through EPSolver on the card
+    and on the CPU (the CPU's SVD carried to the card): equal n_iter, r to
+    rtol 1e-8; and two card solves with the same bits. Returns the launches
+    of the card's solves."""
+    from tramp_tpu_torch.parallel import EPSolver
+    kw = dict(damping=0.1, max_iter=500, tol=1e-6)
+    cpu_student, _, cpu_linear = perceptron_student(
+        torch, tt, torch.float64, N=256, device="cpu")
+    svd = (cpu_linear.U, cpu_linear.s, cpu_linear.V.T)
+    gpu_student, _, _ = perceptron_student(torch, tt, torch.float64, N=256,
+                                           svd=svd)
+    cpu_post, cpu_n, _ = EPSolver(cpu_student, **kw).solve_info(cpu_student)
+    reset_launches(pl)
+    solver = EPSolver(gpu_student, **kw)
+    posts = [solver.solve_info(gpu_student) for _ in range(2)]
+    launches = read_launches(pl)
+    (post, n_iter, _), (again, n_again, _) = posts
+    r_cpu, r_gpu = cpu_post["x"]["r"], post["x"]["r"].cpu()
+    r_err = float(((r_gpu - r_cpu).abs()
+                   / (r_cpu.abs() + r_cpu.abs().max())).max())
+    check(int(n_iter) == int(cpu_n) and r_err <= 1e-8,
+          f"perceptron N=256: card n_iter {int(n_iter)} vs CPU {int(cpu_n)}, "
+          f"r err/scale {r_err:.3g} (rtol 1e-8)")
+    check(all(torch.equal(post["x"][k], again["x"][k]) for k in ("r", "v"))
+          and int(n_iter) == int(n_again),
+          "perceptron N=256: two solves on the card differ")
+    print(f"perceptron N=256 f64 through EPSolver, card vs CPU: n_iter "
+          f"{int(n_iter)} both, r rel err {r_err:.3e} (rtol 1e-8); two card "
+          "solves bit-identical")
+    check(not any(launches.values()), f"the perceptron ran kernels: "
+                                      f"{launches}")
+    return launches
+
+
+def phase_10(torch, tt, pl, card):
+    """Phase 10: the state evolution and EP of the new priors and
+    likelihoods. Returns the launches by path (all zero: no new factor
+    reaches the kernels)."""
+    t0 = time.perf_counter()
+    paths, seconds = {}, {}
+    paths["se_item3_goldens"], v_se, golden_s = phase_10a_goldens(
+        torch, tt, pl, card)
+    seconds["a"] = time.perf_counter() - t0
+    paths["se_item3_critical_lines"], line_s = phase_10b_critical_lines(
+        torch, tt, pl, card)
+    seconds["b"] = time.perf_counter() - t0 - sum(seconds.values())
+    paths["perceptron_ep"] = phase_10c_perceptron(torch, tt, pl, v_se, card)
+    seconds["c"] = time.perf_counter() - t0 - sum(seconds.values())
+    paths["glm_abs_relu_ep"] = phase_10d_sign_retrieval_and_relu(
+        torch, tt, pl, card)
+    seconds["d"] = time.perf_counter() - t0 - sum(seconds.values())
+    paths["perceptron_card_vs_cpu"] = phase_10e_card_against_cpu(
+        torch, tt, pl)
+    seconds["e"] = time.perf_counter() - t0 - sum(seconds.values())
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s, by part "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items())
+          + "; goldens by family " + ", ".join(
+              f"{k} {v:.2f} s" for k, v in golden_s.items())
+          + "; critical lines by family " + ", ".join(
+              f"{k} {v:.2f} s" for k, v in line_s.items()) + f" [{card}]")
+    return paths
+
+
 def main():
     import torch
     # phase 1: the device
@@ -1631,6 +2120,9 @@ def main():
     phase_9d_ep_against_se(torch, tt, student, v, relu_v_se,
                            results["float64"], card)
 
+    # phase 10: the priors, likelihoods and GLMs of Queue 1 item 3
+    item3_launches = phase_10(torch, tt, pl, card)
+
     # phase 8: summary. A main path is a solve with the posterior readout
     # that follows it: the engine's float32 relu-net solve (phase 4) and the
     # front door's relu-net solves, single and batched (phase 7); the
@@ -1651,12 +2143,15 @@ def main():
             "name": name, "route": "cuda", "source": source,
             "replaces": "tramp_tpu/ops/pl_fused.py:81",
             "launches": (engine_launches[name] + relu_launches[name]
-                         + sum(path[name] for path in se_launches.values())),
+                         + sum(path[name] for path in se_launches.values())
+                         + sum(path[name]
+                               for path in item3_launches.values())),
             "launches_by_path": dict(
                 {"engine_relu_net_f32": engine_launches[name],
                  "front_door_relu_net": relu_launches[name],
                  "front_door_flagship": 0, "se_cs_grid": 0},
-                **{k: path[name] for k, path in se_launches.items()}),
+                **{k: path[name] for k, path in se_launches.items()},
+                **{k: path[name] for k, path in item3_launches.items()}),
             "max_abs_err": max_err[name], "ms": row["per_call_ms"],
             "plain_ms": lanes_plain_ms[name], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,

@@ -3,10 +3,12 @@ the JAX package; the piecewise-linear wrappers take their plain versions
 for CPU tensors and a shape rule for meta tensors, and convert each
 channel's regions once; their module imports without nvcc or a GPU (the
 kernels are built at first launch); a model built without a device needs a
-card, and one built with ``device="cpu"`` does not; the state-evolution
-entry points keep the same rule, take the plain twin for their integrands on
-the CPU, refuse a mesh, and import no pandas until a DataFrame is asked for;
-and, on a card, the kernels agree with their plain versions.
+card, and one built with ``device="cpu"`` does not (the priors and
+likelihoods of Queue 1 item 3 too, whose registries keep no waiting
+types); the state-evolution entry points keep the same rule, take the
+plain twin for their integrands on the CPU, refuse a mesh, and import no
+pandas until a DataFrame is asked for; and, on a card, the kernels agree
+with their plain versions.
 
 This file imports no JAX, so the card-only test runs on a machine without
 it: ``python -m pytest --noconftest -p no:cacheprovider -m cuda
@@ -371,6 +373,66 @@ def test_phase_grid_refuses_a_mesh():
             tt.glm_state_evolution, {"alpha": [0.3]}, mesh=object(),
             device="cpu", prior_type="gauss_bernoulli",
             output_type="gaussian")
+
+
+def test_no_prior_or_likelihood_type_waits_for_item_3():
+    """Queue 1 item 3 is in: the prior and likelihood registries hold every
+    type of the JAX package's (tests/test_torch_priors.py compares them) and
+    keep no list of waiting types, and no message of the port points at
+    item 3 any more."""
+    from tramp_tpu_torch import channels, ensembles, likelihoods, priors
+    assert not hasattr(priors, "_WAITING")
+    assert not hasattr(likelihoods, "_WAITING")
+    assert len(priors.PRIOR_CLASSES) == 9
+    assert len(likelihoods.LIKELIHOOD_CLASSES) == 10
+    for kind in ("modulus", "complex_linear", "conv", "tanh"):
+        item = 7 if kind == "tanh" else 4
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            channels.get_channel(kind)
+    with pytest.raises(NotImplementedError, match="item 4"):
+        ensembles.get_ensemble("binary", M=2, N=3)
+    stale = [str(p) for p in sorted((REPO / "tramp_tpu_torch").rglob("*.py"))
+             if "item 3" in p.read_text()]
+    assert not stale, stale
+
+
+def test_new_factors_need_a_card_or_an_explicit_cpu():
+    """A perceptron built without a device draws its samples on the card
+    and raises here; with device='cpu' it samples and solves, and its state
+    evolution runs on the CPU when asked to."""
+    code = (
+        "import torch\n"
+        "import tramp_tpu_torch as tt\n"
+        "from tramp_tpu_torch import parallel\n"
+        "from tramp_tpu_torch.priors import BinaryPrior\n"
+        "try:\n"
+        "    BinaryPrior(size=4).sample(None)\n"
+        "except RuntimeError as e:\n"
+        "    assert \"device='cpu'\" in str(e), e\n"
+        "else:\n"
+        "    raise SystemExit('no error without a card')\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "teacher = tt.glm_generative(N=40, alpha=1.0,\n"
+        "    ensemble_type='gaussian', prior_type='binary',\n"
+        "    output_type='sgn', generator=g, device='cpu',\n"
+        "    dtype=torch.float64, prior_p_pos=0.25)\n"
+        "y = teacher.sample(g)['y']\n"
+        "student = teacher.to_observed({'y': y})\n"
+        "post, n_iter = parallel.dispatch_solver(student,\n"
+        "    damping=0.1, max_iter=50).solve(student)\n"
+        "assert post['x']['r'].device.type == 'cpu' and int(n_iter) > 1\n"
+        "model = tt.glm_state_evolution(alpha=0.8, prior_type='binary',\n"
+        "    output_type='sgn', prior_p_pos=0.25)\n"
+        "try:\n"
+        "    tt.StateEvolution(model)\n"
+        "except RuntimeError as e:\n"
+        "    assert \"device='cpu'\" in str(e), e\n"
+        "else:\n"
+        "    raise SystemExit('no error without a card')\n"
+        "se = tt.StateEvolution(model, device='cpu').iterate(max_iter=20)\n"
+        "assert 0 < float(se.get_variable_data('x')['v']) < 1\n")
+    proc = _run(code, env=NO_CARD)
+    assert proc.returncode == 0, proc.stderr + proc.stdout
 
 
 def test_kernel_module_imports_without_nvcc_or_gpu():

@@ -1,4 +1,5 @@
 """Belief log-partitions and moments."""
-from . import normal, sparse
+from . import normal, sparse, binary, positive, truncated, exponential, mixture
 
-__all__ = ["normal", "sparse"]
+__all__ = ["normal", "sparse", "binary", "positive", "truncated",
+           "exponential", "mixture"]

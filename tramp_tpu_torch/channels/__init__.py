@@ -3,6 +3,7 @@ ported types."""
 from .base_channel import Channel, SIFactor, SOFactor
 from .analytical_linear_channel import (
     AnalyticalLinearChannel, MarchenkoPasturChannel)
+from .analytic_activations import AnalyticAbsChannel, AnalyticReluChannel
 from .gaussian_channel import GaussianChannel
 from .linear_channel import LinearChannel
 from .piecewise_linear_channel import (
@@ -35,13 +36,14 @@ def get_channel(channel_type, **kwargs):
     if channel_type in _WAITING:
         raise NotImplementedError(
             f"channel {channel_type!r} is not ported yet (ROADMAP Queue 1 "
-            "items 3 and 4)")
+            f"item {7 if channel_type == 'tanh' else 4})")
     return CHANNEL_CLASSES[channel_type](**kwargs)
 
 
 __all__ = [
     "Channel", "SIFactor", "SOFactor", "AnalyticalLinearChannel",
-    "MarchenkoPasturChannel", "CHANNEL_CLASSES", "get_channel",
+    "MarchenkoPasturChannel", "AnalyticAbsChannel", "AnalyticReluChannel",
+    "CHANNEL_CLASSES", "get_channel",
     "GaussianChannel", "LinearChannel", "PiecewiseLinearChannel",
     "SgnChannel", "AbsChannel", "AsymmetricAbsChannel", "ReluChannel",
     "LeakyReluChannel", "HardTanhChannel", "HardSigmoidChannel",

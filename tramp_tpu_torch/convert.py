@@ -27,21 +27,38 @@ from .channels import (
     AnalyticalLinearChannel, MarchenkoPasturChannel,
     GaussianChannel, LinearChannel, SgnChannel, AbsChannel,
     AsymmetricAbsChannel, ReluChannel, LeakyReluChannel, HardTanhChannel,
-    HardSigmoidChannel, SymmetricDoorChannel,
+    HardSigmoidChannel, SymmetricDoorChannel, AnalyticAbsChannel,
+    AnalyticReluChannel,
 )
 from .config import as_tensor
 from .ensembles import MarchenkoPasturEnsemble
-from .likelihoods import GaussianLikelihood
+from .likelihoods import (
+    GaussianLikelihood, SgnLikelihood, AbsLikelihood, ModulusLikelihood,
+    PiecewiseLinearLikelihood, ReluLikelihood, LeakyReluLikelihood,
+    AsymmetricAbsLikelihood, HardTanhLikelihood, HardSigmoidLikelihood,
+    SymmetricDoorLikelihood,
+)
 from .models import Model, ModelDAG
 from .models.graph import DiGraph
-from .priors import GaussBernoulliPrior
+from .priors import (
+    GaussBernoulliPrior, GaussianPrior, BinaryPrior, GaussianMixturePrior,
+    ExponentialPrior, PositivePrior, MAP_L1NormPrior, MAP_L21NormPrior,
+    CommitteeBinaryPrior,
+)
 from .variables import SISOVariable, SILeafVariable
 
 FACTOR_CLASSES = {cls.__name__: cls for cls in (
-    GaussBernoulliPrior, LinearChannel, GaussianChannel, SgnChannel,
-    AbsChannel, AsymmetricAbsChannel, ReluChannel, LeakyReluChannel,
-    HardTanhChannel, HardSigmoidChannel, SymmetricDoorChannel,
-    GaussianLikelihood, MarchenkoPasturChannel, AnalyticalLinearChannel,
+    GaussBernoulliPrior, GaussianPrior, BinaryPrior, GaussianMixturePrior,
+    ExponentialPrior, PositivePrior, MAP_L1NormPrior, MAP_L21NormPrior,
+    CommitteeBinaryPrior,
+    LinearChannel, GaussianChannel, SgnChannel, AbsChannel,
+    AsymmetricAbsChannel, ReluChannel, LeakyReluChannel, HardTanhChannel,
+    HardSigmoidChannel, SymmetricDoorChannel, MarchenkoPasturChannel,
+    AnalyticalLinearChannel, AnalyticAbsChannel, AnalyticReluChannel,
+    GaussianLikelihood, SgnLikelihood, AbsLikelihood, ModulusLikelihood,
+    PiecewiseLinearLikelihood, ReluLikelihood, LeakyReluLikelihood,
+    AsymmetricAbsLikelihood, HardTanhLikelihood, HardSigmoidLikelihood,
+    SymmetricDoorLikelihood,
 )}
 ENSEMBLE_CLASSES = {"MarchenkoPasturEnsemble": MarchenkoPasturEnsemble}
 VARIABLE_CLASSES = {cls.__name__: cls for cls in (

@@ -34,7 +34,8 @@ ENSEMBLE_CLASSES = {
     "gaussian": GaussianEnsemble,
     "marchenko": MarchenkoPasturEnsemble,
 }
-#: ensembles of the JAX package whose channels are not ported yet
+#: ensembles of the JAX package not ported yet: they come with the
+#: structured and complex channels
 _WAITING = ("complex_gaussian", "rotation", "unitary", "binary", "ternary",
             "random_feature", "complex_unitary")
 
@@ -43,7 +44,7 @@ def get_ensemble(ensemble_type, **kwargs):
     if ensemble_type in _WAITING:
         raise NotImplementedError(
             f"ensemble {ensemble_type!r} is not ported yet (ROADMAP Queue 1 "
-            "item 3)")
+            "item 4)")
     return ENSEMBLE_CLASSES[ensemble_type](**kwargs)
 
 

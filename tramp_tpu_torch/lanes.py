@@ -19,9 +19,9 @@ Loop flags (done, converged, the iteration count) are 0-d without lanes and
 ``(B,)`` with them; ``select`` broadcasts such a flag against a state array.
 
 **Hyperparameters.** A factor's numbers (``rho``, ``mean``, ``var``,
-``alpha``) are Python floats shared by all lanes, or one value per lane as a
-tensor ``(B, 1)`` like a precision (``stack_models`` makes them so where the
-models differ). Factor code uses them in tensor expressions, which take
+``alpha``, ``p_pos``, ``gamma``) are Python floats shared by all lanes, or
+one value per lane as a tensor ``(B, 1)`` like a precision
+(``stack_models`` makes them so where the models differ). Factor code uses them in tensor expressions, which take
 both; ``log`` and ``sqrt`` here cover an expression of hyperparameters alone.
 The state evolution's messages are precisions only, ``(B, 1)`` with lanes.
 """
@@ -102,7 +102,8 @@ def sqrt(x):
 
 def hyperparameters(factor):
     """Names of the numeric hyperparameters of ``factor``: its data fields
-    that are not registered buffers (``rho``, ``mean``, ``var``, ``alpha``).
+    that are not registered buffers (``rho``, ``mean``, ``var``, ``alpha``,
+    ``p_pos``, ``gamma``).
     Each is a Python number shared by all lanes, or one value per lane as a
     tensor ``(B, 1, ...)``."""
     return [f for f in type(factor)._data_fields if f not in factor._buffers]
@@ -115,9 +116,9 @@ def stack_models(models, device=None, dtype=None):
     structural copy of ``models[0]`` in which every registered buffer
     (operators, their SVD factors, observations) is the ``torch.stack`` of
     the models' buffers, and every numeric hyperparameter (``rho``, ``mean``,
-    ``var``, ``alpha``) that differs between the models is one value per
-    lane, a tensor ``(B, 1)`` (``(B, 1, ...)`` for a prior of a variable with
-    more axes); a hyperparameter that is equal in all models stays the
+    ``var``, ``alpha``, ``p_pos``, ``gamma``) that differs between the
+    models is one value per lane, a tensor ``(B, 1)`` (``(B, 1, ...)`` for a
+    prior of a variable with more axes); a hyperparameter that is equal in all models stays the
     Python number it was. The structural fields (region bounds, sizes,
     names) are shared by the lanes and must be equal in all models; a
     difference raises. ``device`` and ``dtype`` are those of the

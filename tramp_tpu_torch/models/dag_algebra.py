@@ -109,14 +109,43 @@ def check_model_dag(dag):
 
 def channel2likelihood(channel, y, y_name):
     """Swap a leaf channel for the matching likelihood. Reference l:21-40.
-    Only the Gaussian likelihood is ported so far."""
-    from ..channels import GaussianChannel
-    from ..likelihoods import GaussianLikelihood
+    ``ModulusChannel`` (phase retrieval) waits for the complex channels
+    (ROADMAP Queue 1 item 4); every other branch of the JAX package's is
+    here. The likelihood takes ``y`` as it comes (a tensor keeps its device
+    and dtype)."""
+    from ..channels import (
+        GaussianChannel, AbsChannel, AsymmetricAbsChannel, SgnChannel,
+        ReluChannel, LeakyReluChannel, HardTanhChannel, HardSigmoidChannel,
+        SymmetricDoorChannel,
+    )
+    from ..likelihoods import (
+        GaussianLikelihood, AbsLikelihood, AsymmetricAbsLikelihood,
+        SgnLikelihood, ReluLikelihood, LeakyReluLikelihood,
+        HardTanhLikelihood, HardSigmoidLikelihood, SymmetricDoorLikelihood,
+    )
     if isinstance(channel, GaussianChannel):
         return GaussianLikelihood(y=y, y_name=y_name, var=channel.var)
-    raise NotImplementedError(
-        f"cannot convert {channel} to a likelihood: its likelihood is not "
-        "ported yet")
+    if isinstance(channel, AsymmetricAbsChannel):
+        return AsymmetricAbsLikelihood(y=y, y_name=y_name, shift=channel.shift)
+    if isinstance(channel, AbsChannel):
+        return AbsLikelihood(y=y, y_name=y_name)
+    if isinstance(channel, SgnChannel):
+        return SgnLikelihood(y=y, y_name=y_name)
+    if isinstance(channel, LeakyReluChannel):
+        return LeakyReluLikelihood(slope=channel.slope, y=y, y_name=y_name)
+    if isinstance(channel, ReluChannel):
+        return ReluLikelihood(y=y, y_name=y_name)
+    if isinstance(channel, HardTanhChannel):
+        return HardTanhLikelihood(y=y, y_name=y_name)
+    if isinstance(channel, HardSigmoidChannel):
+        return HardSigmoidLikelihood(y=y, y_name=y_name)
+    if isinstance(channel, SymmetricDoorChannel):
+        return SymmetricDoorLikelihood(y=y, y_name=y_name, width=channel.width)
+    if type(channel).__name__ == "ModulusChannel":
+        raise NotImplementedError(
+            "ModulusChannel is not ported yet: phase retrieval's EP half "
+            "waits for the complex channels (ROADMAP Queue 1 item 4)")
+    raise NotImplementedError(f"cannot convert {channel} to likelihood")
 
 
 class ModelDAG(DAG):

@@ -1,6 +1,7 @@
 """GLM builders. Counterpart of
-tramp_tpu/models/generalized_linear_model.py. The registries hold the ported
-types; the others raise NotImplementedError."""
+tramp_tpu/models/generalized_linear_model.py. Every prior and likelihood
+type of the JAX registries builds; the complex GLM (``output_type=
+"modulus"`` in ``glm_generative``) waits for the complex channels."""
 from ..channels import get_channel
 from ..ensembles import get_ensemble
 from ..likelihoods import get_likelihood
@@ -22,7 +23,8 @@ def glm_generative(N, alpha, ensemble_type, prior_type, output_type,
     dtype)."""
     if output_type == "modulus":
         raise NotImplementedError(
-            "the complex GLM is not ported yet (ROADMAP Queue 1 item 3)")
+            "the complex GLM is not ported yet: it needs ComplexLinearChannel "
+            "(ROADMAP Queue 1 item 4)")
     M = int(alpha * N)
     ensemble = get_ensemble(ensemble_type, M=M, N=N,
                             **get_kwargs("ensemble", kwargs))

@@ -1,22 +1,35 @@
-"""Priors. The registry mirrors tramp_tpu/priors/__init__.py for the ported
-types."""
+"""Priors. The registry mirrors tramp_tpu/priors/__init__.py ("positive"
+maps to ExponentialPrior, as in the reference)."""
 from .base_prior import Prior
+from .gaussian_prior import GaussianPrior
 from .gauss_bernoulli_prior import GaussBernoulliPrior
+from .binary_prior import BinaryPrior
+from .gaussian_mixture_prior import GaussianMixturePrior
+from .exponential_prior import ExponentialPrior
+from .positive_prior import PositivePrior
+from .map_priors import MAP_L1NormPrior, MAP_L21NormPrior
+from .committee_binary_prior import CommitteeBinaryPrior
 
 PRIOR_CLASSES = {
+    "gaussian": GaussianPrior,
     "gauss_bernoulli": GaussBernoulliPrior,
+    "binary": BinaryPrior,
+    "L1_norm": MAP_L1NormPrior,
+    "L21_norm": MAP_L21NormPrior,
+    "exponential": ExponentialPrior,
+    "positive": ExponentialPrior,
+    "mixture": GaussianMixturePrior,
+    "committee_binary": CommitteeBinaryPrior,
 }
-#: prior types of the JAX package that are not ported yet
-_WAITING = ("gaussian", "binary", "L1_norm", "L21_norm", "exponential",
-            "positive", "mixture", "committee_binary")
 
 
 def get_prior(size, prior_type, **kwargs):
-    if prior_type in _WAITING:
-        raise NotImplementedError(
-            f"prior {prior_type!r} is not ported yet (ROADMAP Queue 1 "
-            "item 3)")
     return PRIOR_CLASSES[prior_type](size=size, **kwargs)
 
 
-__all__ = ["Prior", "GaussBernoulliPrior", "PRIOR_CLASSES", "get_prior"]
+__all__ = [
+    "Prior", "GaussianPrior", "GaussBernoulliPrior", "BinaryPrior",
+    "GaussianMixturePrior", "ExponentialPrior", "PositivePrior",
+    "MAP_L1NormPrior", "MAP_L21NormPrior", "CommitteeBinaryPrior",
+    "PRIOR_CLASSES", "get_prior",
+]

@@ -1,5 +1,6 @@
-"""Special functions, truncated-normal moments, linear regions and the
-quadrature of the state evolution."""
-from . import special, truncated_normal, integration, linear_region
+"""Special functions, truncated-normal moments, linear regions, the
+quadrature of the state evolution and small array helpers."""
+from . import special, truncated_normal, integration, linear_region, misc
 
-__all__ = ["special", "truncated_normal", "integration", "linear_region"]
+__all__ = ["special", "truncated_normal", "integration", "linear_region",
+           "misc"]

@@ -19,7 +19,9 @@ broadcasts against its argument, and the sum runs over the node axis only:
 the result is 0-d without lanes and ``(B, 1)`` with them. A two-dimensional
 rule hands ``f`` its n x n grid flattened to n * n nodes (``grid_2d``,
 ``grid_2d_full``), and the segments of the boundary rules are flattened in
-the same way.
+the same way. A nested rule (an inner rule at every node of an outer one,
+as the likelihoods' measures have) hands ``f`` its outer and inner nodes
+flattened into one node axis too (``flat_call``, ``inner_gaussian_measure``).
 """
 from functools import lru_cache
 
@@ -91,6 +93,18 @@ def _on(device, dtype, rule, *args):
     "The numpy constants of ``rule(*args)`` as tensors, moved once."
     return tuple(torch.as_tensor(a, device=device, dtype=dtype)
                  for a in rule(*args))
+
+
+def rule_on(like, rule, *args):
+    """The numpy nodes and weights of ``rule(*args)`` (a rule of this
+    module) as tensors on ``like``'s device and dtype, moved once."""
+    return _on(like.device, like.dtype, rule, *args)
+
+
+def sqrt_like(x, like):
+    """The square root of a measure parameter (a number or a tensor) as a
+    tensor on ``like``'s device and dtype."""
+    return torch.sqrt(torch.as_tensor(x, dtype=like.dtype, device=like.device))
 
 
 def _like(*params):
@@ -215,6 +229,38 @@ def truncated_gaussian_measure_boundary(m, s, zmin, zmax, points, f,
               for v in (lo, hi))
     c = torch.clamp(c, min=lo, max=hi)
     return _probit_segments(m, s, _edges(lo, c, hi), f, order, panels)
+
+
+def flat_call(f, *args):
+    """``f`` on arguments of one shape ``(..., n, m)``, an inner rule's m
+    nodes at each of an outer rule's n nodes: the last two axes are handed
+    to ``f`` as one node axis, as the measures hand it their nodes (after
+    the lane axis, where there is one), and restored in the result."""
+    args = torch.broadcast_tensors(*args)
+    shape = args[0].shape
+    out = f(*(a.flatten(-2) for a in args))
+    return torch.broadcast_to(out, shape[:-2] + (shape[-2] * shape[-1],)
+                              ).reshape(shape)
+
+
+def inner_axis(p):
+    """A measure parameter (a number, 0-d, or ``(B, 1)`` with lanes) made to
+    broadcast against an inner rule's nodes on a new last axis."""
+    return p[..., None] if isinstance(p, torch.Tensor) and p.ndim else p
+
+
+def inner_gaussian_measure(center, spread, g, *extra):
+    """E over xi ~ N(0, 1) of ``g(center + spread * xi, *extra)`` by the
+    ``std_normal_nodes`` rule, at every node of an outer rule: ``center``
+    and ``extra`` have the outer nodes' shape (``(n,)``, or ``(B, n)`` with
+    lanes), ``spread`` is a measure parameter; the result has the outer
+    nodes' shape. The nested rule of the likelihoods' measures
+    (reference: the inner ``std_normal_nodes`` sums of
+    tramp_tpu/likelihoods/)."""
+    xi, w = rule_on(center, std_normal_nodes)
+    b = center[..., None] + inner_axis(spread) * xi
+    vals = flat_call(g, b, *(e[..., None] for e in extra))
+    return torch.sum(w * vals, -1)
 
 
 def _probit_segments(m, s, c, f, order, panels):

@@ -9,6 +9,7 @@ import torch
 
 SQRT2 = 1.4142135623730951
 SQRT_PI = 1.7724538509055159
+SQRT_2PI = 2.5066282746310002
 
 # |x| below which exp(x^2)*erfc(x) is computed directly without overflow:
 # float64 exp overflows at x ~ 26.6, float32 exp(x^2) already at x ~ 9.4
@@ -24,6 +25,16 @@ def erf(x):
 def norm_cdf(x):
     "Standard normal cdf Phi(x). Reference tramp/utils/misc.py:55-57."
     return torch.special.ndtr(x)
+
+
+def norm_pdf(x):
+    "Standard normal pdf N(x). Reference tramp/utils/misc.py:60-62."
+    return torch.exp(-0.5 * torch.square(x)) / SQRT_2PI
+
+
+def log_Phi(x):
+    "log Phi(x), stable for large |x|. Reference truncated_normal.py:22-30."
+    return torch.special.log_ndtr(x)
 
 
 def erfcx(x):
@@ -57,3 +68,24 @@ def log_Phi_erfcx(x):
     lower = torch.log(0.5 * erfcx(-u)) - u * u
     upper = torch.log1p(-0.5 * erfcx(u) * torch.exp(-u * u))
     return torch.where(x <= 0, lower, upper)
+
+
+def log_norm_cdf_prime(x):
+    "(log Phi)'(x) = N(x)/Phi(x). Reference tramp/utils/misc.py:65-70."
+    return 1.0 / (SQRT_2PI * 0.5 * erfcx(-x / SQRT2))
+
+
+def phi_0(x):
+    "phi(x) = x^2/2 + log Phi(x). Reference tramp/utils/misc.py:74-76."
+    return torch.log(0.5 * erfcx(-x / SQRT2))
+
+
+def phi_1(x):
+    "phi'(x) = x + N/Phi. Reference tramp/utils/misc.py:79-81."
+    return x + log_norm_cdf_prime(x)
+
+
+def phi_2(x):
+    "phi''(x) = 1 - N/Phi * (x + N/Phi). Reference tramp/utils/misc.py:84-86."
+    y = log_norm_cdf_prime(x)
+    return 1.0 - y * (x + y)
