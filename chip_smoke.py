@@ -128,8 +128,71 @@ line is printed):
       (a0 = 1000 on x) beside SE from a0 = 1000, with a profiled sweep
       window (readings, no limit);
    e. the perceptron at N = 256 in float64 through ``EPSolver`` on the card
-      and on the CPU: equal n_iter, r to rtol 1e-8; two card solves with the
-      same bits.
+      and on the CPU: equal n_iter, r and v to rtol 1e-8 (card_against_cpu:
+      element by element, a mean's scale floored at 1, a value not finite
+      fails); two card solves with the same bits.
+11. (run before the summary) the complex channels and the trees of ROADMAP
+    Queue 1 items 4a and 4b:
+   a. phase retrieval, BASELINE config 2's second half (bench.py:573-618:
+      N = 500, alpha 2, Gauss-Bernoulli rho 0.5 mean 0.01, RandomState(5),
+      complex Gaussian F) through ``EPSolver(damping=0.3, max_iter=500,
+      tol=1e-12, wait_increase=20, stop_kind="v")`` in float32 and float64
+      with bench.py:120-128's bounds (converged; v f32 <= 1e-9; the
+      phase-symmetric MSE f32 vs f64 within 5e-2; n_iter f32 at most twice
+      f64's), no kernel launched, a profiled loop window; N = 128 float64
+      on the card against the CPU (equal n_iter, r and v rtol 1e-8);
+   b. 512 lanes of it on one F, float32, a teacher and y per lane: three
+      lanes against their single solves (1e-3 of the largest |r|, n_iter
+      within 2), lane-iterations/s, converged lanes, busy share, peak
+      memory, the top device operations and the Bessel kernels' share;
+   c. EP on ``glm_generative(output_type="modulus")`` at N = 2000, float64,
+      at the PR_EP_VS_SE_ROWS alphas against their pinned SE values:
+      |v_EP - v_SE| / v_SE < 0.25; and two-layer phase retrieval with the
+      modulus channel mid-graph (tests/test_modulus_channel.py:125-157, N =
+      1000): phase-symmetric MSE under half the signal power, a profiled
+      sweep and the modulus channel's share of it;
+   d. the soft committee (tests/test_models_misc.py:22-34: K = 2, N =
+      2000, alpha 1.5, prior means 0.1 and -0.2, noise 1e-2) in float32
+      through ``dispatch_solver``, which must give an EPSolver: finite r,
+      0 < v < 1.5 for x_0 and x_1, exactly one forward and one backward
+      relu launch per expert per sweep; the relu factors read out through
+      ``pl_posterior`` and all three kernels held against their plain
+      versions at the final state; N = 256 float64 on the card against the
+      CPU; 512 lanes with a y each (three lanes against single solves);
+      then, past the learning transition (alpha 8, damping 0.5, max_iter
+      300), one solve with each expert's MSE under 5e-2 and 512 lanes as
+      readings of a solve that converges;
+   e. ``MultiLayerModel([GaussBernoulliPrior(rho=0.5), AbsChannel(),
+      GaussianChannel(var=1e-2)])`` at N = 4096, float32: MSE of t_1 under
+      5e-2, one abs message of each side per sweep, the readout and the
+      kernels against their plain versions;
+   f. the VAE prior, BASELINE config 4's protocol (bench.py:625-684) with
+      the synthetic decoder of tests/test_vae_prior.py:20-27, the 25%
+      middle band erased, ``EPSolver(damping=0.5, max_iter=300,
+      rollback_increase=inf)`` from NoisyInit(seed=3), float32 and float64:
+      the band MSE beside the fill-zero MSE, 2 forward and 2 backward
+      messages per sweep, the readout and the kernels against their plain
+      versions, and a 30-sweep float64 snapshot on the card against the
+      CPU (rtol 1e-8; EP on this model has no fixed point);
+   g. ``StateEvolution`` of the soft committee (N = 256, float64) on the
+      card against the CPU: equal n_iter, every v to rtol 1e-10.
+   Each of d, e and f must launch every kernel. If phase 11 passes 150 s
+   before d, the committee's batch is cut to 256 lanes.
+12. (run before the summary) item 3's priors, likelihoods and analytic
+    channels that no earlier phase runs on the card, float64: one EP solve
+    (card against CPU, equal n_iter, r and v rtol 1e-8) and one SE solve of
+    each that the JAX package defines, through ``glm_generative`` /
+    ``glm_state_evolution`` where those build the factor. The analytic abs
+    channel's prior has mean 1 (from b = 0 a mean-0 prior leaves EP at
+    r = 0). The committee-binary prior takes a K x K precision, which the
+    EP engine does not pass: its denoiser's posterior and log-partition,
+    exact in one step, are held card against CPU.
+
+The messages at a path's final state (11d-f) are held element by element
+within rtol (|a| + |a + a_new|) and rtol (|b| + |b + b_new|), the two terms
+each subtraction takes; their largest absolute errors go to the kernels
+line's ``final_state_max_abs_err`` by path, and ``max_abs_err`` stays phase
+3's, at its fixed shapes.
 
 Phase 3 also holds the kernels against their plain versions with 3 lanes
 (a precision per lane) at n = 2048 and n = 16384 + 300, checks that lane i of
@@ -149,6 +212,7 @@ special function counts as one, so the count is a lower bound.
 It needs one GPU and imports nothing of JAX.
 """
 import json
+import math
 import subprocess
 import sys
 import time
@@ -328,8 +392,9 @@ def loop_window(run, iterations=10):
     solver for exactly k iterations (with its set-up and its readout), and
     the per-iteration figures are the run of ``iterations`` less the run of
     none, both under torch.profiler. Returns a dict: per iteration
-    ``kernels``, ``device_ms`` and ``top`` ([(operation, launches, device
-    ms)] for the five operations with the most device time); and of the
+    ``kernels``, ``device_ms``, ``ops`` ({operation: (launches, device
+    ms)}) and ``top`` ([(operation, launches, device ms)] for the five
+    operations with the most device time); and of the
     whole profiled run of ``iterations`` iterations ``run_device_ms`` and
     ``run_wall_ms``, whose ratio is the busy share under the profiler,
     which slows the host."""
@@ -352,6 +417,7 @@ def loop_window(run, iterations=10):
     top = sorted(ops.items(), key=lambda kv: -kv[1][1])[:5]
     return {
         "iterations": iterations,
+        "ops": ops,
         "kernels": sum(c for name, (c, _) in ops.items()
                        if not name.lower().startswith(("memcpy", "memset"))),
         "device_ms": sum(ms for _, ms in ops.values()),
@@ -399,9 +465,11 @@ def lane_inputs(torch, lanes, n, dtype, seed):
     return t(1.2 + rng.rand(lanes, 1)), bz, t(0.4 + rng.rand(lanes, 1)), bx
 
 
-def hold(torch, what, names, got, want, rtol):
-    """Check every stream of ``got`` against ``want``; returns (worst error
-    over tolerance, largest absolute error)."""
+def hold(torch, what, names, got, want, rtol, floor=0.0):
+    """Check every stream of ``got`` against ``want``, relative to each
+    element with a floor of rtol times the larger of the stream's largest
+    magnitude and ``floor``; returns (worst error over tolerance, largest
+    absolute error)."""
     worst, max_err = 0.0, 0.0
     check(len(got) == len(want) == len(names), f"{what}: {len(got)} outputs")
     for name, g, w in zip(names, got, want):
@@ -410,7 +478,7 @@ def hold(torch, what, names, got, want, rtol):
               f"{tuple(w.shape)} {w.dtype}")
         check(bool(torch.isfinite(g).all()), f"{what}: {name} not finite")
         err = (g - w).abs()
-        bound = rtol * (w.abs() + w.abs().max())
+        bound = rtol * (w.abs() + torch.clamp(w.abs().max(), min=floor))
         ratio = float((err / bound).max())
         check(ratio <= 1.0, f"{what}: {name} off its plain version by "
                             f"{ratio:.3g} x rtol {rtol:g}")
@@ -788,6 +856,11 @@ def sweep_window(ep, sweeps=10):
     return kernels / sweeps, device / sweeps, wall_ms / sweeps
 
 
+def worst_of(values):
+    "The largest of ``values``, NaN if one is NaN (Python's max drops it)."
+    return float(np.max(np.asarray(list(values), dtype=np.float64)))
+
+
 def rel_to_largest(torch, got, want):
     "max |got - want| over the largest |want|."
     return float((got - want).abs().max() / want.abs().max())
@@ -874,15 +947,16 @@ def stop_metric_floor(torch, solver, model, lanes, sweeps=60):
 
 
 def lanes_against_singles(torch, what, solver, student, likelihood, ys,
-                          post, n_iter):
-    """Three lanes of a batched solve against their single solves: r within
-    R_TOL of the largest |r|, n_iter within 2 (a GEMM and a GEMV sum in
-    different orders in float32)."""
+                          post, n_iter, ids=("x",)):
+    """Three lanes of a batched solve against their single solves: r of
+    every id within R_TOL of its largest |r|, n_iter within 2 (a GEMM and a
+    GEMV sum in different orders in float32)."""
     from tramp_tpu_torch.parallel import with_buffers
     for lane in (0, len(ys) // 2, len(ys) - 1):
         single = with_buffers(student, {(likelihood, "y"): ys[lane]})
         post_1, n_1 = solver.solve(single)
-        err = rel_to_largest(torch, post["x"]["r"][lane], post_1["x"]["r"])
+        err = worst_of(rel_to_largest(torch, post[id]["r"][lane],
+                                      post_1[id]["r"]) for id in ids)
         check(err < R_TOL and abs(int(n_iter[lane]) - int(n_1)) <= 2,
               f"{what}: lane {lane} is {err:.3g} of the largest |r| off its "
               f"single solve (bound {R_TOL}), n_iter {int(n_iter[lane])} vs "
@@ -1350,7 +1424,7 @@ def phase_9c_kernel_on_the_se_path(torch, tt, pl, student, linear, card):
     with RegionPathCounter(pl) as cpu_eager:
         cpu_se = tt.StateEvolution(cpu_student).iterate(max_iter=200)
     v, v_cpu = se_v(se, ids), se_v(cpu_se, ids)
-    err = max(abs(v[id] - v_cpu[id]) / v_cpu[id] for id in ids)
+    err = worst_of(abs(v[id] - v_cpu[id]) / v_cpu[id] for id in ids)
     check(se.n_iter == cpu_se.n_iter and err <= 1e-8
           and cpu_se.device.type == "cpu" and cpu_eager.calls > 0
           and read_launches(pl) == one,
@@ -1406,8 +1480,8 @@ def phase_9c_kernel_on_the_se_path(torch, tt, pl, student, linear, card):
     solver = SESolver(models[0], max_iter=200, tol=1e-6)
     for lane in (0, lanes // 2, lanes - 1):
         post, n_1 = solver.solve(models[lane])
-        err = max(abs(by_id[id][lane] - float(post[id]["v"]))
-                  / float(post[id]["v"]) for id in ids)
+        err = worst_of(abs(by_id[id][lane] - float(post[id]["v"]))
+                       / float(post[id]["v"]) for id in ids)
         check(err <= 1e-8 and int(n_1) == n_iter[lane],
               f"SE of the relu-channel grid: lane {lane} is {err:.3g} off "
               f"its single solve (rtol 1e-8), n_iter {n_iter[lane]} vs "
@@ -1846,9 +1920,9 @@ def phase_10d_sign_retrieval_and_relu(torch, tt, pl, card, N=4096):
 
 def phase_10e_card_against_cpu(torch, tt, pl):
     """The perceptron at N = 256 in float64 through EPSolver on the card
-    and on the CPU (the CPU's SVD carried to the card): equal n_iter, r to
-    rtol 1e-8; and two card solves with the same bits. Returns the launches
-    of the card's solves."""
+    and on the CPU (the CPU's SVD carried to the card): equal n_iter, r and
+    v to rtol 1e-8; and two card solves with the same bits. Returns the
+    launches of the card's solves."""
     from tramp_tpu_torch.parallel import EPSolver
     kw = dict(damping=0.1, max_iter=500, tol=1e-6)
     cpu_student, _, cpu_linear = perceptron_student(
@@ -1862,18 +1936,13 @@ def phase_10e_card_against_cpu(torch, tt, pl):
     posts = [solver.solve_info(gpu_student) for _ in range(2)]
     launches = read_launches(pl)
     (post, n_iter, _), (again, n_again, _) = posts
-    r_cpu, r_gpu = cpu_post["x"]["r"], post["x"]["r"].cpu()
-    r_err = float(((r_gpu - r_cpu).abs()
-                   / (r_cpu.abs() + r_cpu.abs().max())).max())
-    check(int(n_iter) == int(cpu_n) and r_err <= 1e-8,
-          f"perceptron N=256: card n_iter {int(n_iter)} vs CPU {int(cpu_n)}, "
-          f"r err/scale {r_err:.3g} (rtol 1e-8)")
+    card_against_cpu(torch, "perceptron N=256 f64 through EPSolver",
+                     cpu_post, cpu_n, post, n_iter, ("x",))
     check(all(torch.equal(post["x"][k], again["x"][k]) for k in ("r", "v"))
           and int(n_iter) == int(n_again),
           "perceptron N=256: two solves on the card differ")
-    print(f"perceptron N=256 f64 through EPSolver, card vs CPU: n_iter "
-          f"{int(n_iter)} both, r rel err {r_err:.3e} (rtol 1e-8); two card "
-          "solves bit-identical")
+    print("perceptron N=256 f64 through EPSolver: two card solves "
+          "bit-identical")
     check(not any(launches.values()), f"the perceptron ran kernels: "
                                       f"{launches}")
     return launches
@@ -1906,6 +1975,927 @@ def phase_10(torch, tt, pl, card):
           + "; critical lines by family " + ", ".join(
               f"{k} {v:.2f} s" for k, v in line_s.items()) + f" [{card}]")
     return paths
+
+
+# -- phase 11: the complex channels and the trees (Queue 1 items 4a, 4b) ----
+# BASELINE config 2's second half (bench.py:573-618) and its bounds
+# (bench.py:120-128)
+PR = dict(N=500, alpha=2.0, rho=0.5, mean=0.01, seed=5)
+PR_SOLVE = dict(damping=0.3, max_iter=500, tol=1e-12, wait_increase=20,
+                stop_kind="v")
+PR_V_F32 = 1e-9
+PR_MSE_REL = 5e-2
+PR_N_ITER_RATIO = 2.0
+PR_EP_N = 2000        # the EP side of phase 11c
+#: lanes of the phase-11 batches (cut to 256 if phase 11 passes 150 s)
+LANES_11 = 512
+# the soft committee of tests/test_models_misc.py:22-34 at N = 2000
+COMMITTEE = dict(K=2, alpha=1.5, ensemble_type="gaussian",
+                 prior_mean=[0.1, -0.2], prior_var=[1.0, 1.0],
+                 noise_var=1e-2)
+COMMITTEE_SOLVE = dict(damping=0.3, max_iter=200, tol=1e-6)
+# at alpha 1.5 EP does not converge in 200 sweeps and learns little (the
+# JAX package alike); at alpha 8, past the learning transition, it
+# converges with the damping raised to 0.5
+COMMITTEE_LEARNING = dict(COMMITTEE, alpha=8.0)
+COMMITTEE_LEARNING_SOLVE = dict(damping=0.5, max_iter=300, tol=1e-6)
+COMMITTEE_LEARNING_MSE = 5e-2
+COMMITTEE_N = 2000
+MULTI_LAYER_N = 4096  # tests/test_models_misc.py:152-173 at the relu net's N
+MODULUS_MID_N = 1000  # two-layer phase retrieval, M = 3 N
+# BASELINE config 4's protocol (bench.py:625-684) with the synthetic
+# decoder of tests/test_vae_prior.py:20-27
+VAE_SOLVE = dict(damping=0.5, max_iter=300, tol=1e-6,
+                 rollback_increase=float("inf"))
+VAE_NOISE = 0.01
+
+
+def on_card(torch, model):
+    """A copy of a model built on the CPU, on the card: the same arrays
+    (operators, their SVD factors, observations), moved, so that a solve
+    on the card and one on the CPU start from the same instance."""
+    import copy
+    model = copy.deepcopy(model)
+    for f in model.factors:
+        f.to("cuda")
+        if getattr(f, "device", None) is not None:
+            f.device = torch.device("cuda")
+    return model
+
+
+#: the floor of the scale a posterior is held at, card against CPU: a mean
+#: that is zero on both sides (a symmetric fixed point) is held in absolute
+#: terms on the unit scale of these models' variables; a variance, computed
+#: from unit-scale moments by cancellation, in absolute terms below 1e-6 of
+#: that scale (rtol 1e-8 x 1e-6 is 1e-14, some 50 float64 roundings of a
+#: unit second moment; EP near zero noise ends at v = 1e-11); any other key
+#: relative to itself
+CARD_FLOOR = {"r": 1.0, "v": 1e-6}
+
+
+def card_against_cpu(torch, what, cpu_post, cpu_n, gpu_post, gpu_n, ids,
+                     rtol=1e-8, keys=("r", "v")):
+    """Equal n_iter (unless ``cpu_n`` is None) and, element by element,
+    |card - CPU| <= rtol (|CPU| + max(max |CPU|, CARD_FLOOR)) for each
+    of ``keys`` of every id's posterior; a value that is not finite on
+    either side fails, and so does any error where the bound is 0. Prints
+    the worst error over its bound by key and the largest |CPU| by key and
+    id."""
+    worst, scale = {}, {}
+    for key in keys:
+        ratios = []
+        for id in ids:
+            want = torch.as_tensor(cpu_post[id][key]).double()
+            got = torch.as_tensor(gpu_post[id][key]).double().cpu()
+            check(got.shape == want.shape
+                  and bool(torch.isfinite(got).all())
+                  and bool(torch.isfinite(want).all()),
+                  f"{what}: {key} of {id} is {tuple(got.shape)} on the card, "
+                  f"{tuple(want.shape)} on the CPU, or not finite")
+            err = (got - want).abs()
+            top = float(want.abs().max()) if want.numel() else 0.0
+            bound = rtol * (want.abs() + max(top, CARD_FLOOR.get(key, 0.0)))
+            ratios.append(torch.where(err == 0, torch.zeros_like(err),
+                                      err / bound).max())
+            scale[key, id] = top
+        worst[key] = float(torch.stack(ratios).max())
+    same_n = cpu_n is None or int(gpu_n) == int(cpu_n)
+    check(same_n and all(math.isfinite(w) and w <= 1.0
+                         for w in worst.values()),
+          f"{what}: card n_iter {gpu_n} vs CPU {cpu_n}, err over its bound "
+          + ", ".join(f"{k} {w:.3g}" for k, w in worst.items())
+          + f" (rtol {rtol:g})")
+    print(f"{what}, card vs CPU: "
+          + (f"n_iter {int(gpu_n)} both, " if cpu_n is not None else "")
+          + "worst err over rtol x scale "
+          + ", ".join(f"{k} {w:.3e}" for k, w in worst.items())
+          + f" (rtol {rtol:g}, bound 1) for {', '.join(ids)}; largest on the "
+          "CPU " + ", ".join(f"|{k}| of {id} {top:.4g}"
+                             for (k, id), top in scale.items())
+          + " (floors " + ", ".join(f"{k} {CARD_FLOOR.get(k, 0.0):g}"
+                                    for k in keys) + ")")
+
+
+def hold_pl_factors(torch, pl, model, state, what):
+    """Every piecewise-linear channel of ``model`` at a solve's final
+    ``state``: its forward and backward posteriors read out through the
+    channel's own methods (the five-output kernel: the path's readout,
+    whose launches are returned), then, launches not counted, all three
+    kernels held against their plain versions on these inputs, the
+    shapes this path gives them (lanes included). Returns (readout
+    launches, {wrapper: max abs error})."""
+    from tramp_tpu_torch.algos.message_passing import slot, FWD, BWD
+    from tramp_tpu_torch.channels import PiecewiseLinearChannel
+    from tramp_tpu_torch.lanes import lane_mean
+    nodes = [(i, n) for i, n in enumerate(model.nodes)
+             if isinstance(n, PiecewiseLinearChannel)]
+    inputs_ = []
+    for i, node in nodes:
+        fwd = state[slot(model.in_edges[i][0], FWD)]
+        bwd = state[slot(model.out_edges[i][0], BWD)]
+        inputs_.append((fwd["a"], fwd["b"], bwd["a"], bwd["b"]))
+    torch.cuda.synchronize()
+    reset_launches(pl)
+    readouts = [(node.compute_forward_posterior(*args),
+                 node.compute_backward_posterior(*args))
+                for (_, node), args in zip(nodes, inputs_)]
+    torch.cuda.synchronize()
+    launches = read_launches(pl)
+    check(launches["pl_posterior"] == 2 * len(nodes)
+          and not launches["pl_forward_message"]
+          and not launches["pl_backward_message"],
+          f"{what}: readout launches {launches} for {len(nodes)} channels")
+    # a posterior stream can be zero by symmetry (the mean of x under
+    # |x|): its floor is rtol on the unit scale of these models' variables
+    err = dict.fromkeys(SOURCES, 0.0)
+    for (_, node), args, ((rx, vx), (rz, vz)) in zip(nodes, inputs_,
+                                                     readouts):
+        specs, rtol = node.region_specs, RTOL[dtype_name(rx.dtype)]
+        want = pl.pl_posterior_plain(*args, specs)
+        az, ax = args[0], args[2]
+        _, e = hold(torch, f"{what}: {node.name} posteriors",
+                    ("rz", "vz", "rx", "vx"), (rz, vz, rx, vx),
+                    (want[0], lane_mean(want[1], az, ax), want[2],
+                     lane_mean(want[3], az, ax)), rtol, floor=1.0)
+        err["pl_posterior"] = max(err["pl_posterior"], e)
+        # a_new = 1/v - a and b_new = r (a + a_new) - b cancel near a fixed
+        # point: each element is held at the magnitudes of the two terms
+        # its subtraction takes, |a| + |a + a_new| and |b| + |b + b_new|
+        for name, fused, plain, (a, b) in (
+                ("pl_forward_message", node.compute_forward_message,
+                 pl.pl_forward_message_plain, args[2:]),
+                ("pl_backward_message", node.compute_backward_message,
+                 pl.pl_backward_message_plain, args[:2])):
+            got, want = fused(*args), plain(*args, specs)
+            line = f"{what}: {node.name} {name}"
+            for stream, g, w, term in (("a_new", got[0], want[0], a),
+                                       ("b_new", got[1], want[1], b)):
+                ratio, e = hold_message(torch, f"{line} {stream}", g, w,
+                                        term, rtol)
+                err[name] = max(err[name], e)
+                line += (f"; {stream} err over rtol x (|{stream[0]}| + "
+                         f"|{stream[0]} + {stream}|) {ratio:.3e}, max abs "
+                         f"err {e:.3e}, max |{stream[0]}| "
+                         f"{float(term.abs().max()):.4g}, |{stream}| median "
+                         f"{float(w.abs().median()):.4g} max "
+                         f"{float(w.abs().max()):.4g}")
+            print(line + f" (rtol {rtol:g})")
+    print(f"{what}: {len(nodes)} piecewise-linear channels at the final "
+          f"state ({', '.join(n.name for _, n in nodes)}, messages of "
+          f"{', '.join(str(tuple(a[1].shape)) for a in inputs_)}): "
+          f"posteriors read out in {launches['pl_posterior']} launches; "
+          "all three kernels against their plain versions, max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in err.items()))
+    return launches, err
+
+
+def hold_message(torch, what, got, want, term, rtol):
+    """One stream of a message kernel (a_new or b_new) against its plain
+    version, each element within rtol (|term| + |term + want|), the two
+    terms of the subtraction that gives it (``term`` is the side's a or
+    b); an error where that bound is 0 fails. Returns (worst error over
+    its bound, largest absolute error)."""
+    check(got.shape == want.shape and got.dtype == want.dtype
+          and bool(torch.isfinite(got).all()),
+          f"{what}: {tuple(got.shape)} {got.dtype} against the plain "
+          f"{tuple(want.shape)} {want.dtype}, or not finite")
+    err = (got - want).abs()
+    bound = rtol * (term.abs() + (term + want).abs())
+    ratio = float(torch.where(err == 0, torch.zeros_like(err),
+                              err / bound).max())
+    check(math.isfinite(ratio) and ratio <= 1.0,
+          f"{what}: off its plain version by {ratio:.3g} x rtol {rtol:g} "
+          "of the terms it subtracts")
+    return ratio, float(err.max())
+
+
+def solve_state(solver, model, initializer=None):
+    """An EPSolver's solve with its final state: (post, n_iter, conv,
+    state)."""
+    post, state, n_iter, conv = solver._run(model,
+                                            solver.init_state(initializer))
+    return post, n_iter, conv, state
+
+
+def top_ops(window, names=("i0e", "i1e")):
+    """The device time per iteration of the operations whose names hold one
+    of ``names``, from a loop_window, and its share."""
+    ms = sum(t for op, (c, t) in window["ops"].items()
+             if any(n in op.lower() for n in names))
+    return ms, ms / window["device_ms"]
+
+
+def pr_student(torch, tt, dtype, N=PR["N"], device="cuda"):
+    """Phase retrieval of bench.py:573-618: complex Gaussian F (numpy
+    RandomState), Gauss-Bernoulli x packed (2, N), y = |F x|. Returns
+    (student, teacher x as numpy)."""
+    from tramp_tpu_torch.channels import ComplexLinearChannel
+    from tramp_tpu_torch.likelihoods import ModulusLikelihood
+    from tramp_tpu_torch.priors import GaussBernoulliPrior
+    M = int(PR["alpha"] * N)
+    rng = np.random.RandomState(PR["seed"])
+    F = (rng.randn(M, N) + 1j * rng.randn(M, N)) / np.sqrt(2 * N)
+    mask = rng.rand(N) < PR["rho"]
+    x0 = mask[None, :] * (PR["mean"] + rng.randn(2, N) * np.sqrt(0.5))
+    y = np.abs(F @ (x0[0] + 1j * x0[1]))
+    kw = dict(device=device, dtype=dtype)
+    student = (
+        GaussBernoulliPrior(size=(2, N), rho=PR["rho"], mean=PR["mean"], **kw)
+        @ tt.V(id="x") @ ComplexLinearChannel(F, name="F", **kw)
+        @ tt.V(id="z") @ ModulusLikelihood(y=y, **kw)).to_model()
+    return student, x0
+
+
+def pr_batch(torch, W, lanes, seed):
+    """One teacher and observation per lane, drawn on the card: x packed
+    (lanes, 2, N) Gauss-Bernoulli(rho, mean), y = |F x|."""
+    g = torch.Generator(device=W.device).manual_seed(seed)
+    real = W.real.dtype
+    kw = dict(generator=g, device=W.device, dtype=real)
+    N = W.shape[1]
+    mask = torch.rand((lanes, 1, N), **kw) < PR["rho"]
+    x = mask * (PR["mean"] + torch.randn((lanes, 2, N), **kw) * 0.5 ** 0.5)
+    return x, torch.abs(torch.complex(x[:, 0], x[:, 1]) @ W.T)
+
+
+def phase_11a_phase_retrieval(torch, tt, pl, card):
+    """BASELINE config 2's second half through EPSolver in float32 and
+    float64, with bench.py's bounds; a profiled loop window; the same
+    instance at N = 128 on the card against the CPU. Returns the launches
+    of the path and the float32 student."""
+    from tramp_tpu_torch.algos.metrics import phase_symmetric_mse
+    from tramp_tpu_torch.parallel import EPSolver
+    reset_launches(pl)
+    res, students = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        dname = dtype_name(dtype)
+        student, x0 = students[dname] = pr_student(torch, tt, dtype)
+        solver = EPSolver(student, **PR_SOLVE)
+        solver.solve(student)                               # warm-up
+        out = {}
+        wall = timed_solve(torch, lambda: out.update(
+            res=solver.solve_info(student)))
+        post, n_iter, conv = out["res"]
+        r = post["x"]["r"].double().cpu()
+        check(bool(torch.isfinite(r).all()) and r.shape == x0.shape,
+              f"phase retrieval {dname}: r not finite or of shape "
+              f"{tuple(r.shape)}")
+        mse = phase_symmetric_mse(torch.as_tensor(x0), r)
+        res[dname] = (mse, float(post["x"]["v"]), int(n_iter), bool(conv))
+        print(f"phase retrieval N={PR['N']} alpha=2 {dname} through EPSolver "
+              f"(damping 0.3, stop on v, tol 1e-12): n_iter={int(n_iter)} "
+              f"conv={bool(conv)} phase-symmetric mse={mse:.6g} "
+              f"v={res[dname][1]:.6g} wall={wall:.3f} s "
+              f"iterations/s={int(n_iter) / wall:.1f} [{card}]")
+    launches = read_launches(pl)
+    (mse32, v32, n32, c32), (mse64, v64, n64, c64) = (res["float32"],
+                                                      res["float64"])
+    mse_rel = abs(mse32 - mse64) / mse64
+    check(c32 and c64 and v32 <= PR_V_F32 and mse_rel < PR_MSE_REL
+          and n32 <= PR_N_ITER_RATIO * n64,
+          f"phase retrieval: conv {c32}/{c64}, v f32 {v32:.3g} (bound "
+          f"{PR_V_F32}), mse f32 vs f64 {mse_rel:.3g} (bound {PR_MSE_REL}), "
+          f"n_iter {n32} vs {n64} (ratio bound {PR_N_ITER_RATIO})")
+    print(f"phase retrieval, bench.py:120-128 bounds: converged in both "
+          f"dtypes, v f32 {v32:.3e} <= {PR_V_F32}, mse f32 vs f64 rel err "
+          f"{mse_rel:.3e} < {PR_MSE_REL}, n_iter f32/f64 {n32}/{n64} <= "
+          f"{PR_N_ITER_RATIO}x")
+    check(not any(launches.values()),
+          f"phase retrieval ran kernels: {launches}")
+    student = students["float32"][0]
+    print_window("phase retrieval float32, one instance, EPSolver",
+                 loop_window(lambda k: EPSolver(
+                     student, **dict(PR_SOLVE, max_iter=k, tol=0.0,
+                                     rollback_increase=float("inf"))).solve(
+                         student)), card)
+    # the same instance at N = 128 on the CPU and on the card
+    cpu, _ = pr_student(torch, tt, torch.float64, N=128, device="cpu")
+    gpu = on_card(torch, cpu)
+    cpu_post, cpu_n, _ = EPSolver(cpu, **PR_SOLVE).solve_info(cpu)
+    gpu_post, gpu_n, _ = EPSolver(gpu, **PR_SOLVE).solve_info(gpu)
+    card_against_cpu(torch, "phase retrieval N=128 f64 through EPSolver",
+                     cpu_post, cpu_n, gpu_post, gpu_n, ("x", "z"))
+    return launches, student
+
+
+def phase_11b_phase_retrieval_batch(torch, tt, pl, student, lanes, card):
+    """LANES_11 lanes of phase retrieval on one F, float32, a teacher and y
+    per lane; three lanes against their single solves; readings with the
+    modulus likelihood's share of the device time. Returns the launches."""
+    from tramp_tpu_torch.algos.metrics import phase_symmetric_mse
+    from tramp_tpu_torch.parallel import EPSolver, with_buffers
+    W = student.factors[1].W
+    xs, ys = pr_batch(torch, W, lanes, seed=8)
+    stacked = with_buffers(student, {(2, "y"): ys})
+    solver = EPSolver(student, **PR_SOLVE)
+    what = f"phase retrieval float32, EPSolver.solve_batch over {lanes} lanes"
+    w = print_window(what, loop_window(lambda k: EPSolver(
+        student, **dict(PR_SOLVE, max_iter=k, tol=0.0,
+                        rollback_increase=float("inf"))).solve_batch(
+                            stacked)), card)
+    ms, share = top_ops(w)
+    print(f"{what}: the modulus likelihood's Bessel kernels (i0e, i1e) "
+          f"{ms:.4f} ms per iteration, {100 * share:.2f}% of the device time")
+    post, n_iter, conv, launches = batched_solve(
+        torch, pl, what, lambda: _ep_batch(solver, stacked), lanes, card, w)
+    mses = [phase_symmetric_mse(xs[i].double().cpu(),
+                                post["x"]["r"][i].double().cpu())
+            for i in (0, lanes // 2, lanes - 1)]
+    print(f"{what}: {int(conv.sum())} of {lanes} lanes converged; "
+          f"phase-symmetric mse of lanes 0, {lanes // 2}, {lanes - 1}: "
+          + ", ".join(f"{m:.4g}" for m in mses))
+    lanes_against_singles(torch, what, solver, student, 2, ys, post, n_iter)
+    check(not any(launches.values()), f"{what}: ran kernels {launches}")
+    return launches
+
+
+def phase_11c_ep_against_se(torch, tt, pl, card):
+    """EP on glm_generative(output_type="modulus") at N = PR_EP_N in
+    float64 at the PR_EP_VS_SE_ROWS alphas, against the pinned SE values
+    (which phase 10a holds on the card): |v_EP - v_SE| / v_SE < 0.25. Then
+    the modulus channel inside a graph (two-layer phase retrieval of
+    tests/test_modulus_channel.py:125-157 at N = MODULUS_MID_N): a solve, a
+    profiled sweep window and the channel's share of it. Returns the
+    launches."""
+    from tramp_tpu_torch.channels import (
+        ComplexLinearChannel, GaussianChannel, ModulusChannel)
+    from tramp_tpu_torch.parallel import EPSolver
+    from tramp_tpu_torch.priors import GaussianPrior
+    reset_launches(pl)
+    for alpha, v_se in PR_EP_VS_SE_ROWS:
+        g = torch.Generator(device="cuda").manual_seed(13)
+        teacher = tt.glm_generative(
+            N=PR_EP_N, alpha=alpha, ensemble_type="complex_gaussian",
+            prior_type="gauss_bernoulli", output_type="modulus",
+            generator=g, device="cuda", dtype=torch.float64, prior_rho=0.5,
+            prior_mean=0.01)
+        student = teacher.to_observed({"y": teacher.sample(g)["y"]})
+        out = {}
+        wall = timed_solve(torch, lambda: out.update(res=EPSolver(
+            student, damping=0.3, max_iter=200, tol=1e-6,
+            wait_increase=10).solve_info(student)))
+        post, n_iter, conv = out["res"]
+        check(bool(torch.isfinite(post["x"]["r"]).all()),
+              f"PR EP alpha={alpha}: r not finite")
+        v_ep = float(post["x"]["v"])
+        gap = abs(v_ep - v_se) / v_se
+        check(gap < EP_SE_BAND, f"PR EP vs SE alpha={alpha}: |v_EP - v_SE| "
+                                f"/ v_SE = {gap:.3g} (band {EP_SE_BAND})")
+        print(f"EP against SE, phase retrieval N={PR_EP_N} alpha={alpha} "
+              f"float64 through glm_generative: v_SE={v_se:.6g} "
+              f"v_EP={v_ep:.6g} |v_EP-v_SE|/v_SE={gap:.3e} (band "
+              f"{EP_SE_BAND}), n_iter={int(n_iter)} conv={bool(conv)} "
+              f"wall={wall:.3f} s [{card}]")
+    # the modulus channel inside a graph: its radial quadrature on the card
+    N, M = MODULUS_MID_N, 3 * MODULUS_MID_N
+    g = torch.Generator(device="cuda").manual_seed(2)
+    kw = dict(device="cuda", dtype=torch.float64)
+    W = torch.complex(torch.randn((M, N), generator=g, **kw),
+                      torch.randn((M, N), generator=g, **kw)) / (2 * N) ** 0.5
+    modulus = ModulusChannel()
+    teacher = (GaussianPrior(size=(2, N), mean=0.3, **kw) @ tt.V(id="x")
+               @ ComplexLinearChannel(W, name="W") @ tt.V(id="z")
+               @ modulus @ tt.V(id="a") @ GaussianChannel(var=1e-4)
+               @ tt.O(id="y")).to_model()
+    sample = teacher.sample(g)
+    student = teacher.to_observed({"y": sample["y"]})
+    ep = tt.ExpectationPropagation(student)
+    wall = timed_solve(torch, lambda: ep.iterate(max_iter=200, damping=0.3))
+    from tramp_tpu_torch.algos.metrics import phase_symmetric_mse
+    mse = phase_symmetric_mse(sample["x"].cpu(),
+                              ep.get_variable_data("x")["r"].cpu())
+    tau = float((sample["x"] ** 2).mean())
+    check(np.isfinite(mse) and mse < 0.5 * tau,
+          f"two-layer phase retrieval: phase-symmetric mse {mse:.3g}, "
+          f"signal power {tau:.3g}")
+    n = ep.n_iter
+    kernels, device, wall_ms = sweep_window(ep)
+    from tramp_tpu_torch.algos.message_passing import slot, FWD, BWD
+    i = next(i for i, n in enumerate(ep.nodes) if n is modulus)
+    args = (ep.state[slot(ep.model.in_edges[i][0], FWD)]["a"],
+            ep.state[slot(ep.model.in_edges[i][0], FWD)]["b"],
+            ep.state[slot(ep.model.out_edges[i][0], BWD)]["a"],
+            ep.state[slot(ep.model.out_edges[i][0], BWD)]["b"])
+    _, quad_ms, _ = profiled(
+        lambda: (modulus.compute_forward_message(*args),
+                 modulus.compute_backward_message(*args)), 5)
+    print(f"two-layer phase retrieval N={N} M={M} float64 (modulus channel "
+          f"mid-graph, radial quadrature of 128 nodes per element): "
+          f"n_iter={n} phase-symmetric mse={mse:.4g} (signal power "
+          f"{tau:.4g}) wall={wall:.3f} s; torch.profiler over 10 warm "
+          f"sweeps: {kernels:.1f} kernels per sweep, device {device:.4f} ms "
+          f"of {wall_ms:.4f} ms per sweep; the modulus channel's two "
+          f"messages {quad_ms:.4f} ms of device time, "
+          f"{100 * quad_ms / device:.1f}% of the sweep's [{card}]")
+    launches = read_launches(pl)
+    check(not any(launches.values()), f"phase retrieval EP ran kernels: "
+                                      f"{launches}")
+    return launches
+
+
+def committee_student(torch, tt, N, dtype, device, seed, config=COMMITTEE):
+    """The soft committee (``config``) at N: (student, teacher sample,
+    teacher, generator)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    teacher = tt.models.soft_committee(N=N, generator=g, device=device,
+                                       dtype=dtype, **config)
+    sample = teacher.sample(g)
+    return teacher.to_observed({"y": sample["y"]}), sample, teacher, g
+
+
+def phase_11d_committee(torch, tt, pl, lanes, card):
+    """The soft committee through dispatch_solver (an EPSolver) at
+    N = COMMITTEE_N in float32: the relu kernels once forward and once
+    backward per expert per sweep; its piecewise-linear factors read out
+    and held against the plain versions; N = 256 float64 on the card
+    against the CPU; then ``lanes`` lanes, one y per lane; then the same
+    past the learning transition (committee_learning). Returns (launches
+    of the path, max abs errors, the N = 256 float64 CPU student for phase
+    11g)."""
+    from tramp_tpu_torch.parallel import (
+        EPSolver, dispatch_solver, with_buffers)
+    K = COMMITTEE["K"]
+    student, sample, teacher, g = committee_student(
+        torch, tt, COMMITTEE_N, torch.float32, "cuda", 3)
+    solver = dispatch_solver(student, **COMMITTEE_SOLVE)
+    check(type(solver) is EPSolver,
+          f"committee: dispatch_solver gave {type(solver).__name__}")
+    solver.solve(student)                                   # warm-up
+    torch.cuda.synchronize()
+    reset_launches(pl)
+    out = {}
+    wall = timed_solve(torch, lambda: out.update(
+        res=solve_state(solver, student)))
+    launches = read_launches(pl)
+    post, n_iter, conv, state = out["res"]
+    n = int(n_iter)
+    check(launches["pl_forward_message"] == launches["pl_backward_message"]
+          == K * n > 0 and launches["pl_posterior"] == 0,
+          f"committee: launches {launches} for {n} sweeps of {K} experts")
+    for k in range(K):
+        d = post[f"x_{k}"]
+        v = float(d["v"])
+        check(bool(torch.isfinite(d["r"]).all()) and 0 < v < 1.5,
+              f"committee x_{k}: v={v:.4g} or r not finite")
+    mses = [float(((post[f"x_{k}"]["r"] - sample[f"x_{k}"]) ** 2).mean())
+            for k in range(K)]
+    print(f"soft committee K={K} N={COMMITTEE_N} alpha=1.5 float32 through "
+          f"dispatch_solver (EPSolver): n_iter={n} conv={bool(conv)} "
+          f"v={[round(float(post[f'x_{k}']['v']), 6) for k in range(K)]} "
+          f"mse={[round(m, 6) for m in mses]} wall={wall:.3f} s "
+          f"sweeps/s={n / wall:.1f}; launches {launches}: "
+          f"{launches['pl_forward_message'] / n:g} forward and "
+          f"{launches['pl_backward_message'] / n:g} backward relu messages "
+          f"per sweep ({K} experts) [{card}]")
+    readout, err = hold_pl_factors(torch, pl, student, state,
+                                   "committee float32")
+    print_window("soft committee float32, one instance, EPSolver",
+                 loop_window(lambda k: EPSolver(
+                     student, damping=0.3, max_iter=k, tol=0.0,
+                     rollback_increase=float("inf")).solve(student)), card)
+    # N = 256 float64, card against CPU
+    cpu = committee_student(torch, tt, 256, torch.float64, "cpu", 4)[0]
+    gpu = on_card(torch, cpu)
+    cpu_post, cpu_n, _ = EPSolver(cpu, **COMMITTEE_SOLVE).solve_info(cpu)
+    gpu_post, gpu_n, _ = EPSolver(gpu, **COMMITTEE_SOLVE).solve_info(gpu)
+    card_against_cpu(torch, "soft committee N=256 f64 through EPSolver",
+                     cpu_post, cpu_n, gpu_post, gpu_n, ("x_0", "x_1", "a_0"))
+    # lanes: the teacher's F, a teacher x and y per lane
+    ys = torch.stack([teacher.sample(g)["y"] for _ in range(lanes)])
+    likelihood = len(student.factors) - 1
+    stacked = with_buffers(student, {(likelihood, "y"): ys})
+    what = f"soft committee float32, EPSolver.solve_batch over {lanes} lanes"
+    w = print_window(what, loop_window(lambda k: EPSolver(
+        student, damping=0.3, max_iter=k, tol=0.0,
+        rollback_increase=float("inf")).solve_batch(stacked)), card)
+    post, n_iter, conv, batch = batched_solve(
+        torch, pl, what, lambda: _ep_batch(solver, stacked), lanes, card, w)
+    check(batch["pl_forward_message"] == batch["pl_backward_message"]
+          == K * int(n_iter.max()),
+          f"{what}: launches {batch} for {int(n_iter.max())} iterations")
+    lanes_against_singles(torch, what, solver, student, likelihood, ys,
+                          post, n_iter, ids=[f"x_{k}" for k in range(K)])
+    learning = committee_learning(torch, tt, pl, lanes, card)
+    total = {k: launches[k] + readout[k] + batch[k] + learning[k]
+             for k in launches}
+    return total, err, cpu
+
+
+def committee_learning(torch, tt, pl, lanes, card):
+    """The soft committee past its learning transition (COMMITTEE_LEARNING,
+    N = COMMITTEE_N, float32) through dispatch_solver: each expert's MSE
+    under COMMITTEE_LEARNING_MSE, the relu kernels once forward and once
+    backward per expert per sweep; then ``lanes`` lanes, one y per lane,
+    as readings of a solve that converges. Returns the launches."""
+    from tramp_tpu_torch.parallel import (
+        EPSolver, dispatch_solver, with_buffers)
+    K = COMMITTEE["K"]
+    student, sample, teacher, g = committee_student(
+        torch, tt, COMMITTEE_N, torch.float32, "cuda", 3, COMMITTEE_LEARNING)
+    solver = dispatch_solver(student, **COMMITTEE_LEARNING_SOLVE)
+    EPSolver(student, **dict(COMMITTEE_LEARNING_SOLVE,
+                             max_iter=3)).solve(student)       # warm-up
+    reset_launches(pl)
+    out = {}
+    wall = timed_solve(torch, lambda: out.update(
+        res=solver.solve_info(student)))
+    launches = read_launches(pl)
+    post, n_iter, conv = out["res"]
+    n = int(n_iter)
+    v = [float(post[f"x_{k}"]["v"]) for k in range(K)]
+    mses = [float(((post[f"x_{k}"]["r"] - sample[f"x_{k}"]) ** 2).mean())
+            for k in range(K)]
+    what = (f"soft committee K={K} N={COMMITTEE_N} alpha="
+            f"{COMMITTEE_LEARNING['alpha']:g} float32")
+    check(all(bool(torch.isfinite(post[f"x_{k}"]["r"]).all())
+              for k in range(K)) and max(mses) < COMMITTEE_LEARNING_MSE
+          and launches["pl_forward_message"]
+          == launches["pl_backward_message"] == K * n > 0,
+          f"{what}: mse {mses} (bound {COMMITTEE_LEARNING_MSE}), launches "
+          f"{launches} for {n} sweeps")
+    print(f"{what} through dispatch_solver ({type(solver).__name__}): "
+          f"n_iter={n} conv={bool(conv)} v={[round(x, 6) for x in v]} "
+          f"mse={[round(m, 6) for m in mses]} (bound "
+          f"{COMMITTEE_LEARNING_MSE}) wall={wall:.3f} s sweeps/s="
+          f"{n / wall:.1f}; launches {launches} [{card}]")
+    ys = torch.stack([teacher.sample(g)["y"] for _ in range(lanes)])
+    likelihood = len(student.factors) - 1
+    stacked = with_buffers(student, {(likelihood, "y"): ys})
+    what += f", EPSolver.solve_batch over {lanes} lanes"
+    w = print_window(what, loop_window(lambda k: EPSolver(
+        student, **dict(COMMITTEE_LEARNING_SOLVE, max_iter=k, tol=0.0,
+                        rollback_increase=float("inf"))).solve_batch(
+            stacked)), card)
+    _, n_iter, _, batch = batched_solve(
+        torch, pl, what, lambda: _ep_batch(solver, stacked), lanes, card, w,
+        warm_up=False)
+    check(batch["pl_forward_message"] == batch["pl_backward_message"]
+          == K * int(n_iter.max()),
+          f"{what}: launches {batch} for {int(n_iter.max())} iterations")
+    return {k: launches[k] + batch[k] for k in launches}
+
+
+def phase_11e_multi_layer(torch, tt, pl, card):
+    """MultiLayerModel([GaussBernoulliPrior(rho=0.5), AbsChannel(),
+    GaussianChannel(var=1e-2)]) at N = MULTI_LAYER_N in float32 through the
+    engine (tests/test_models_misc.py:152-173): MSE of t_1 under 5e-2, one
+    abs message of each side per sweep. Returns (launches, max abs
+    errors)."""
+    from tramp_tpu_torch.channels import AbsChannel, GaussianChannel
+    from tramp_tpu_torch.models import MultiLayerModel
+    from tramp_tpu_torch.priors import GaussBernoulliPrior
+    N = MULTI_LAYER_N
+    model = MultiLayerModel(
+        [GaussBernoulliPrior(size=N, rho=0.5, device="cuda",
+                             dtype=torch.float32),
+         AbsChannel(), GaussianChannel(var=1e-2)])
+    check(model.ids == ["x", "t_1", "y"], f"multi-layer ids {model.ids}")
+    sample = model.sample(torch.Generator(device="cuda").manual_seed(0))
+    student = model.to_observed({"y": sample["y"]})
+    ep = tt.ExpectationPropagation(student)
+    ep.iterate(max_iter=100, damping=0.3)                  # warm-up
+    torch.cuda.synchronize()
+    reset_launches(pl)
+    wall = timed_solve(torch, lambda: ep.iterate(max_iter=100, damping=0.3))
+    launches = read_launches(pl)
+    n = ep.n_iter
+    check(launches["pl_forward_message"] == launches["pl_backward_message"]
+          == n > 0 and launches["pl_posterior"] == 0,
+          f"multi-layer: launches {launches} for {n} sweeps")
+    r_t = ep.get_variable_data("t_1")["r"]
+    mse_t = float(((r_t - sample["t_1"]) ** 2).mean())
+    check(mse_t < 5e-2, f"multi-layer: mse of t_1 {mse_t:.3g} (bound 5e-2)")
+    kernels, device, wall_ms = sweep_window(ep)
+    print(f"multi-layer model x -> abs -> + noise -> y, N={N} float32 "
+          f"through the engine: n_iter={n} mse(t_1)={mse_t:.6g} "
+          f"(bound 5e-2) wall={wall:.3f} s sweeps/s={n / wall:.1f}, "
+          f"launches {launches}; torch.profiler over 10 warm sweeps: "
+          f"{kernels:.1f} kernels per sweep, device {device:.4f} ms of "
+          f"{wall_ms:.4f} ms per sweep, busy {100 * device / wall_ms:.2f}% "
+          f"[{card}]")
+    readout, err = hold_pl_factors(torch, pl, student, ep.state,
+                                   "multi-layer float32")
+    return {k: launches[k] + readout[k] for k in launches}, err
+
+
+def vae_student(torch, tt, dtype, device):
+    """BASELINE config 4 (bench.py:625-684) with the synthetic decoder of
+    tests/test_vae_prior.py:20-27: the teacher computed in numpy float64
+    (RandomState(7)), the 25% middle band erased, observed through an
+    identity-row operator with noise 0.01. Returns (student, x0, band)."""
+    from tramp_tpu_torch.channels import LinearChannel
+    from tramp_tpu_torch.likelihoods import GaussianLikelihood
+    from tramp_tpu_torch.models import vae_prior_block
+    rng = np.random.RandomState(0)
+    weights = [rng.randn(400, 20) / np.sqrt(20),
+               rng.randn(784, 400) / np.sqrt(400)]
+    biases = [rng.randn(400) * 0.01, rng.randn(784) * 0.01]
+    W1, W2 = weights
+    b1, b2 = biases
+    rng = np.random.RandomState(7)
+    z0 = rng.randn(20)
+    x0 = np.clip(W2 @ np.maximum(W1 @ z0 + b1, 0.0) + b2, -1.0, 1.0)
+    y_full = x0 + np.sqrt(VAE_NOISE) * rng.randn(784)
+    band = np.zeros(784, bool)
+    n_rem = int(0.25 * 784)
+    band[392 - n_rem // 2: 392 - n_rem // 2 + n_rem] = True
+    kw = dict(device=device, dtype=dtype)
+    student = (vae_prior_block(weights, biases, **kw) @ tt.V(id="x")
+               @ LinearChannel(np.eye(784)[~band], name="F", **kw)
+               @ tt.V(id="z")
+               @ GaussianLikelihood(y=y_full[~band], var=VAE_NOISE, **kw)
+               ).to_model()
+    return student, x0, band
+
+
+def phase_11f_vae(torch, tt, pl, card):
+    """The VAE prior's inpainting through EPSolver from NoisyInit(seed=3),
+    float32 and float64, 300 sweeps: the band MSE beside the fill-zero
+    MSE, 2 forward and 2 backward piecewise-linear messages per sweep;
+    then a 30-sweep float64 snapshot on the card against the CPU (EP on
+    this model has no fixed point). Returns (launches, max abs errors)."""
+    from tramp_tpu_torch.algos import NoisyInit
+    from tramp_tpu_torch.parallel import EPSolver
+    total, err = None, None
+    for dtype in (torch.float32, torch.float64):
+        dname = dtype_name(dtype)
+        student, x0, band = vae_student(torch, tt, dtype, "cuda")
+        solver = EPSolver(student, **VAE_SOLVE)
+        solver.solve(student, initializer=NoisyInit(seed=3))   # warm-up
+        torch.cuda.synchronize()
+        reset_launches(pl)
+        out = {}
+        wall = timed_solve(torch, lambda: out.update(res=solve_state(
+            solver, student, NoisyInit(seed=3))))
+        launches = read_launches(pl)
+        post, n_iter, conv, state = out["res"]
+        n = int(n_iter)
+        check(launches["pl_forward_message"] == launches["pl_backward_message"]
+              == 2 * n > 0 and launches["pl_posterior"] == 0,
+              f"VAE {dname}: launches {launches} for {n} sweeps")
+        r = post["x"]["r"].double().cpu().numpy()
+        check(np.isfinite(r).all(), f"VAE {dname}: r not finite")
+        mse_band = min(float(np.mean((r[band] - x0[band]) ** 2)),
+                       float(np.mean((r[band] + x0[band]) ** 2)))
+        mse_trivial = float(np.mean(x0[band] ** 2))
+        print(f"VAE prior inpainting (synthetic 20-400-784 decoder, 25% "
+              f"band erased) {dname} through EPSolver from NoisyInit(3): "
+              f"n_iter={n} conv={bool(conv)} band mse={mse_band:.6g} beside "
+              f"fill-zero {mse_trivial:.6g} (ratio "
+              f"{mse_band / mse_trivial:.4f}) wall={wall:.3f} s "
+              f"sweeps/s={n / wall:.1f}; launches {launches}: "
+              f"{launches['pl_forward_message'] / n:g} forward and "
+              f"{launches['pl_backward_message'] / n:g} backward messages "
+              f"per sweep [{card}]")
+        if total is None:
+            readout, err = hold_pl_factors(torch, pl, student, state,
+                                           f"VAE prior {dname}")
+            total = {k: launches[k] + readout[k] for k in launches}
+            print_window(f"VAE prior {dname}, one instance, EPSolver",
+                         loop_window(lambda k: EPSolver(
+                             student, **dict(VAE_SOLVE, max_iter=k)).solve(
+                                 student, initializer=NoisyInit(seed=3))),
+                         card)
+    cpu, _, _ = vae_student(torch, tt, torch.float64, "cpu")
+    gpu = on_card(torch, cpu)
+    snap = dict(VAE_SOLVE, max_iter=30)
+    cpu_post, cpu_n = EPSolver(cpu, **snap).solve(
+        cpu, initializer=NoisyInit(seed=3))
+    gpu_post, gpu_n = EPSolver(gpu, **snap).solve(
+        gpu, initializer=NoisyInit(seed=3))
+    card_against_cpu(torch, "VAE prior, 30-sweep snapshot, f64",
+                     cpu_post, cpu_n, gpu_post, gpu_n,
+                     ("x", "z_0", "z_1", "z_2"))
+    return total, err
+
+
+def phase_11g_se_of_trees(torch, tt, pl, cpu_committee, card):
+    """StateEvolution of the soft committee (the N = 256 float64 student of
+    11d, whose linear channels' spectra are the instance's) on the card
+    against the CPU: equal n_iter, every variable's v to rtol 1e-10.
+    Returns the launches of the card's solve."""
+    gpu = on_card(torch, cpu_committee)
+    cpu_se = tt.StateEvolution(cpu_committee, device="cpu").iterate(
+        max_iter=200)
+    reset_launches(pl)
+    out = {}
+    wall = timed_solve(torch, lambda: out.update(
+        se=tt.StateEvolution(gpu).iterate(max_iter=200)))
+    launches = read_launches(pl)
+    se = out["se"]
+    cpu_v = cpu_se.get_variables_data()
+    card_against_cpu(torch, "SE of the soft committee N=256 float64",
+                     cpu_v, cpu_se.n_iter,
+                     {id: se.get_variable_data(id) for id in cpu_v},
+                     se.n_iter, tuple(cpu_v), rtol=1e-10, keys=("v",))
+    print(f"SE of the soft committee N=256 float64 on the card: wall "
+          f"{wall:.3f} s, launches {launches} [{card}]")
+    return launches
+
+
+def phase_11(torch, tt, pl, card):
+    """Phase 11: the complex channels and the trees. Returns (launches by
+    path, {path: max abs error by kernel at the path's final state})."""
+    t0 = time.perf_counter()
+    lanes = LANES_11
+    paths, seconds, err = {}, {}, {}
+
+    def lap(part):
+        seconds[part] = time.perf_counter() - t0 - sum(seconds.values())
+
+    paths["phase_retrieval_ep"], pr = phase_11a_phase_retrieval(
+        torch, tt, pl, card)
+    lap("a")
+    paths["phase_retrieval_batch"] = phase_11b_phase_retrieval_batch(
+        torch, tt, pl, pr, lanes, card)
+    lap("b")
+    paths["phase_retrieval_ep_vs_se"] = phase_11c_ep_against_se(
+        torch, tt, pl, card)
+    lap("c")
+    if time.perf_counter() - t0 > 150 and lanes > 256:
+        lanes = 256
+        print("phase 11 passed 150 s before 11d: the committee's batch is "
+              "cut to 256 lanes")
+    paths["committee_ep"], err["committee_ep"], cpu_committee = \
+        phase_11d_committee(torch, tt, pl, lanes, card)
+    lap("d")
+    paths["multi_layer_ep"], err["multi_layer_ep"] = phase_11e_multi_layer(
+        torch, tt, pl, card)
+    lap("e")
+    paths["vae_prior_ep"], err["vae_prior_ep"] = phase_11f_vae(
+        torch, tt, pl, card)
+    lap("f")
+    paths["se_committee"] = phase_11g_se_of_trees(torch, tt, pl,
+                                                  cpu_committee, card)
+    lap("g")
+    for path in ("committee_ep", "multi_layer_ep", "vae_prior_ep"):
+        check(all(paths[path][k] > 0 for k in SOURCES),
+              f"phase 11 {path}: a kernel never launched: {paths[path]}")
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s, by part "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items())
+          + f"; batches of {lanes} lanes [{card}]")
+    return paths, err
+
+
+# -- phase 12: item 3's factors the card had never run -----------------------
+PHASE_12_N = 400
+
+
+def phase_12(torch, tt, pl, card):
+    """One EP solve and one SE solve, float64, of each prior, likelihood and
+    analytic channel of ROADMAP Queue 1 item 3 that no earlier phase runs
+    on the card, through glm_generative / glm_state_evolution where those
+    build it (the MAP priors and the analytic channels have no SE in the
+    JAX package; the L21 and committee-binary priors take an (N, K)
+    shape, which the GLM builders do not build; the committee-binary
+    prior's K x K precision is not what the EP engine passes, so its
+    denoiser is solved in its one exact step); EP on the card against the
+    same model on the CPU (equal n_iter, r and v to rtol 1e-8). Returns
+    the launches."""
+    from tramp_tpu_torch.algos import ConstantInit
+    from tramp_tpu_torch.channels import (
+        AnalyticAbsChannel, AnalyticReluChannel, GaussianChannel,
+        LinearChannel)
+    from tramp_tpu_torch.parallel import EPSolver
+    from tramp_tpu_torch.priors import (
+        CommitteeBinaryPrior, GaussBernoulliPrior, MAP_L21NormPrior)
+    t0 = time.perf_counter()
+    reset_launches(pl)
+    f64 = torch.float64
+    kw = dict(damping=0.1, max_iter=50, tol=1e-6)
+    gauss = dict(output_type="gaussian", output_var=1e-2)
+    gb = dict(prior_type="gauss_bernoulli", prior_rho=0.5)
+    cases = [
+        ("prior gaussian", dict(prior_type="gaussian", **gauss), True),
+        ("prior exponential", dict(prior_type="exponential", **gauss), True),
+        ("prior positive", dict(prior_type="positive", **gauss), True),
+        ("prior mixture", dict(prior_type="mixture", **gauss), True),
+        ("prior L1_norm", dict(prior_type="L1_norm", **gauss), False),
+        ("likelihood l-relu", dict(output_type="l-relu", output_slope=0.1,
+                                   **gb), True),
+        ("likelihood h-tanh", dict(output_type="h-tanh", **gb), True),
+        ("likelihood h-sigm", dict(output_type="h-sigm", **gb), True),
+        ("likelihood a-abs", dict(output_type="a-abs", output_shift=1e-3,
+                                  **gb), True)]
+    for name, build, has_se in cases:
+        alpha = 1.5 if name.startswith("likelihood") else 1.0
+        models = {}
+        for device in ("cpu", "cuda"):
+            g = torch.Generator(device="cpu").manual_seed(0)
+            teacher = tt.glm_generative(
+                N=PHASE_12_N, alpha=alpha, ensemble_type="gaussian",
+                generator=g, device="cpu", dtype=f64, **build)
+            models[device] = teacher.to_observed(
+                {"y": teacher.sample(g)["y"]})
+        models["cuda"] = on_card(torch, models["cuda"])
+        # the MAP priors' messages are not finite from a = 0 (as in the
+        # JAX package): they start from a = 1
+        init = None if has_se else ConstantInit(a=1.0, b=0.0)
+        res = {d: EPSolver(m, **kw).solve_info(m, initializer=init)
+               for d, m in models.items()}
+        post, n_iter, conv = res["cuda"]
+        check(bool(torch.isfinite(post["x"]["r"]).all())
+              and bool(torch.isfinite(post["x"]["v"]).all()),
+              f"phase 12 {name}: EP posterior not finite")
+        card_against_cpu(torch, f"phase 12 {name}, N={PHASE_12_N} f64 EP",
+                         res["cpu"][0], res["cpu"][1], post, n_iter, ("x",))
+        line = (f"phase 12 {name}: EP n_iter={int(n_iter)} conv={bool(conv)} "
+                f"v={float(post['x']['v']):.6g}")
+        if has_se:
+            se_build = {k: v for k, v in build.items()}
+            se = tt.StateEvolution(tt.glm_state_evolution(
+                alpha=alpha, **se_build)).iterate(max_iter=50)
+            v_se = float(se.get_variable_data("x")["v"])
+            check(np.isfinite(v_se) and v_se > 0,
+                  f"phase 12 {name}: SE v {v_se}")
+            line += f"; SE n_iter={se.n_iter} v={v_se:.6g}"
+        else:
+            line += "; no SE (the JAX package defines none for MAP priors)"
+        print(line + f" [{card}]")
+    # the analytic activations: one EP solve each. Under |z| a prior of
+    # mean 0 leaves EP at the symmetric fixed point r = 0 from b = 0: the
+    # abs instance's prior has mean 1, and EP converges there
+    for cls, mean in ((AnalyticAbsChannel, 1.0), (AnalyticReluChannel, 0.0)):
+        models = {}
+        rng = np.random.RandomState(1)
+        W = rng.randn(600, PHASE_12_N) / np.sqrt(PHASE_12_N)
+        for device in ("cpu", "cuda"):
+            dkw = dict(device=device, dtype=f64)
+            teacher = (GaussBernoulliPrior(size=PHASE_12_N, rho=0.5,
+                                           mean=mean, **dkw)
+                       @ tt.V(id="x") @ LinearChannel(W, name="W", **dkw)
+                       @ tt.V(id="z") @ cls() @ tt.V(id="a")
+                       @ GaussianChannel(var=1e-2) @ tt.O(id="y")).to_model()
+            models[device] = teacher
+        y = models["cpu"].sample(torch.Generator().manual_seed(2))["y"]
+        models["cuda"] = on_card(torch, models["cpu"].to_observed({"y": y}))
+        models["cpu"] = models["cpu"].to_observed({"y": y})
+        res = {d: EPSolver(m, **kw).solve_info(m) for d, m in models.items()}
+        post, n_iter, conv = res["cuda"]
+        check(bool(torch.isfinite(post["x"]["r"]).all())
+              and float(post["z"]["r"].abs().max()) > 0,
+              f"phase 12 {cls.__name__}: EP posterior not finite, or the "
+              "mean of z is 0 everywhere")
+        card_against_cpu(torch, f"phase 12 {cls.__name__} EP", res["cpu"][0],
+                         res["cpu"][1], post, n_iter, ("x", "z"))
+        print(f"phase 12 {cls.__name__} (prior mean {mean:g}): EP "
+              f"n_iter={int(n_iter)} conv={bool(conv)} "
+              f"v={float(post['x']['v']):.6g}; no SE "
+              f"(the JAX package defines none for this channel) [{card}]")
+    # priors the GLM builders cannot build (their shape is (N, K)); the
+    # port's LinearChannel takes a two-dimensional message for lanes, so
+    # the L21 prior is solved as a denoiser
+    rng = np.random.RandomState(3)
+    models = {}
+    for device in ("cpu", "cuda"):
+        dkw = dict(device=device, dtype=f64)
+        models[device] = (MAP_L21NormPrior(size=(PHASE_12_N, 2), **dkw)
+                          @ tt.V(id="x") @ GaussianChannel(var=1e-1)
+                          @ tt.O(id="y")).to_model()
+    y = torch.as_tensor(rng.randn(PHASE_12_N, 2), dtype=f64)
+    models["cuda"] = on_card(torch, models["cpu"].to_observed({"y": y}))
+    models["cpu"] = models["cpu"].to_observed({"y": y})
+    # the group threshold needs a direction: b = 1 at the start, as the
+    # JAX package needs it
+    res = {d: EPSolver(m, **kw).solve_info(
+        m, initializer=ConstantInit(a=1.0, b=1.0)) for d, m in models.items()}
+    card_against_cpu(torch, "phase 12 prior L21_norm, (N, 2) x denoised, EP",
+                     res["cpu"][0], res["cpu"][1], res["cuda"][0],
+                     res["cuda"][1], ("x",))
+    print(f"phase 12 prior L21_norm: EP n_iter={int(res['cuda'][1])} "
+          f"conv={bool(res['cuda'][2])}; no SE (none in the JAX package) "
+          f"[{card}]")
+    # the committee-binary prior takes a K x K precision, and the EP
+    # engine (the JAX package's too) passes one number: its denoiser
+    # x -> + noise -> y, whose EP is exact in one step, is solved with the
+    # channel's message a = I / var, b = y / var written out
+    K, var = 3, 1e-1
+    prior = CommitteeBinaryPrior(N=PHASE_12_N, K=K, p_pos=0.4, device="cpu",
+                                 dtype=f64)
+    ax = torch.eye(K, dtype=f64) / var
+    bx = prior.sample(torch.Generator().manual_seed(4)) / var \
+        + torch.as_tensor(rng.randn(PHASE_12_N, K), dtype=f64) / np.sqrt(var)
+    post = {}
+    for device in ("cpu", "cuda"):
+        r, v = prior.compute_forward_posterior(ax.to(device), bx.to(device))
+        logz = prior.compute_log_partition(ax.to(device), bx.to(device))
+        post[device] = {"x": {"r": r, "v": v}, "prior": {"logZ": logz}}
+    card_against_cpu(torch, f"phase 12 prior committee_binary (N="
+                     f"{PHASE_12_N}, K={K}) denoiser, var {var:g}",
+                     post["cpu"], None, post["cuda"], None, ("x",))
+    card_against_cpu(torch, "phase 12 prior committee_binary log-partition",
+                     post["cpu"], None, post["cuda"], None, ("prior",),
+                     keys=("logZ",))
+    print(f"phase 12 prior committee_binary: the denoiser's posterior in "
+          f"one step (no EPSolver: the engine passes a scalar precision, the "
+          f"prior takes a K x K one), v diagonal "
+          f"{[round(float(d), 6) for d in post['cuda']['x']['v'].diag()]}, "
+          f"log-partition {float(post['cuda']['prior']['logZ']):.6g} "
+          f"[{card}]")
+    launches = read_launches(pl)
+    check(not any(launches.values()), f"phase 12 ran kernels: {launches}")
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s [{card}]")
+    return launches
 
 
 def main():
@@ -2056,15 +3046,10 @@ def main():
     gpu_student, _, _ = relu_net(torch, tt, torch.float64, N=256, svd=svd)
     cpu_ep = tt.ExpectationPropagation(cpu_student).iterate(**SOLVE)
     gpu_ep = solve(torch, tt, pl, gpu_student, x0)[0]
-    r_cpu = cpu_ep.get_variable_data("x")["r"]
-    r_gpu = gpu_ep.get_variable_data("x")["r"].cpu()
-    r_err = float(((r_gpu - r_cpu).abs()
-                   / (r_cpu.abs() + r_cpu.abs().max())).max())
-    check(gpu_ep.n_iter == cpu_ep.n_iter and r_err <= 1e-8,
-          f"relu net N=256: card n_iter {gpu_ep.n_iter} vs CPU "
-          f"{cpu_ep.n_iter}, r err/scale {r_err:.3g} (rtol 1e-8)")
-    print(f"relu net N=256 f64, card vs CPU: n_iter {gpu_ep.n_iter} both, "
-          f"r rel err {r_err:.3e} (rtol 1e-8)")
+    card_against_cpu(torch, "relu net N=256 f64 through the engine",
+                     {"x": cpu_ep.get_variable_data("x")}, cpu_ep.n_iter,
+                     {"x": gpu_ep.get_variable_data("x")}, gpu_ep.n_iter,
+                     ("x",))
     again = tt.ExpectationPropagation(gpu_student).iterate(**SOLVE)
     for key in ("r", "v"):
         check(torch.equal(again.get_variable_data("x")[key],
@@ -2123,6 +3108,11 @@ def main():
     # phase 10: the priors, likelihoods and GLMs of Queue 1 item 3
     item3_launches = phase_10(torch, tt, pl, card)
 
+    # phase 11: the complex channels and the trees of Queue 1 items 4a, 4b
+    tree_launches, tree_err = phase_11(torch, tt, pl, card)
+    # phase 12: item 3's factors that no earlier phase runs
+    item3_launches["item3_factors_ep_se"] = phase_12(torch, tt, pl, card)
+
     # phase 8: summary. A main path is a solve with the posterior readout
     # that follows it: the engine's float32 relu-net solve (phase 4) and the
     # front door's relu-net solves, single and batched (phase 7); the
@@ -2145,14 +3135,20 @@ def main():
             "launches": (engine_launches[name] + relu_launches[name]
                          + sum(path[name] for path in se_launches.values())
                          + sum(path[name]
-                               for path in item3_launches.values())),
+                               for path in item3_launches.values())
+                         + sum(path[name]
+                               for path in tree_launches.values())),
             "launches_by_path": dict(
                 {"engine_relu_net_f32": engine_launches[name],
                  "front_door_relu_net": relu_launches[name],
                  "front_door_flagship": 0, "se_cs_grid": 0},
                 **{k: path[name] for k, path in se_launches.items()},
-                **{k: path[name] for k, path in item3_launches.items()}),
-            "max_abs_err": max_err[name], "ms": row["per_call_ms"],
+                **{k: path[name] for k, path in item3_launches.items()},
+                **{k: path[name] for k, path in tree_launches.items()}),
+            "max_abs_err": max_err[name],
+            "final_state_max_abs_err": {
+                path: errs[name] for path, errs in tree_err.items()},
+            "ms": row["per_call_ms"],
             "plain_ms": lanes_plain_ms[name], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
             "device_ms": row["device_ms"], "host_ms": row["host_ms"],

@@ -3,7 +3,7 @@ against tramp_tpu, float64 on the CPU: the perceptron (binary prior, sign
 output; bench.py:504-533) at N = 200 through ``EPSolver`` and
 ``dispatch_solver`` (an ``MLVAMPSolver``) against JAX;
 ``channel2likelihood`` picking the JAX package's class for every channel
-it converts (``ModulusChannel`` raises, naming ROADMAP Queue 1 item 4);
+it converts (``ModulusChannel`` too, since ROADMAP Queue 1 item 4a);
 ``glm_generative`` building and observing a perceptron. The state
 evolution of the same GLMs is in tests/test_torch_glm_outputs.py.
 
@@ -95,15 +95,21 @@ def test_channel2likelihood_picks_the_jax_class(kind):
 
 
 def test_modulus_channel_and_complex_glm_wait_for_item_4():
-    class ModulusChannel(channels.Channel):
-        "A stand-in of the JAX package's complex modulus channel."
-
-    with pytest.raises(NotImplementedError, match="item 4"):
-        channel2likelihood(ModulusChannel(), y=torch.ones(3), y_name="y")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tt.glm_generative(N=20, alpha=0.5, ensemble_type="gaussian",
-                          prior_type="gauss_bernoulli",
-                          output_type="modulus", device="cpu")
+    """Item 4a is in: the ModulusChannel branch converts as the JAX
+    package's does, and the complex GLM builds (its EP against JAX is in
+    tests/test_torch_phase_retrieval.py)."""
+    y = torch.ones(3, dtype=F64)
+    got = channel2likelihood(channels.ModulusChannel(), y=y, y_name="y")
+    want = jchannel2likelihood(jchannels.ModulusChannel(), y=jnp.ones(3),
+                               y_name="y")
+    assert type(got).__name__ == type(want).__name__ == "ModulusLikelihood"
+    assert got.y is y and got.y_name == "y"
+    model = tt.glm_generative(N=20, alpha=0.5, ensemble_type="gaussian",
+                              prior_type="gauss_bernoulli",
+                              output_type="modulus", device="cpu", dtype=F64,
+                              generator=torch.Generator().manual_seed(0))
+    assert type(model.factors[1]) is channels.ComplexLinearChannel
+    assert model.get_shapes()["x"] == (2, 20)
 
 
 def test_glm_generative_builds_the_perceptron_and_observes_it():

@@ -5,7 +5,8 @@ channel's regions once; their module imports without nvcc or a GPU (the
 kernels are built at first launch); a model built without a device needs a
 card, and one built with ``device="cpu"`` does not (the priors and
 likelihoods of Queue 1 item 3 too, whose registries keep no waiting
-types); the state-evolution entry points keep the same rule, take the
+types, and the complex channels, shape channels and composite models of
+items 4a and 4b); the state-evolution entry points keep the same rule, take the
 plain twin for their integrands on the CPU, refuse a mesh, and import no
 pandas until a DataFrame is asked for; and, on a card, the kernels agree
 with their plain versions.
@@ -385,12 +386,21 @@ def test_no_prior_or_likelihood_type_waits_for_item_3():
     assert not hasattr(likelihoods, "_WAITING")
     assert len(priors.PRIOR_CLASSES) == 9
     assert len(likelihoods.LIKELIHOOD_CLASSES) == 10
-    for kind in ("modulus", "complex_linear", "conv", "tanh"):
-        item = 7 if kind == "tanh" else 4
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
+    # items 4a and 4b are in too: what still waits names item 4c or 7
+    for kind in ("conv", "dft", "rotation", "tanh"):
+        item = "7" if kind == "tanh" else "4c"
+        with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
             channels.get_channel(kind)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ensembles.get_ensemble("binary", M=2, N=3)
+    for kind in ("binary", "rotation"):
+        with pytest.raises(NotImplementedError, match=r"item 4c\)"):
+            ensembles.get_ensemble(kind, M=2, N=3)
+    for kind in ("modulus", "complex_linear", "unitary", "bias", "sum",
+                 "duplicate", "concat", "reshape"):
+        assert kind in channels.CHANNEL_CLASSES and \
+            kind not in channels._WAITING
+    for kind in ("complex_gaussian", "unitary", "complex_unitary"):
+        assert kind in ensembles.ENSEMBLE_CLASSES and \
+            kind not in ensembles._WAITING
     stale = [str(p) for p in sorted((REPO / "tramp_tpu_torch").rglob("*.py"))
              if "item 3" in p.read_text()]
     assert not stale, stale
@@ -431,6 +441,61 @@ def test_new_factors_need_a_card_or_an_explicit_cpu():
         "    raise SystemExit('no error without a card')\n"
         "se = tt.StateEvolution(model, device='cpu').iterate(max_iter=20)\n"
         "assert 0 < float(se.get_variable_data('x')['v']) < 1\n")
+    proc = _run(code, env=NO_CARD)
+    assert proc.returncode == 0, proc.stderr + proc.stdout
+
+
+def test_tree_and_complex_factors_need_a_card_or_an_explicit_cpu():
+    """The factors and builders of the complex channels, the shape channels
+    and the composite models put their arrays on the card unless told
+    otherwise, so each raises here; with device='cpu' the committee and
+    the complex GLM build and solve."""
+    code = (
+        "import numpy as np, torch\n"
+        "import tramp_tpu_torch as tt\n"
+        "from tramp_tpu_torch import channels, ensembles, models, parallel\n"
+        "rng = np.random.RandomState(0)\n"
+        "W = rng.randn(6, 4) + 1j * rng.randn(6, 4)\n"
+        "U = np.linalg.qr(rng.randn(4, 4) + 1j * rng.randn(4, 4))[0]\n"
+        "weights = [rng.randn(5, 2), rng.randn(7, 5)]\n"
+        "biases = [rng.randn(5), rng.randn(7)]\n"
+        "calls = {\n"
+        "    'complex_linear': lambda: channels.ComplexLinearChannel(W),\n"
+        "    'unitary': lambda: channels.UnitaryChannel(U),\n"
+        "    'bias': lambda: channels.BiasChannel(np.ones(3)),\n"
+        "    'ensemble': lambda: ensembles.get_ensemble(\n"
+        "        'complex_gaussian', M=3, N=2).generate(),\n"
+        "    'committee': lambda: models.soft_committee(\n"
+        "        K=2, N=4, alpha=1.0, ensemble_type='gaussian',\n"
+        "        prior_mean=0.0, prior_var=1.0, noise_var=0.1),\n"
+        "    'vae': lambda: models.vae_prior_block(weights, biases,\n"
+        "                                           latent_dim=2),\n"
+        "    'complex_glm': lambda: tt.glm_generative(\n"
+        "        N=4, alpha=2.0, ensemble_type='complex_gaussian',\n"
+        "        prior_type='gauss_bernoulli', output_type='modulus')}\n"
+        "for name, call in calls.items():\n"
+        "    try:\n"
+        "        call()\n"
+        "    except RuntimeError as e:\n"
+        "        assert \"device='cpu'\" in str(e), (name, e)\n"
+        "    else:\n"
+        "        raise SystemExit(name + ': no error without a card')\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "for build in (\n"
+        "        lambda: models.soft_committee(\n"
+        "            K=2, N=20, alpha=1.5, ensemble_type='gaussian',\n"
+        "            prior_mean=0.1, prior_var=1.0, noise_var=1e-2,\n"
+        "            generator=g, device='cpu', dtype=torch.float64),\n"
+        "        lambda: tt.glm_generative(\n"
+        "            N=20, alpha=2.0, ensemble_type='complex_gaussian',\n"
+        "            prior_type='gauss_bernoulli', output_type='modulus',\n"
+        "            generator=g, device='cpu', dtype=torch.float64)):\n"
+        "    teacher = build()\n"
+        "    student = teacher.to_observed({'y': teacher.sample(g)['y']})\n"
+        "    post, n_iter = parallel.dispatch_solver(\n"
+        "        student, damping=0.3, max_iter=30).solve(student)\n"
+        "    r = next(iter(post.values()))['r']\n"
+        "    assert r.device.type == 'cpu' and int(n_iter) > 1\n")
     proc = _run(code, env=NO_CARD)
     assert proc.returncode == 0, proc.stderr + proc.stdout
 

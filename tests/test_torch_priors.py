@@ -153,8 +153,32 @@ def test_committee_binary_prior_one_instance():
                      what=method)
     x = port.sample(torch.Generator().manual_seed(1))
     assert x.shape == (N, K) and set(x.unique().tolist()) <= {-1.0, 1.0}
-    with pytest.raises(ValueError, match="item 4"):
+    with pytest.raises(ValueError, match="item 7"):
         port.compute_forward_posterior(_t(ax), _t(rng.randn(2, N, K)))
+
+
+def test_committee_binary_prior_denoiser_ep_raises_on_both_sides():
+    """The EP engine passes one precision, the prior takes a K x K one: the
+    denoiser x -> + noise -> y raises in the JAX package and in the port
+    alike (its one exact step, a = I / var, is held above)."""
+    import tramp_tpu as jtt
+    import tramp_tpu_torch as tt
+    from tramp_tpu.channels import GaussianChannel as JGaussianChannel
+    from tramp_tpu_torch.channels import GaussianChannel
+    from tramp_tpu_torch.parallel import EPSolver
+    N, K = 12, 3
+    y = np.random.RandomState(5).randn(N, K)
+    ref = (jpriors.CommitteeBinaryPrior(N=N, K=K, p_pos=0.4) @ jtt.V(id="x")
+           @ JGaussianChannel(var=0.1) @ jtt.O(id="y")).to_model()
+    ref = ref.to_observed({"y": jnp.asarray(y)})
+    with pytest.raises(ValueError):
+        jtt.ExpectationPropagation(ref).iterate(max_iter=2)
+    port = (priors.CommitteeBinaryPrior(N=N, K=K, p_pos=0.4, device="cpu",
+                                        dtype=F64) @ tt.V(id="x")
+            @ GaussianChannel(var=0.1) @ tt.O(id="y")).to_model()
+    port = port.to_observed({"y": _t(y)})
+    with pytest.raises(ValueError):
+        EPSolver(port, max_iter=2).solve(port)
 
 
 @pytest.mark.parametrize("name", list(PRIORS) + ["L1"])

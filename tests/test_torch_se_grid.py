@@ -246,7 +246,7 @@ def test_glm_generative_and_registries():
         device="cpu")
     assert type(relu.factors[2]) is channels.ReluChannel
     # every prior and output type of the JAX registries builds (Queue 1
-    # item 3); the complex GLM waits for ComplexLinearChannel (item 4)
+    # item 3), and the complex GLM (item 4a)
     for kw in (dict(prior_type="binary", output_type="gaussian"),
                dict(prior_type="gauss_bernoulli", output_type="sgn"),
                dict(prior_type="binary", output_type="door",
@@ -255,10 +255,11 @@ def test_glm_generative_and_registries():
         se = tt.StateEvolution(tt.glm_state_evolution(alpha=0.5, **kw),
                                device="cpu").iterate(max_iter=3)
         assert 0 < float(se.get_variable_data("x")["v"]) <= 1.0
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tt.glm_generative(N=40, alpha=0.5, ensemble_type="gaussian",
-                          prior_type="gauss_bernoulli",
-                          output_type="modulus", generator=g, device="cpu")
+    pr = tt.glm_generative(N=40, alpha=0.5, ensemble_type="gaussian",
+                           prior_type="gauss_bernoulli",
+                           output_type="modulus", generator=g, device="cpu")
+    assert type(pr.factors[1]) is channels.ComplexLinearChannel
+    assert pr.get_shapes()["z"] == (2, 20)
     results = experiments.simple_run_experiments(
         lambda alpha, rho: dict(v=alpha * rho), alpha=[1.0, 2.0], rho=0.5)
     assert results["v"].tolist() == [0.5, 1.0]

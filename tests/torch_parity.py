@@ -37,7 +37,8 @@ def describe_model(model):
     dag = model.model_dag.dag
     nodes = dag.nodes
     index = {n: i for i, n in enumerate(nodes)}
-    out = [{"class": type(n).__name__, "id": n.id}
+    out = [{"class": type(n).__name__, "id": n.id, "n_prev": n.n_prev,
+            "n_next": n.n_next}
            if isinstance(n, Variable) else describe_factor(n)
            for n in nodes]
     return {"nodes": out,
@@ -101,3 +102,25 @@ def assert_states_close(port_state, jax_state, n_slots, rtol, what=""):
         for k, v in jax_state[n_slots].items():
             assert_close(port_state[n_slots][k], v, rtol,
                          what=f"{what} spectral cache {k}")
+
+
+def committee_case(kind, seed=0):
+    """(JAX student, port student, teacher sample) of a committee of
+    tests/test_models_misc.py:22-45 at N = 40: "soft" (K = 2 relu experts,
+    prior means 0.1 and -0.2) or "sgn" (K = 3 sign experts, p_pos 0.6, a
+    sign output)."""
+    import jax
+    from tramp_tpu import models as jmodels
+    key = jax.random.PRNGKey(seed)
+    if kind == "soft":
+        model = jmodels.soft_committee(
+            K=2, N=40, alpha=1.5, ensemble_type="gaussian",
+            prior_mean=[0.1, -0.2], prior_var=[1.0, 1.0], noise_var=1e-2,
+            key=key)
+    else:
+        model = jmodels.sgn_committee(
+            K=3, N=40, alpha=1.0, ensemble_type="gaussian", p_pos=0.6,
+            noise_var=1e-2, key=key)
+    sample = model.sample(jax.random.PRNGKey(seed + 1))
+    j_student = model.to_observed({"y": sample["y"]})
+    return j_student, port_model(j_student), sample

@@ -1,6 +1,8 @@
 """tramp_tpu_torch: the PyTorch and CUDA port of tramp_tpu.
 
-Models are DAGs of priors, channels and likelihoods composed with ``@``;
+Models are DAGs of priors, channels and likelihoods composed with ``@``
+and ``+`` (trees whose factors take several inputs or outputs included:
+committees, multi-layer models, the VAE prior, complex phase retrieval);
 ``ExpectationPropagation(model).iterate(...)`` runs EP message passing over
 the statically lowered schedule; ``parallel.dispatch_solver(model)`` picks
 the fastest solver for a model, with single and batched solves.
@@ -17,8 +19,14 @@ from . import (
     beliefs, utils, ops, priors, channels, likelihoods, ensembles, parallel,
     experiments,
 )
-from .variables import V, O
-from .models import Model, glm_generative, glm_state_evolution
+from .variables import (
+    SISOVariable, SIMOVariable, MISOVariable, MILeafVariable,
+    SILeafVariable, MORootVariable, SORootVariable, V, O,
+)
+from .models import (
+    Model, DAG, FactorDAG, ModelDAG, FactorModel, glm_generative,
+    glm_state_evolution, MultiLayerModel,
+)
 from .algos import (
     ExpectationPropagation, StateEvolution, ConstantInit, NoisyInit,
     CustomInit, EarlyStopping, EarlyStoppingEP,
@@ -27,8 +35,11 @@ from .experiments import TeacherStudentScenario, BayesOptimalScenario
 
 __all__ = [
     "beliefs", "utils", "ops", "priors", "channels", "likelihoods",
-    "ensembles", "parallel", "experiments", "V", "O",
-    "Model", "glm_generative", "glm_state_evolution",
+    "ensembles", "parallel", "experiments", "SISOVariable", "SIMOVariable",
+    "MISOVariable", "MILeafVariable", "SILeafVariable", "MORootVariable",
+    "SORootVariable", "V", "O", "Model", "DAG", "FactorDAG", "ModelDAG",
+    "FactorModel", "glm_generative", "glm_state_evolution",
+    "MultiLayerModel",
     "ExpectationPropagation", "StateEvolution", "ConstantInit", "NoisyInit",
     "CustomInit", "EarlyStopping", "EarlyStoppingEP",
     "TeacherStudentScenario", "BayesOptimalScenario",

@@ -9,8 +9,15 @@ from ..channels import LinearChannel
 from .message_passing import MessagePassing, slot, FWD, BWD
 
 
-def _ab(msg):
-    return msg["a"], msg["b"]
+def _unwrap(msgs, n):
+    """(a, b) of the messages of a factor's n edges on one side: the
+    message itself when n == 1, else lists in the model's edge order
+    (reference expectation_propagation.py:9-15)."""
+    a = [m["a"] for m in msgs]
+    b = [m["b"] for m in msgs]
+    if n == 1:
+        return a[0], b[0]
+    return a, b
 
 
 class ExpectationPropagation(MessagePassing):
@@ -40,15 +47,17 @@ class ExpectationPropagation(MessagePassing):
                 if type(node) is LinearChannel]
 
     # -- factor ops -------------------------------------------------------
-    # Every factor ported so far has at most one input and one output
-    # variable (n_prev, n_next <= 1).
+    # A factor reads the messages on its in edges (forward slots) and out
+    # edges (backward slots) and writes one message per edge of the side it
+    # updates: lists for a factor with several inputs or outputs. A spectral
+    # factor is a LinearChannel, so it has one edge on each side.
     def _factor_forward(self, i, node, state, aux=None):
-        e_out = self.model.out_edges[i][0]
-        ax, bx = _ab(state[slot(e_out, BWD)])
+        prev_msgs, next_msgs = self._gather(i, state)
+        ax, bx = _unwrap(next_msgs, node.n_next)
         if node.n_prev == 0:
             a_new, b_new = node.compute_forward_message(ax, bx)
         else:
-            az, bz = _ab(state[slot(self.model.in_edges[i][0], FWD)])
+            az, bz = _unwrap(prev_msgs, node.n_prev)
             if i in self._spectral:
                 # the carried u = U^T bx: no fresh U^T matvec
                 u = state[self.n_slots][str(i)]
@@ -56,23 +65,31 @@ class ExpectationPropagation(MessagePassing):
                 a_new, b_new = compute_ab_new(rx, vx, ax, bx)
             else:
                 a_new, b_new = node.compute_forward_message(az, bz, ax, bx)
-        return {slot(e_out, FWD): {"a": a_new, "b": b_new}}
+        out_edges = self.model.out_edges[i]
+        if node.n_next == 1:
+            return {slot(out_edges[0], FWD): {"a": a_new, "b": b_new}}
+        return {slot(e, FWD): {"a": a, "b": b}
+                for e, a, b in zip(out_edges, a_new, b_new)}
 
     def _factor_backward(self, i, node, state, aux=None):
-        e_in = self.model.in_edges[i][0]
-        az, bz = _ab(state[slot(e_in, FWD)])
+        prev_msgs, next_msgs = self._gather(i, state)
+        az, bz = _unwrap(prev_msgs, node.n_prev)
+        in_edges = self.model.in_edges[i]
         if node.n_next == 0:
             a_new, b_new = node.compute_backward_message(az, bz)
-            return {slot(e_in, BWD): {"a": a_new, "b": b_new}}
-        ax, bx = _ab(state[slot(self.model.out_edges[i][0], BWD)])
-        if i in self._spectral:
-            # the fresh U^T bx becomes the carried image
-            rz, vz, u = node.spectral_backward_posterior(az, bz, ax, bx)
-            a_new, b_new = compute_ab_new(rz, vz, az, bz)
-            return {slot(e_in, BWD): {"a": a_new, "b": b_new},
-                    ("spec", str(i)): u}
-        a_new, b_new = node.compute_backward_message(az, bz, ax, bx)
-        return {slot(e_in, BWD): {"a": a_new, "b": b_new}}
+        else:
+            ax, bx = _unwrap(next_msgs, node.n_next)
+            if i in self._spectral:
+                # the fresh U^T bx becomes the carried image
+                rz, vz, u = node.spectral_backward_posterior(az, bz, ax, bx)
+                a_new, b_new = compute_ab_new(rz, vz, az, bz)
+                return {slot(in_edges[0], BWD): {"a": a_new, "b": b_new},
+                        ("spec", str(i)): u}
+            a_new, b_new = node.compute_backward_message(az, bz, ax, bx)
+        if node.n_prev == 1:
+            return {slot(in_edges[0], BWD): {"a": a_new, "b": b_new}}
+        return {slot(e, BWD): {"a": a, "b": b}
+                for e, a, b in zip(in_edges, a_new, b_new)}
 
     # -- posterior update (reference expectation_propagation.py:17-19) ----
     def update(self, variable, post):
@@ -88,16 +105,18 @@ class ExpectationPropagation(MessagePassing):
         return torch.where(torch.all(ax > 0), logZ, math.inf)
 
     def node_objective_at(self, i, state):
+        "Reference expectation_propagation.py:154-171."
         node = self.nodes[i]
         if isinstance(node, Variable):
             return self.variable_objective(node, i, self._posterior(i, state))
+        prev_msgs, next_msgs = self._gather(i, state)
         if node.n_prev == 0:
-            ax, bx = _ab(state[slot(self.model.out_edges[i][0], BWD)])
+            ax, bx = _unwrap(next_msgs, node.n_next)
             return node.compute_log_partition(ax, bx)
-        az, bz = _ab(state[slot(self.model.in_edges[i][0], FWD)])
+        az, bz = _unwrap(prev_msgs, node.n_prev)
         if node.n_next == 0:
             return node.compute_log_partition(az, bz, node.y)
-        ax, bx = _ab(state[slot(self.model.out_edges[i][0], BWD)])
+        ax, bx = _unwrap(next_msgs, node.n_next)
         return node.compute_log_partition(az, bz, ax, bx)
 
     def log_evidence(self, update=True):

@@ -205,6 +205,12 @@ class MessagePassing:
                 for key in self.message_keys}
             for e, excluded in targets}
 
+    def _gather(self, i, state):
+        """The messages into factor i: (from its inputs, from its outputs),
+        each a list in the model's edge order."""
+        return ([state[slot(e, FWD)] for e in self.model.in_edges[i]],
+                [state[slot(e, BWD)] for e in self.model.out_edges[i]])
+
     def _posterior(self, i, state):
         in_slots = self._in_slots(i)
         return {key: sum(state[s][key] for s in in_slots)

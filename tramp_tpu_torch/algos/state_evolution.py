@@ -17,6 +17,14 @@ from ..config import default_device
 from .message_passing import MessagePassing, slot, FWD, BWD
 
 
+def _unwrap_a(msgs, n):
+    """The precisions of a factor's n edges on one side: the precision
+    itself when n == 1, else a list in the model's edge order (reference
+    state_evolution.py:12-14)."""
+    a = [m["a"] for m in msgs]
+    return a[0] if n == 1 else a
+
+
 class StateEvolution(MessagePassing):
     """``StateEvolution(model).iterate(...)``; ``device`` is that of the
     model's arrays, else the one its factors were built with, else the first
@@ -56,32 +64,38 @@ class StateEvolution(MessagePassing):
         return {i: torch.as_tensor(tau, device=self.device, dtype=self.dtype)
                 for i, tau in model.init_second_moments().items()}
 
-    # Every factor ported so far has at most one input and one output
-    # variable (n_prev, n_next <= 1).
     def _tau_prev(self, i, aux):
-        return aux[self.model.edges[self.model.in_edges[i][0]][0]]
+        "Second moments of factor i's inputs: one, or a list of them."
+        taus = [aux[self.model.edges[e][0]] for e in self.model.in_edges[i]]
+        return taus[0] if self.model.nodes[i].n_prev == 1 else taus
 
     def _factor_forward(self, i, node, state, aux):
-        e_out = self.model.out_edges[i][0]
-        ax = state[slot(e_out, BWD)]["a"]
+        prev_msgs, next_msgs = self._gather(i, state)
+        ax = _unwrap_a(next_msgs, node.n_next)
         if node.n_prev == 0:
             a_new = node.compute_forward_state_evolution(ax)
         else:
-            az = state[slot(self.model.in_edges[i][0], FWD)]["a"]
+            az = _unwrap_a(prev_msgs, node.n_prev)
             a_new = node.compute_forward_state_evolution(
                 az, ax, self._tau_prev(i, aux))
-        return {slot(e_out, FWD): {"a": a_new}}
+        out_edges = self.model.out_edges[i]
+        if node.n_next == 1:
+            return {slot(out_edges[0], FWD): {"a": a_new}}
+        return {slot(e, FWD): {"a": a} for e, a in zip(out_edges, a_new)}
 
     def _factor_backward(self, i, node, state, aux):
-        e_in = self.model.in_edges[i][0]
-        az = state[slot(e_in, FWD)]["a"]
+        prev_msgs, next_msgs = self._gather(i, state)
+        az = _unwrap_a(prev_msgs, node.n_prev)
         tau_z = self._tau_prev(i, aux)
         if node.n_next == 0:
             a_new = node.compute_backward_state_evolution(az, tau_z)
         else:
-            ax = state[slot(self.model.out_edges[i][0], BWD)]["a"]
+            ax = _unwrap_a(next_msgs, node.n_next)
             a_new = node.compute_backward_state_evolution(az, ax, tau_z)
-        return {slot(e_in, BWD): {"a": a_new}}
+        in_edges = self.model.in_edges[i]
+        if node.n_prev == 1:
+            return {slot(in_edges[0], BWD): {"a": a_new}}
+        return {slot(e, BWD): {"a": a} for e, a in zip(in_edges, a_new)}
 
     # -- posterior update (reference state_evolution.py:17-19) ------------
     def update(self, variable, post):
@@ -100,15 +114,15 @@ class StateEvolution(MessagePassing):
         node = self.nodes[i]
         if isinstance(node, Variable):
             return self.variable_objective(node, i, self._posterior(i, state))
+        prev_msgs, next_msgs = self._gather(i, state)
         if node.n_prev == 0:
-            ax = state[slot(self.model.out_edges[i][0], BWD)]["a"]
-            return node.compute_free_energy(ax)
-        aux = self._prepare(self.model)
-        az = state[slot(self.model.in_edges[i][0], FWD)]["a"]
+            return node.compute_free_energy(_unwrap_a(next_msgs, node.n_next))
+        tau_z = self._tau_prev(i, self._prepare(self.model))
+        az = _unwrap_a(prev_msgs, node.n_prev)
         if node.n_next == 0:
-            return node.compute_free_energy(az, self._tau_prev(i, aux))
-        ax = state[slot(self.model.out_edges[i][0], BWD)]["a"]
-        return node.compute_free_energy(az, ax, self._tau_prev(i, aux))
+            return node.compute_free_energy(az, tau_z)
+        ax = _unwrap_a(next_msgs, node.n_next)
+        return node.compute_free_energy(az, ax, tau_z)
 
     def entropy(self, update=True):
         if update:

@@ -81,7 +81,8 @@ class Factor(_Node, nn.Module):
     contract (sample / second_moment / compute_*_posterior /
     compute_*_message / compute_*_error / compute_log_partition / ...) and
     ``out_shape``, the shape of the variable they emit given the shapes of
-    their inputs. A numeric hyperparameter is a Python number, or one value
+    their inputs (a list of shapes, one per output, for a factor with
+    several outputs). A numeric hyperparameter is a Python number, or one value
     per lane as a tensor ``(B, 1)`` (tramp_tpu_torch/lanes.py).
     """
 
@@ -98,11 +99,32 @@ class Factor(_Node, nn.Module):
         "Shape of the emitted variable. Default: elementwise in the input."
         return tuple(shapes[0])
 
+    # -- generic messages (reference base.py:425-453) ----------------------
+    # A factor with several inputs (outputs) takes and returns lists of
+    # precisions and means, one per edge in the model's edge order.
+    def compute_forward_message(self, az, bz, ax, bx):
+        rx, vx = self.compute_forward_posterior(az, bz, ax, bx)
+        if self.n_next == 1:
+            return compute_ab_new(rx, vx, ax, bx)
+        new = [compute_ab_new(*args) for args in zip(rx, vx, ax, bx)]
+        return [a for a, _ in new], [b for _, b in new]
+
+    def compute_backward_message(self, az, bz, ax, bx):
+        rz, vz = self.compute_backward_posterior(az, bz, ax, bx)
+        if self.n_prev == 1:
+            return compute_ab_new(rz, vz, az, bz)
+        new = [compute_ab_new(*args) for args in zip(rz, vz, az, bz)]
+        return [a for a, _ in new], [b for _, b in new]
+
     # -- state evolution (reference base.py:440-453) -----------------------
     def compute_forward_state_evolution(self, az, ax, tau_z):
         vx = self.compute_forward_error(az, ax, tau_z)
-        return compute_a_new(vx, ax)
+        if self.n_next == 1:
+            return compute_a_new(vx, ax)
+        return [compute_a_new(v, a) for v, a in zip(vx, ax)]
 
     def compute_backward_state_evolution(self, az, ax, tau_z):
         vz = self.compute_backward_error(az, ax, tau_z)
-        return compute_a_new(vz, az)
+        if self.n_prev == 1:
+            return compute_a_new(vz, az)
+        return [compute_a_new(v, a) for v, a in zip(vz, az)]

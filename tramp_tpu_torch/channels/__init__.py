@@ -1,6 +1,11 @@
 """Channels. The registry mirrors tramp_tpu/channels/__init__.py for the
 ported types."""
 from .base_channel import Channel, SIFactor, SOFactor
+from .complex_linear_channel import ComplexLinearChannel
+from .modulus_channel import ModulusChannel
+from .shape_channels import (
+    BiasChannel, SumChannel, DuplicateChannel, ConcatChannel, ReshapeChannel)
+from .unitary_channel import UnitaryChannel
 from .analytical_linear_channel import (
     AnalyticalLinearChannel, MarchenkoPasturChannel)
 from .analytic_activations import AnalyticAbsChannel, AnalyticReluChannel
@@ -15,8 +20,16 @@ from .piecewise_linear_channel import (
 CHANNEL_CLASSES = {
     "gaussian": GaussianChannel,
     "linear": LinearChannel,
+    "complex_linear": ComplexLinearChannel,
     "marchenko": MarchenkoPasturChannel,
     "analytical": AnalyticalLinearChannel,
+    "unitary": UnitaryChannel,
+    "modulus": ModulusChannel,
+    "bias": BiasChannel,
+    "sum": SumChannel,
+    "duplicate": DuplicateChannel,
+    "concat": ConcatChannel,
+    "reshape": ReshapeChannel,
     "sgn": SgnChannel,
     "abs": AbsChannel,
     "a-abs": AsymmetricAbsChannel,
@@ -26,17 +39,17 @@ CHANNEL_CLASSES = {
     "h-sigm": HardSigmoidChannel,
     "door": SymmetricDoorChannel,
 }
-#: channel types of the JAX package that are not ported yet
-_WAITING = ("complex_linear", "conv", "blur_1d", "blur_2d", "differential",
-            "laplacian", "gradient", "dft", "rotation", "unitary", "modulus",
-            "bias", "sum", "duplicate", "concat", "reshape", "tanh")
+#: channel types of the JAX package that are not ported yet: the structured
+#: real channels (ROADMAP Queue 1 item 4c) and the tanh activation (item 7)
+_WAITING = ("conv", "blur_1d", "blur_2d", "differential", "laplacian",
+            "gradient", "dft", "rotation", "tanh")
 
 
 def get_channel(channel_type, **kwargs):
     if channel_type in _WAITING:
         raise NotImplementedError(
             f"channel {channel_type!r} is not ported yet (ROADMAP Queue 1 "
-            f"item {7 if channel_type == 'tanh' else 4})")
+            f"item {'7' if channel_type == 'tanh' else '4c'})")
     return CHANNEL_CLASSES[channel_type](**kwargs)
 
 
@@ -47,5 +60,7 @@ __all__ = [
     "GaussianChannel", "LinearChannel", "PiecewiseLinearChannel",
     "SgnChannel", "AbsChannel", "AsymmetricAbsChannel", "ReluChannel",
     "LeakyReluChannel", "HardTanhChannel", "HardSigmoidChannel",
-    "SymmetricDoorChannel",
+    "SymmetricDoorChannel", "ComplexLinearChannel", "UnitaryChannel",
+    "ModulusChannel", "BiasChannel", "SumChannel", "DuplicateChannel",
+    "ConcatChannel", "ReshapeChannel",
 ]

@@ -4,20 +4,12 @@ import math
 
 import torch
 
-from ..base import Factor, compute_ab_new
+from ..base import Factor
 
 
 class Channel(Factor):
     n_next = 1
     n_prev = 1
-
-    def compute_forward_message(self, az, bz, ax, bx):
-        rx, vx = self.compute_forward_posterior(az, bz, ax, bx)
-        return compute_ab_new(rx, vx, ax, bx)
-
-    def compute_backward_message(self, az, bz, ax, bx):
-        rz, vz = self.compute_backward_posterior(az, bz, ax, bx)
-        return compute_ab_new(rz, vz, az, bz)
 
     # Elementwise integrands of the SE quadrature measures. Channels whose
     # posterior applies an isotropic reduction (a mean over the elements)
@@ -95,19 +87,11 @@ class Channel(Factor):
 
 class SIFactor(Factor):
     """Single-input factor (multi-output). Reference base_channel.py:99-117;
-    its SE update is ``Factor``'s."""
+    its messages and SE updates are ``Factor``'s."""
     n_prev = 1
-
-    def compute_backward_message(self, az, bz, ax, bx):
-        rz, vz = self.compute_backward_posterior(az, bz, ax, bx)
-        return compute_ab_new(rz, vz, az, bz)
 
 
 class SOFactor(Factor):
     """Single-output factor (multi-input). Reference base_channel.py:120-136;
-    its SE update is ``Factor``'s."""
+    its messages and SE updates are ``Factor``'s."""
     n_next = 1
-
-    def compute_forward_message(self, az, bz, ax, bx):
-        rx, vx = self.compute_forward_posterior(az, bz, ax, bx)
-        return compute_ab_new(rx, vx, ax, bx)

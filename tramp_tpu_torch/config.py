@@ -5,6 +5,7 @@ package (bf16 matvecs and state, pinned messages, the Pallas gate, the FFT
 mode) have no counterpart here; the spectral-image carry is the engine's
 only behaviour.
 """
+import numpy as np
 import torch
 
 #: Precision clipping bounds for message precisions (reference
@@ -42,3 +43,23 @@ def as_tensor(x, device=None, dtype=None):
         return x.to(device=device or x.device, dtype=dtype or x.dtype)
     return torch.as_tensor(x, device=device or default_device(),
                            dtype=dtype or DEFAULT_DTYPE)
+
+
+def as_complex(x, device=None, dtype=None):
+    """``x`` (complex or real) as a complex tensor on ``device`` whose real
+    and imaginary parts have the floating ``dtype``.
+
+    A tensor keeps its own device and precision where the argument is None;
+    anything else (numpy arrays) goes to ``device`` (None:
+    ``default_device()``) with the default dtype."""
+    if isinstance(x, torch.Tensor):
+        real = x.real.dtype if x.is_complex() else x.dtype
+        if dtype is None and not real.is_floating_point:
+            dtype = DEFAULT_DTYPE
+        device = device or x.device
+        dtype = dtype or real
+    else:
+        x = torch.as_tensor(np.asarray(x))
+        device = device or default_device()
+        dtype = dtype or DEFAULT_DTYPE
+    return x.to(device=device, dtype=dtype.to_complex())

@@ -5,7 +5,7 @@ A model is described as a dict:
 
 - ``"nodes"``: the DAG's nodes in its insertion order, each a dict with
   ``"class"`` (the class name, the same in both packages) and either
-  ``"id"`` (variables) or ``"data"`` / ``"meta"`` (factors: the values of
+  ``"id"``, ``"n_prev"`` and ``"n_next"`` (variables) or ``"data"`` / ``"meta"`` (factors: the values of
   the class's ``_data_fields``, as numpy arrays or numbers, and of its
   ``_meta_fields``; an ``ensemble`` is described by its class name and
   constructor keywords);
@@ -17,20 +17,28 @@ node order and edge (message-slot) order. A message state is a list of
 ``{"a", "b"}`` numpy dicts, one per slot (``{"a"}`` alone for a
 state-evolution state), plus the spectral cache
 ``{str(node index): array}`` when the engine carries one. The JAX linear
-channel's SVD factors travel with it: JAX's and torch's SVDs differ in
-column signs, so recomputing them would change every message.
+channels' SVD factors travel with them: JAX's and torch's SVDs differ in
+column signs (column phases for a complex W), so recomputing them would
+change every message. A factor with several inputs or outputs (sum,
+duplicate, concat) is wired by its edges like any other; its variables are
+the JAX model's SIMO/MISO classes. The JAX package stores a complex
+operator as a packed real pair ``(2, ...)`` (real part, imaginary part);
+the port keeps it as a complex tensor (a class's ``_packed_fields``).
 """
 import numpy as np
+import torch
 
-from .base import Factor
+from .base import Factor, Variable
 from .channels import (
-    AnalyticalLinearChannel, MarchenkoPasturChannel,
+    AnalyticalLinearChannel, MarchenkoPasturChannel, ComplexLinearChannel,
+    UnitaryChannel, ModulusChannel, BiasChannel, SumChannel,
+    DuplicateChannel, ConcatChannel, ReshapeChannel,
     GaussianChannel, LinearChannel, SgnChannel, AbsChannel,
     AsymmetricAbsChannel, ReluChannel, LeakyReluChannel, HardTanhChannel,
     HardSigmoidChannel, SymmetricDoorChannel, AnalyticAbsChannel,
     AnalyticReluChannel,
 )
-from .config import as_tensor
+from .config import as_complex, as_tensor
 from .ensembles import MarchenkoPasturEnsemble
 from .likelihoods import (
     GaussianLikelihood, SgnLikelihood, AbsLikelihood, ModulusLikelihood,
@@ -45,7 +53,10 @@ from .priors import (
     ExponentialPrior, PositivePrior, MAP_L1NormPrior, MAP_L21NormPrior,
     CommitteeBinaryPrior,
 )
-from .variables import SISOVariable, SILeafVariable
+from .variables import (
+    SISOVariable, SIMOVariable, MISOVariable, MILeafVariable,
+    SILeafVariable, MORootVariable, SORootVariable,
+)
 
 FACTOR_CLASSES = {cls.__name__: cls for cls in (
     GaussBernoulliPrior, GaussianPrior, BinaryPrior, GaussianMixturePrior,
@@ -55,6 +66,8 @@ FACTOR_CLASSES = {cls.__name__: cls for cls in (
     AsymmetricAbsChannel, ReluChannel, LeakyReluChannel, HardTanhChannel,
     HardSigmoidChannel, SymmetricDoorChannel, MarchenkoPasturChannel,
     AnalyticalLinearChannel, AnalyticAbsChannel, AnalyticReluChannel,
+    ComplexLinearChannel, UnitaryChannel, ModulusChannel, BiasChannel,
+    SumChannel, DuplicateChannel, ConcatChannel, ReshapeChannel,
     GaussianLikelihood, SgnLikelihood, AbsLikelihood, ModulusLikelihood,
     PiecewiseLinearLikelihood, ReluLikelihood, LeakyReluLikelihood,
     AsymmetricAbsLikelihood, HardTanhLikelihood, HardSigmoidLikelihood,
@@ -62,7 +75,8 @@ FACTOR_CLASSES = {cls.__name__: cls for cls in (
 )}
 ENSEMBLE_CLASSES = {"MarchenkoPasturEnsemble": MarchenkoPasturEnsemble}
 VARIABLE_CLASSES = {cls.__name__: cls for cls in (
-    SISOVariable, SILeafVariable)}
+    SISOVariable, SIMOVariable, MISOVariable, MILeafVariable,
+    SILeafVariable, MORootVariable, SORootVariable)}
 
 
 def factor_from_description(desc, device=None, dtype=None):
@@ -74,8 +88,14 @@ def factor_from_description(desc, device=None, dtype=None):
     cls = FACTOR_CLASSES[name]
     factor = cls.__new__(cls)
     Factor.__init__(factor)
+    packed = getattr(cls, "_packed_fields", ())
     for field, value in desc["data"].items():
-        if value is None or np.ndim(value) > 0:
+        if field in packed:
+            pair = torch.as_tensor(np.array(value))
+            factor.register_buffer(
+                field, as_complex(torch.complex(pair[0], pair[1]), device,
+                                  dtype))
+        elif value is None or np.ndim(value) > 0:
             factor.register_buffer(
                 field, None if value is None
                 else as_tensor(np.array(value), device, dtype))
@@ -98,7 +118,12 @@ def model_from_description(desc, device=None, dtype=None):
             if d["class"] not in VARIABLE_CLASSES:
                 raise NotImplementedError(
                     f"variable {d['class']} is not ported yet")
-            nodes.append(VARIABLE_CLASSES[d["class"]](id=d["id"]))
+            # the arity comes with the description: a SIMO, MISO or
+            # multi-input leaf variable takes its count in the constructor
+            cls = VARIABLE_CLASSES[d["class"]]
+            var = cls.__new__(cls)
+            Variable.__init__(var, d["id"], d["n_prev"], d["n_next"])
+            nodes.append(var)
         else:
             nodes.append(factor_from_description(d, device, dtype))
     dag = DiGraph()

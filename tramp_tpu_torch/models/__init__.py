@@ -1,7 +1,16 @@
-"""Model DSL: DAG algebra, the lowered Model and the GLM builders."""
+"""Model DSL: DAG algebra, the lowered Model, the GLM builders and the
+composite models."""
 from .base_model import Model
-from .dag_algebra import DAG, ModelDAG
+from .dag_algebra import DAG, FactorDAG, ModelDAG
+from .factor_model import FactorModel
 from .generalized_linear_model import glm_generative, glm_state_evolution
+from .multi_layer_model import MultiLayerModel
+from .committee_model import committee, sgn_committee, soft_committee
+from .vae_prior import (
+    vae_prior_block, vae_prior_from_h5, load_vae_decoder_weights)
 
-__all__ = ["Model", "DAG", "ModelDAG", "glm_generative",
-           "glm_state_evolution"]
+__all__ = ["Model", "DAG", "FactorDAG", "ModelDAG", "FactorModel",
+           "glm_generative", "glm_state_evolution", "MultiLayerModel",
+           "committee", "sgn_committee", "soft_committee",
+           "vae_prior_block", "vae_prior_from_h5",
+           "load_vae_decoder_weights"]

@@ -59,11 +59,12 @@ class Model:
         return Model(self.model_dag.to_observed(observations))
 
     def device_dtype(self):
-        """Device and dtype of the factors' arrays, else those a factor was
+        """Device and (real) dtype of the factors' arrays, else those a factor was
         built with, else the config defaults (which need a card)."""
         for f in self.factors:
             for buf in f.buffers():
-                return buf.device, buf.dtype
+                # a complex operator's messages are its real parts, packed
+                return buf.device, buf.dtype.to_real()
         for f in self.factors:
             if getattr(f, "device", None) is not None:
                 return torch.device(f.device), f.dtype or DEFAULT_DTYPE
@@ -89,8 +90,8 @@ class Model:
             if not isinstance(node, Factor):
                 continue
             X_prev = [values[self.edges[e][0]] for e in self.in_edges[i]]
-            X = node.sample(generator, *X_prev)
-            for e in self.out_edges[i]:
+            X_next = _per_output(node, node.sample(generator, *X_prev))
+            for X, e in zip(X_next, self.out_edges[i]):
                 values[self.edges[e][1]] = X
         return {
             n.id: values[i]
@@ -103,31 +104,31 @@ class Model:
         package evaluates ``sample`` abstractly, base_model.py:98-119)."""
         if self._shapes is not None:
             return self._shapes
-        shapes = {}
-        for i, node in enumerate(self.nodes):
-            if not isinstance(node, Factor) or node.n_next == 0:
-                continue
-            prev_shapes = [shapes[self.edges[e][0]] for e in self.in_edges[i]]
-            out = node.out_shape(*prev_shapes)
-            for e in self.out_edges[i]:
-                shapes[self.edges[e][1]] = out
-        self._shapes = shapes
-        return shapes
+        self._shapes = self._propagate(
+            lambda node, prev: node.out_shape(*prev))
+        return self._shapes
 
     def init_second_moments(self):
         """Propagate tau through the factors: {node index of a variable:
         its second moment}, each a Python number or a tensor (per lane when
         a hyperparameter is). Reference base_model.py:111-124."""
-        taus = {}
+        self._second_moments = self._propagate(
+            lambda node, prev: node.second_moment(*prev))
+        return self._second_moments
+
+    def _propagate(self, rule):
+        """{node index of a variable: value} from ``rule(factor, values of
+        its inputs)``, which gives one value per output of the factor (a
+        list or tuple when it has several)."""
+        values = {}
         for i, node in enumerate(self.nodes):
             if not isinstance(node, Factor) or node.n_next == 0:
                 continue
-            tau_prev = [taus[self.edges[e][0]] for e in self.in_edges[i]]
-            tau = node.second_moment(*tau_prev)
-            for e in self.out_edges[i]:
-                taus[self.edges[e][1]] = tau
-        self._second_moments = taus
-        return taus
+            prev = [values[self.edges[e][0]] for e in self.in_edges[i]]
+            for value, e in zip(_per_output(node, rule(node, prev)),
+                                self.out_edges[i]):
+                values[self.edges[e][1]] = value
+        return values
 
     def get_shapes(self):
         shapes = self.init_shapes()
@@ -138,6 +139,11 @@ class Model:
         taus = self.init_second_moments()
         return {n.id: taus[i] for i, n in enumerate(self.nodes)
                 if isinstance(n, Variable) and i in taus}
+
+
+def _per_output(node, value):
+    "A factor's result as a list with one entry per output."
+    return list(value) if node.n_next > 1 else [value]
 
 
 def _meta_factor(factor):

@@ -1,7 +1,9 @@
 """DAG algebra: ``@`` (sequential composition via placeholder surgery) and
-``+`` (parallel union), and ``to_observed`` channel->likelihood surgery.
+``+`` (parallel union), FactorDAG -> ModelDAG variable insertion, and
+``to_observed`` channel->likelihood surgery.
 Counterpart of tramp_tpu/models/dag_algebra.py."""
 from ..base import Variable, Factor
+from ..variables import SISOVariable, SILeafVariable
 from .graph import DiGraph
 
 
@@ -86,10 +88,60 @@ class DAG:
             dag.add_edge(prevs[0], nexts[0])
         return DAG(dag)
 
+    def to_factor_dag(self):
+        return FactorDAG(self.dag)
+
+    def to_model_dag(self):
+        """A ModelDAG: the DAG itself when it names its variables, else its
+        factors with variables inserted (FactorDAG.to_model_dag)."""
+        for node in self.dag.nodes:
+            if isinstance(node, Variable):
+                return ModelDAG(self.dag)
+        return FactorDAG(self.dag).to_model_dag()
+
     def to_model(self):
-        "The lowered Model; the DAG must name its variables (V / O)."
+        "The lowered Model."
         from .base_model import Model
-        return Model(ModelDAG(self.dag))
+        return Model(self.to_model_dag())
+
+
+def check_factor_dag(dag):
+    for node in dag.nodes:
+        if not isinstance(node, (Factor, PlaceHolder)):
+            raise ValueError(f"node {node} must be a Factor or PlaceHolder")
+
+
+class FactorDAG(DAG):
+    "Factors-only DAG; variables are inserted. Reference l:184-212."
+
+    def __init__(self, dag):
+        if isinstance(dag, Variable):
+            raise ValueError(f"Cannot convert variable {dag} to a FactorDAG")
+        if isinstance(dag, Factor):
+            dag = to_dag(dag)
+        check_factor_dag(dag)
+        super().__init__(dag)
+
+    def to_model_dag(self):
+        """Insert a SISO variable ``x_i`` on every factor->factor edge and a
+        leaf ``y_j`` on every factor->placeholder edge, in edge order."""
+        if self._roots_ph:
+            raise ValueError(
+                "cannot convert FactorDAG -> ModelDAG: "
+                f"there are {len(self._roots_ph)} RootPlaceHolders")
+        dag = DiGraph()
+        id_x = id_y = 0
+        for source, target in self.dag.edges:
+            if isinstance(target, PlaceHolder):
+                variable = SILeafVariable(id=f"y_{id_y}")
+                id_y += 1
+            else:
+                variable = SISOVariable(id=f"x_{id_x}")
+                id_x += 1
+            dag.add_edge(source, variable)
+            if not isinstance(target, PlaceHolder):
+                dag.add_edge(variable, target)
+        return ModelDAG(dag)
 
 
 def check_model_dag(dag):
@@ -109,19 +161,18 @@ def check_model_dag(dag):
 
 def channel2likelihood(channel, y, y_name):
     """Swap a leaf channel for the matching likelihood. Reference l:21-40.
-    ``ModulusChannel`` (phase retrieval) waits for the complex channels
-    (ROADMAP Queue 1 item 4); every other branch of the JAX package's is
-    here. The likelihood takes ``y`` as it comes (a tensor keeps its device
-    and dtype)."""
+    The likelihood takes ``y`` as it comes (a tensor keeps its device and
+    dtype)."""
     from ..channels import (
         GaussianChannel, AbsChannel, AsymmetricAbsChannel, SgnChannel,
         ReluChannel, LeakyReluChannel, HardTanhChannel, HardSigmoidChannel,
-        SymmetricDoorChannel,
+        SymmetricDoorChannel, ModulusChannel,
     )
     from ..likelihoods import (
         GaussianLikelihood, AbsLikelihood, AsymmetricAbsLikelihood,
         SgnLikelihood, ReluLikelihood, LeakyReluLikelihood,
         HardTanhLikelihood, HardSigmoidLikelihood, SymmetricDoorLikelihood,
+        ModulusLikelihood,
     )
     if isinstance(channel, GaussianChannel):
         return GaussianLikelihood(y=y, y_name=y_name, var=channel.var)
@@ -141,10 +192,8 @@ def channel2likelihood(channel, y, y_name):
         return HardSigmoidLikelihood(y=y, y_name=y_name)
     if isinstance(channel, SymmetricDoorChannel):
         return SymmetricDoorLikelihood(y=y, y_name=y_name, width=channel.width)
-    if type(channel).__name__ == "ModulusChannel":
-        raise NotImplementedError(
-            "ModulusChannel is not ported yet: phase retrieval's EP half "
-            "waits for the complex channels (ROADMAP Queue 1 item 4)")
+    if isinstance(channel, ModulusChannel):
+        return ModulusLikelihood(y=y, y_name=y_name)
     raise NotImplementedError(f"cannot convert {channel} to likelihood")
 
 

@@ -1,7 +1,8 @@
 """GLM builders. Counterpart of
-tramp_tpu/models/generalized_linear_model.py. Every prior and likelihood
-type of the JAX registries builds; the complex GLM (``output_type=
-"modulus"`` in ``glm_generative``) waits for the complex channels."""
+tramp_tpu/models/generalized_linear_model.py. Every prior and output type
+of the JAX registries builds; ``output_type="modulus"`` builds the complex
+GLM of phase retrieval: a prior over packed (2, N) complex x and a
+``ComplexLinearChannel``."""
 from ..channels import get_channel
 from ..ensembles import get_ensemble
 from ..likelihoods import get_likelihood
@@ -21,17 +22,16 @@ def glm_generative(N, alpha, ensemble_type, prior_type, output_type,
     l:17-35. ``generator`` draws the matrix; ``device`` and ``dtype`` are
     those of the model's arrays (None: the first card, the default
     dtype)."""
-    if output_type == "modulus":
-        raise NotImplementedError(
-            "the complex GLM is not ported yet: it needs ComplexLinearChannel "
-            "(ROADMAP Queue 1 item 4)")
     M = int(alpha * N)
     ensemble = get_ensemble(ensemble_type, M=M, N=N,
                             **get_kwargs("ensemble", kwargs))
     F = ensemble.generate(generator, device=device, dtype=dtype)
-    prior = get_prior(size=N, prior_type=prior_type, device=device,
-                      dtype=dtype, **get_kwargs("prior", kwargs))
-    linear = get_channel("linear", W=F, name="F")
+    complex_glm = output_type == "modulus"
+    prior = get_prior(size=(2, N) if complex_glm else N,
+                      prior_type=prior_type, device=device, dtype=dtype,
+                      **get_kwargs("prior", kwargs))
+    linear = get_channel("complex_linear" if complex_glm else "linear",
+                         W=F, name="F")
     output = get_channel(channel_type=output_type,
                          **get_kwargs("output", kwargs))
     return (

@@ -3,8 +3,9 @@ enumeration over 2^K configurations. Counterpart of
 tramp_tpu/priors/committee_binary_prior.py.
 
 One instance only: its precision is a K x K matrix per component, which is
-not one value per lane (tramp_tpu_torch/lanes.py). Lanes wait for the
-committee model (ROADMAP Queue 1 item 4) and raise here."""
+not one value per lane (tramp_tpu_torch/lanes.py). Lanes raise here: the
+committee models do not use this prior, and its lanes wait for the engine
+extras (ROADMAP Queue 1 item 7)."""
 import numpy as np
 import torch
 
@@ -61,8 +62,8 @@ class CommitteeBinaryPrior(Prior):
                 or bx.ndim > 2):
             raise ValueError(
                 "CommitteeBinaryPrior takes one instance: its precision is a "
-                "K x K matrix, not one value per lane; lanes wait for the "
-                "committee model (ROADMAP Queue 1 item 4)")
+                "K x K matrix, not one value per lane; its lanes wait for "
+                "ROADMAP Queue 1 item 7")
 
     def sample(self, generator):
         u = torch.rand(self.size, generator=generator,
