@@ -184,9 +184,46 @@ line is printed):
     each that the JAX package defines, through ``glm_generative`` /
     ``glm_state_evolution`` where those build the factor. The analytic abs
     channel's prior has mean 1 (from b = 0 a mean-0 prior leaves EP at
-    r = 0). The committee-binary prior takes a K x K precision, which the
-    EP engine does not pass: its denoiser's posterior and log-partition,
-    exact in one step, are held card against CPU.
+    r = 0). The L21 prior is solved as a denoiser and in a GLM, its (N, 2)
+    variable through a dense LinearChannel (W @ Z). The committee-binary
+    prior takes a K x K precision, which the EP engine does not pass: its
+    denoiser's posterior and log-partition, exact in one step, are held
+    card against CPU.
+13. (run before the summary) the structured real channels, total
+    variation, the low-rank family and the tanh channel (ROADMAP Queue 1
+    items 4c, 6 and 7's tanh), none of which reaches a piecewise-linear
+    kernel (each path's launches are 0 and listed in the kernels line):
+   a. BASELINE config 3, the sparse gradient of bench.py:536-570 (N = 400,
+      rho 0.04, noise 1e-2) through ``EPSolver(damping=0.1, tol=1e-6,
+      max_iter=1000)`` in float32 and float64: v and MSE f32 against f64
+      within 5e-2 (bench.py:114-115), a profiled loop window, float64 on
+      the card against the CPU;
+   b. the sparse-gradient regression tree at bench_tree_carry's size (N =
+      2048, M = 1024, rho 0.05), 256 lanes on one A with a teacher and y
+      each, float32, through ``EPSolver.solve_batch``: three lanes against
+      their single solves (1e-3 of the largest |r|, n_iter within 2) and
+      the readings of phase 7;
+   c. 64 x 64 images, float64: the denoising example with the 2-D
+      GradientChannel and a sparse-gradient or TV (L21) prior (mse under
+      noise / (1 + noise)), the deconvolution example through
+      Blur2DChannel (mse under the blurred observation's), and
+      ``tv_regression`` (16 x 16) through EPSolver, card against CPU;
+   d. the low-rank Delta sweep of bench.py:1393-1480 (M = N = 512, K = 2,
+      16 seeds x 5 Deltas, float32 with TF32 off, one batched solve of 16
+      lanes per Delta): dev = |mse_x - pred| / (3 sd + 0.1 pred) at most 1
+      at every Delta, pred from ``se_matrix_factorization_kk(damping=0.5)``;
+      instances/s; one iteration of the solver's loop under
+      torch.profiler; then in float64 run to tol 1e-12 (at the bench's tol
+      the chaotic first iterations leave the fixed point 1e-3 off), two of
+      4 lanes against their single solves and M = N = 128 card against CPU
+      (rtol 1e-8);
+   e. ``LowRankFactorization`` and ``LowRankGramChannel`` inside the EP
+      engine at tests/test_low_rank_activation.py:326-388's protocol, 512
+      wide, float32: mse_x < 0.25 tau_x, the embedded solves' iterations
+      per sweep;
+   f. ``TanhChannel`` in place of the relu net's relu (N = 4096): f32
+      against f64 within 5e-2 in v and MSE; N = 256 float64 card against
+      CPU.
 
 The messages at a path's final state (11d-f) are held element by element
 within rtol (|a| + |a + a_new|) and rtol (|b| + |b + b_new|), the two terms
@@ -2747,15 +2784,17 @@ def phase_12(torch, tt, pl, card):
     on the card, through glm_generative / glm_state_evolution where those
     build it (the MAP priors and the analytic channels have no SE in the
     JAX package; the L21 and committee-binary priors take an (N, K)
-    shape, which the GLM builders do not build; the committee-binary
-    prior's K x K precision is not what the EP engine passes, so its
-    denoiser is solved in its one exact step); EP on the card against the
-    same model on the CPU (equal n_iter, r and v to rtol 1e-8). Returns
-    the launches."""
+    shape, which the GLM builders do not build: the L21 prior is solved as
+    a denoiser and in a GLM through a dense LinearChannel; the
+    committee-binary prior's K x K precision is not what the EP engine
+    passes, so its denoiser is solved in its one exact step); EP on the
+    card against the same model on the CPU (equal n_iter, r and v to rtol
+    1e-8). Returns the launches."""
     from tramp_tpu_torch.algos import ConstantInit
     from tramp_tpu_torch.channels import (
         AnalyticAbsChannel, AnalyticReluChannel, GaussianChannel,
         LinearChannel)
+    from tramp_tpu_torch.likelihoods import GaussianLikelihood
     from tramp_tpu_torch.parallel import EPSolver
     from tramp_tpu_torch.priors import (
         CommitteeBinaryPrior, GaussBernoulliPrior, MAP_L21NormPrior)
@@ -2842,9 +2881,10 @@ def phase_12(torch, tt, pl, card):
               f"n_iter={int(n_iter)} conv={bool(conv)} "
               f"v={float(post['x']['v']):.6g}; no SE "
               f"(the JAX package defines none for this channel) [{card}]")
-    # priors the GLM builders cannot build (their shape is (N, K)); the
-    # port's LinearChannel takes a two-dimensional message for lanes, so
-    # the L21 prior is solved as a denoiser
+    # priors the GLM builders cannot build (their shape is (N, K)): the
+    # L21 prior as a denoiser, and in a GLM, its (N, 2) variable through a
+    # dense LinearChannel (which tells lanes from the precision, so that a
+    # trailing K axis multiplies as W @ Z)
     rng = np.random.RandomState(3)
     models = {}
     for device in ("cpu", "cuda"):
@@ -2864,6 +2904,31 @@ def phase_12(torch, tt, pl, card):
                      res["cuda"][1], ("x",))
     print(f"phase 12 prior L21_norm: EP n_iter={int(res['cuda'][1])} "
           f"conv={bool(res['cuda'][2])}; no SE (none in the JAX package) "
+          f"[{card}]")
+    M = 300
+    W = rng.randn(M, PHASE_12_N) / np.sqrt(PHASE_12_N)
+    x0 = rng.randn(PHASE_12_N, 2) * (rng.rand(PHASE_12_N, 1) < 0.2)
+    y = W @ x0 + 0.1 * rng.randn(M, 2)
+    cpu = (MAP_L21NormPrior(size=(PHASE_12_N, 2), axis=1, device="cpu",
+                            dtype=f64)
+           @ tt.V(id="x") @ LinearChannel(W, name="W", device="cpu",
+                                          dtype=f64)
+           @ tt.V(id="z") @ GaussianLikelihood(y=y, var=1e-2, device="cpu",
+                                               dtype=f64)).to_model()
+    models = {"cpu": cpu, "cuda": on_card(torch, cpu)}
+    res = {d: EPSolver(m, **kw).solve_info(
+        m, initializer=ConstantInit(a=1.0, b=1.0)) for d, m in models.items()}
+    post = res["cuda"][0]
+    check(post["x"]["r"].shape == (PHASE_12_N, 2)
+          and bool(torch.isfinite(post["x"]["r"]).all()),
+          "phase 12 L21 GLM: x posterior not finite or of another shape")
+    card_against_cpu(torch, f"phase 12 prior L21_norm in a GLM, (N, 2) x "
+                     f"through W ({M} x {PHASE_12_N}), EP", res["cpu"][0],
+                     res["cpu"][1], post, res["cuda"][1], ("x", "z"))
+    mse = float(((post["x"]["r"].cpu() - torch.as_tensor(x0)) ** 2).mean())
+    print(f"phase 12 prior L21_norm in a GLM: EP n_iter="
+          f"{int(res['cuda'][1])} conv={bool(res['cuda'][2])} "
+          f"mse={mse:.6g} (signal power {float(np.mean(x0**2)):.6g}) "
           f"[{card}]")
     # the committee-binary prior takes a K x K precision, and the EP
     # engine (the JAX package's too) passes one number: its denoiser
@@ -2896,6 +2961,575 @@ def phase_12(torch, tt, pl, card):
     check(not any(launches.values()), f"phase 12 ran kernels: {launches}")
     print(f"phase 12: {time.perf_counter() - t0:.1f} s [{card}]")
     return launches
+
+
+# -- phase 13: the structured channels, total variation, low rank, tanh ------
+SPARSE_GRADIENT = dict(N=400, rho=0.04, noise_var=1e-2, seed=1)
+SG_SOLVE = dict(damping=0.1, max_iter=1000, tol=1e-6)   # bench.py:567
+SG_BOUND = 5e-2        # bench.py:114-115, f32 against f64 in v and MSE
+TREE = dict(N=2048, M=1024, rho=0.05, lanes=256)    # bench.py:1303-1325
+TREE_SOLVE = dict(damping=0.1, max_iter=1000, tol=1e-5)
+IMAGE = 64             # the examples' --big size
+IMAGE_NOISE = 0.1
+LOW_RANK = dict(M=512, N=512, K=2, seeds=16,
+                deltas=(0.1, 0.2, 0.4, 0.7, 1.0))   # bench.py:1378-1387
+#: the low-rank solves held element by element: run to a tight tol
+LOW_RANK_TIGHT = dict(tol=1e-12, max_iter=5000)
+LOW_RANK_TIGHT_RTOL = 1e-8
+LOW_RANK_EP = dict(width=512, K=2, delta_uv=0.1, delta_gram=0.05,
+                   damping=0.3, max_iter=20)
+TANH_N = 4096
+
+
+def sparse_gradient_student(torch, dtype, device="cuda",
+                            config=SPARSE_GRADIENT):
+    """BASELINE config 3's student (bench.py:536-570): x with a Gaussian
+    prior observed through Gaussian noise, its gradient Gauss-Bernoulli
+    (size (1, N)); teacher x0 the centred cumulative sum of a sparse draw.
+    Returns (student, x0)."""
+    from tramp_tpu_torch.channels import GaussianChannel, GradientChannel
+    from tramp_tpu_torch.priors import GaussBernoulliPrior, GaussianPrior
+    from tramp_tpu_torch.variables import (
+        MILeafVariable, SIMOVariable, SILeafVariable)
+    N, rho, noise = config["N"], config["rho"], config["noise_var"]
+    rng = np.random.RandomState(config["seed"])
+    z0 = (rng.rand(1, N) < rho) * rng.randn(1, N)
+    x0 = z0.ravel().cumsum()
+    x0 = x0 - x0.mean()
+    y = x0 + np.sqrt(noise) * rng.randn(N)
+    dkw = dict(device=device, dtype=dtype)
+    student = (
+        GaussianPrior(size=(N,), **dkw) @
+        SIMOVariable(id="x", n_next=2) @ (
+            GaussianChannel(var=noise) @ SILeafVariable(id="y") + (
+                GradientChannel(shape=(N,), **dkw) +
+                GaussBernoulliPrior(size=(1, N), rho=rho, **dkw)
+            ) @ MILeafVariable(id="z", n_prev=2))
+    ).to_model()
+    y = torch.as_tensor(y, device=device, dtype=dtype)
+    return student.to_observed({"y": y}), x0
+
+
+def phase_13a_sparse_gradient(torch, tt, pl, card):
+    """BASELINE config 3 through EPSolver in float32 and float64 with
+    bench.py's bounds, a profiled loop window, and float64 on the card
+    against the CPU. Returns the launches."""
+    from tramp_tpu_torch.parallel import EPSolver
+    reset_launches(pl)
+    res = {}
+    for dtype in (torch.float32, torch.float64):
+        student, x0 = sparse_gradient_student(torch, dtype)
+        solver = EPSolver(student, **SG_SOLVE)
+        solver.solve(student)                               # warm-up
+        out = {}
+        wall = timed_solve(torch, lambda: out.update(
+            res=solver.solve_info(student)))
+        post, n_iter, conv = out["res"]
+        r = post["x"]["r"].double().cpu().numpy()
+        check(np.isfinite(r).all() and r.shape == x0.shape,
+              f"sparse gradient {dtype_name(dtype)}: r not finite")
+        mse, v = float(np.mean((r - x0) ** 2)), float(post["x"]["v"])
+        res[dtype_name(dtype)] = (mse, v)
+        print(f"sparse gradient (BASELINE config 3, N={x0.size}, rho 0.04) "
+              f"{dtype_name(dtype)} through EPSolver: n_iter={int(n_iter)} "
+              f"conv={bool(conv)} mse={mse:.6g} v={v:.6g} wall={wall:.3f} s "
+              f"[{card}]")
+    launches = read_launches(pl)
+    (m32, v32), (m64, v64) = res["float32"], res["float64"]
+    v_rel, mse_rel = abs(v32 - v64) / v64, abs(m32 - m64) / m64
+    check(v_rel < SG_BOUND and mse_rel < SG_BOUND,
+          f"sparse gradient f32 vs f64: v {v_rel:.3g}, mse {mse_rel:.3g} "
+          f"(bound {SG_BOUND})")
+    print(f"sparse gradient f32 vs f64 (bench.py:114-115): v rel err "
+          f"{v_rel:.3e}, mse rel err {mse_rel:.3e} (bound {SG_BOUND})")
+    student, _ = sparse_gradient_student(torch, torch.float32)
+    print_window("sparse gradient float32, one instance, EPSolver",
+                 loop_window(lambda k: EPSolver(student, **dict(
+                     SG_SOLVE, max_iter=k, tol=0.0,
+                     rollback_increase=float("inf"))).solve(student)), card)
+    cpu, _ = sparse_gradient_student(torch, torch.float64, device="cpu")
+    gpu = on_card(torch, cpu)
+    cpu_post, cpu_n, _ = EPSolver(cpu, **SG_SOLVE).solve_info(cpu)
+    gpu_post, gpu_n, _ = EPSolver(gpu, **SG_SOLVE).solve_info(gpu)
+    card_against_cpu(torch, "sparse gradient N=400 f64 through EPSolver",
+                     cpu_post, cpu_n, gpu_post, gpu_n, ("x", "z"))
+    check(not any(launches.values()), f"sparse gradient ran {launches}")
+    return launches
+
+
+def phase_13b_tree_lanes(torch, tt, pl, card):
+    """The sparse-gradient regression tree at bench_tree_carry's size:
+    TREE["lanes"] lanes on one A, a teacher and a y each, float32, through
+    EPSolver.solve_batch; three lanes against their single solves; the
+    readings of phase 7. Returns the launches."""
+    from tramp_tpu_torch.parallel import EPSolver, with_buffers
+    N, M, lanes = TREE["N"], TREE["M"], TREE["lanes"]
+    rng = np.random.RandomState(0)
+    A = rng.randn(M, N) / np.sqrt(N)
+    x0 = np.cumsum(rng.randn(lanes, N) * (rng.rand(lanes, N) < TREE["rho"]),
+                   axis=1)
+    ys = x0 @ A.T + 0.1 * rng.randn(lanes, M)
+    f32 = dict(device="cuda", dtype=torch.float32)
+    model = tt.models.sparse_gradient_regression(
+        A, ys[0], x_shape=(N,), grad_rho=TREE["rho"], noise_var=1e-2,
+        prior_var=1.0, **f32)
+    index = next(i for i, f in enumerate(model.factors)
+                 if type(f).__name__ == "GaussianLikelihood")
+    ys = torch.as_tensor(ys, **f32)
+    stacked = with_buffers(model, {(index, "y"): ys})
+    solver = EPSolver(model, **TREE_SOLVE)
+    what = (f"sparse-gradient regression tree N={N} M={M} float32, "
+            f"EPSolver.solve_batch over {lanes} lanes")
+    w = print_window(what, loop_window(lambda k: EPSolver(model, **dict(
+        TREE_SOLVE, max_iter=k, tol=0.0,
+        rollback_increase=float("inf"))).solve_batch(stacked)), card)
+    post, n_iter, conv, launches = batched_solve(
+        torch, pl, what, lambda: _ep_batch(solver, stacked), lanes, card, w)
+    mse = ((post["x"]["r"].double().cpu() - torch.as_tensor(x0)) ** 2).mean(1)
+    print(f"{what}: launches per iteration {w['kernels']:.1f}; mse of x per "
+          f"lane {float(mse.min()):.4g} to {float(mse.max()):.4g} (mean "
+          f"{float(mse.mean()):.4g}); iterations per lane, largest first: "
+          f"{sorted(n_iter.tolist(), reverse=True)[:5]}")
+    lanes_against_singles(torch, what, solver, model, index, ys, post,
+                          n_iter)
+    check(not any(launches.values()), f"{what}: ran kernels {launches}")
+    return launches
+
+
+def make_image(H, W, rng):
+    "examples/sparse/image_denoising.py's piecewise-constant image."
+    x = np.zeros((H, W))
+    for _ in range(6):
+        r0, c0 = rng.randint(0, H - 4), rng.randint(0, W - 4)
+        r1, c1 = rng.randint(r0 + 2, H), rng.randint(c0 + 2, W)
+        x[r0:r1, c0:c1] += rng.randn()
+    return (x - x.mean()) / x.std()
+
+
+def phase_13c_images(torch, tt, pl, card):
+    """The 2-D channels on 64 x 64 images, float64: the denoising example
+    with a sparse-gradient and a TV prior on the 2-D gradient (bound: mse <
+    noise / (1 + noise)), the deconvolution example through Blur2DChannel
+    (bound: mse_ep < mse of the blurred observation), and tv_regression
+    through EPSolver on the card against the CPU. Returns the launches."""
+    from tramp_tpu_torch.algos import ConstantInit, EarlyStoppingEP
+    from tramp_tpu_torch.channels import (
+        Blur2DChannel, GaussianChannel, GradientChannel)
+    from tramp_tpu_torch.parallel import EPSolver
+    from tramp_tpu_torch.priors import (
+        GaussBernoulliPrior, GaussianPrior, MAP_L21NormPrior)
+    from tramp_tpu_torch.variables import (
+        MILeafVariable, SIMOVariable, SILeafVariable)
+    reset_launches(pl)
+    dkw = dict(device="cuda", dtype=torch.float64)
+    H = W = IMAGE
+    noise = IMAGE_NOISE
+    rng = np.random.RandomState(0)
+    x0 = make_image(H, W, rng)
+    y = x0 + np.sqrt(noise) * rng.randn(H, W)
+    g = np.stack(np.gradient(x0))
+    nz = np.abs(g) > 0.05
+    bound = noise / (1 + noise)
+    priors = {
+        "sparse-gradient": GaussBernoulliPrior(
+            size=(2, H, W), rho=float(nz.mean()), var=float(g[nz].var()),
+            **dkw),
+        "TV": MAP_L21NormPrior(size=(2, H, W), gamma=1.0, axis=0, **dkw)}
+    for name, grad_prior in priors.items():
+        student = (
+            GaussianPrior(size=(H, W), **dkw) @
+            SIMOVariable(id="x", n_next=2) @ (
+                GaussianChannel(var=noise) @ SILeafVariable(id="y") + (
+                    GradientChannel(shape=(H, W), **dkw) + grad_prior
+                ) @ MILeafVariable(id="x'", n_prev=2))
+        ).to_model().to_observed({"y": torch.as_tensor(y, **dkw)})
+        ep = tt.ExpectationPropagation(student)
+
+        def run():
+            if name == "TV":
+                ep.iterate(max_iter=100, damping=0.0,
+                           initializer=ConstantInit(a=1, b=1))
+            else:
+                ep.iterate(max_iter=200, damping=0.1,
+                           callback=EarlyStoppingEP())
+        wall = timed_solve(torch, run)
+        r = ep.get_variable_data("x")["r"].cpu().numpy()
+        mse = float(np.mean((r - x0) ** 2))
+        check(np.isfinite(r).all() and mse < bound,
+              f"image denoising {name}: mse {mse:.4g} (bound {bound:.4g})")
+        print(f"image denoising {H}x{W} f64, {name} prior on the 2-D "
+              f"gradient: n_iter={ep.n_iter} mse={mse:.6g} < noise/(1+noise)"
+              f" = {bound:.4g} (noisy {float(np.mean((y - x0) ** 2)):.4g}), "
+              f"wall={wall:.3f} s [{card}]")
+        if name == "sparse-gradient":
+            kernels, device, wall_ms = sweep_window(ep)
+            print(f"image denoising {H}x{W} f64, sparse-gradient prior, "
+                  f"torch.profiler over 10 warm sweeps: {kernels:.1f} kernels "
+                  f"per sweep, device {device:.4f} ms of {wall_ms:.4f} ms, "
+                  f"busy {100 * device / wall_ms:.2f}% [{card}]")
+    # deconvolution (examples/sparse/image_deconvolution.py)
+    rng = np.random.RandomState(0)
+    x0 = make_image(H, W, rng)
+    sigma = H / 16.0
+    blur = Blur2DChannel(sigma=(sigma, sigma), shape=(H, W), **dkw)
+    y = blur.sample(None, torch.as_tensor(x0, **dkw)).cpu().numpy()
+    y = y + np.sqrt(noise) * rng.randn(H, W)
+    student = (
+        GaussianPrior(size=(H, W), **dkw) @ tt.V(id="x") @
+        Blur2DChannel(sigma=(sigma, sigma), shape=(H, W), **dkw) @
+        tt.V(id="z") @ GaussianChannel(var=noise) @ tt.O(id="y")
+    ).to_model().to_observed({"y": torch.as_tensor(y, **dkw)})
+    ep = tt.ExpectationPropagation(student)
+    wall = timed_solve(torch, lambda: ep.iterate(max_iter=100))
+    r = ep.get_variable_data("x")["r"].cpu().numpy()
+    mse_ep, mse_blurred = (float(np.mean((r - x0) ** 2)),
+                           float(np.mean((y - x0) ** 2)))
+    check(np.isfinite(r).all() and mse_ep < mse_blurred,
+          f"deconvolution: mse {mse_ep:.4g}, blurred {mse_blurred:.4g}")
+    print(f"deconvolution {H}x{W} f64 through Blur2DChannel (sigma "
+          f"{sigma:g}): n_iter={ep.n_iter} mse_ep={mse_ep:.6g} < "
+          f"mse_blurred={mse_blurred:.6g}, wall={wall:.3f} s [{card}]")
+    # tv_regression, card against CPU
+    shape = (16, 16)
+    N = int(np.prod(shape))
+    rng = np.random.RandomState(4)
+    A = rng.randn(3 * N // 4, N) / np.sqrt(N)
+    xt = make_image(*shape, rng).ravel()
+    y = A @ xt + 0.1 * rng.randn(A.shape[0])
+    cpu = tt.models.tv_regression(A, y, x_shape=shape, grad_scale=1.0,
+                                  noise_var=1e-2, prior_var=1.0,
+                                  device="cpu", dtype=torch.float64)
+    gpu = on_card(torch, cpu)
+    kw = dict(damping=0.1, max_iter=200, tol=1e-6)
+    init = ConstantInit(a=1.0, b=1.0)
+    cpu_post, cpu_n, _ = EPSolver(cpu, **kw).solve_info(cpu, init)
+    gpu_post, gpu_n, conv = EPSolver(gpu, **kw).solve_info(gpu, init)
+    card_against_cpu(torch, f"tv_regression {shape} f64 through EPSolver",
+                     cpu_post, cpu_n, gpu_post, gpu_n, ("x", "x'", "z"))
+    mse = float(np.mean((gpu_post["x"]["r"].cpu().numpy()
+                         - xt.reshape(shape)) ** 2))
+    print(f"tv_regression {shape}: n_iter={int(gpu_n)} conv={bool(conv)} "
+          f"mse={mse:.6g} [{card}]")
+    launches = read_launches(pl)
+    check(not any(launches.values()), f"phase 13c ran kernels {launches}")
+    return launches
+
+
+def low_rank_instances(Delta, seeds, M, N, K):
+    "bench.py:1398-1411's planted UV instances (numpy, f64 cast to f32)."
+    X0s, bxs = [], []
+    for s in range(seeds):
+        rng = np.random.RandomState(1000 * s)
+        u0 = rng.randn(M, K)
+        v0 = rng.randn(N, K)
+        X0 = u0 @ v0.T / np.sqrt(N)
+        Y = X0 + np.sqrt(Delta) * rng.randn(M, N)
+        X0s.append(X0.astype(np.float32))
+        bxs.append((Y / Delta).astype(np.float32))
+    return np.stack(X0s), np.stack(bxs)
+
+
+def phase_13d_low_rank_sweep(torch, tt, pl, card):
+    """bench.py:1393-1480 on the card: M = N = 512, K = 2, 16 seeds per
+    Delta, one batched solve of 16 lanes per Delta, float32 (TF32 off), each
+    Delta's empirical x-space MSE within the bench's band of the K x K SE
+    prediction; instances/s; in float64, run to tol 1e-12, two of 4 lanes
+    against their single solves and M = N = 128 on the card against the
+    CPU, its loop count within the CPU's own spread under a 1e-15 change
+    of bx. The float32 lane against its single solve
+    at the bench's tol 1e-5 is a reading: a rounding difference of the
+    batch moves that end point by about 1e-3."""
+    from tramp_tpu_torch.channels.low_rank import (
+        se_matrix_factorization_kk, vamp_matrix_factorization)
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on: the low-rank solver needs full float32 products")
+    M, N, K, S = (LOW_RANK[k] for k in ("M", "N", "K", "seeds"))
+    f32 = dict(device="cuda", dtype=torch.float32)
+    bu, bv = torch.zeros((M, K), **f32), torch.zeros((N, K), **f32)
+    data = {d: low_rank_instances(d, S, M, N, K) for d in LOW_RANK["deltas"]}
+
+    def solve(Delta, bx, stats=None):
+        return vamp_matrix_factorization(
+            au=1.0, av=1.0, bu=bu, bv=bv, ax=1.0 / Delta, bx=bx, model="UV",
+            stats=stats)
+
+    d0 = LOW_RANK["deltas"][0]
+    solve(d0, torch.as_tensor(data[d0][1], **f32))           # warm-up
+    total, devs = 0.0, []
+    for Delta in LOW_RANK["deltas"]:
+        X0s, bxs = data[Delta]
+        bx = torch.as_tensor(bxs, **f32)
+        stats, out = {}, {}
+        wall = timed_solve(torch, lambda: out.update(r=solve(Delta, bx,
+                                                             stats)))
+        total += wall
+        ru, vu, rv, vv = out["r"]
+        Xh = torch.einsum("smk,snk->smn", ru.double(), rv.double()) / \
+            math.sqrt(N)
+        mses = ((Xh.cpu() - torch.as_tensor(X0s).double()) ** 2).mean((1, 2))
+        emp, sd = float(mses.mean()), float(mses.std(unbiased=False)
+                                            / math.sqrt(S))
+        mse_u, mse_v = se_matrix_factorization_kk(
+            au=1.0, av=1.0, ax=1.0 / Delta, model="UV", K=K, alpha=M / N,
+            damping=0.5, device="cuda")
+        q_u = torch.eye(K, dtype=torch.float64) - mse_u.cpu()
+        q_v = torch.eye(K, dtype=torch.float64) - mse_v.cpu()
+        pred = float((K - torch.trace(q_u @ q_v)) / N)
+        dev = abs(emp - pred) / (3 * sd + 0.1 * pred)
+        devs.append(dev)
+        check(math.isfinite(dev) and dev <= 1.0,
+              f"low rank Delta {Delta}: mse_x {emp:.4g} vs SE {pred:.4g}, "
+              f"dev {dev:.3g} > 1")
+        print(f"low rank UV M=N={N} K={K} Delta={Delta} f32, {S} lanes in "
+              f"one solve: {stats['iterations']} iterations of the loop, "
+              f"{wall:.4f} s; mse_x {emp:.6g} (sd of mean {sd:.3g}) vs SE "
+              f"{pred:.6g}, dev {dev:.3f} <= 1; vz_u "
+              f"{float(vu.mean()):.5g} [{card}]")
+        if Delta == 0.4:
+            one = {}
+            r1 = solve(Delta, bx[0], one)
+            X1 = (r1[0].double() @ r1[2].double().T / math.sqrt(N)).cpu()
+            print(f"low rank Delta 0.4 f32: lane 0 vs its single solve "
+                  f"(reading): x within "
+                  f"{rel_to_largest(torch, Xh[0].cpu(), X1):.3e} of the "
+                  f"largest |x|, {one['iterations']} iterations alone; the "
+                  "solve's stop (tol 1e-5) resolves its fixed point to about "
+                  "1e-3 after a chaotic start")
+    n = S * len(LOW_RANK["deltas"])
+    print(f"low rank Delta sweep: {n} instances in {total:.4f} s, "
+          f"{n / total:.2f} instances/s, worst dev {max(devs):.3f} [{card}]")
+    # one iteration of the solver's loop: run(k) runs exactly k iterations
+    bx = torch.as_tensor(data[0.4][1], **f32)
+    print_window(f"low rank solver, {S} lanes of {M} x {N} f32, Delta 0.4",
+                 loop_window(lambda k: vamp_matrix_factorization(
+                     au=1.0, av=1.0, bu=bu, bv=bv, ax=2.5, bx=bx,
+                     model="UV", max_iter=k - 1, min_iter=k, tol=0.0)), card)
+    # lanes against single solves and the card against the CPU, float64,
+    # each solve run to LOW_RANK_TIGHT's tol: a perturbation of 1e-13 of
+    # bx moves that fixed point by 1e-10 of the largest |x| (at the bench's
+    # tol 1e-5 by 1e-3: the first iterations amplify rounding by 1e9)
+    _, bxs = low_rank_instances(0.4, 4, M, N, K)
+    f64 = dict(device="cuda", dtype=torch.float64)
+
+    def tight(bx, M, N, stats=None, **kw):
+        r = vamp_matrix_factorization(
+            au=1.0, av=1.0, bu=torch.zeros((M, K), **kw),
+            bv=torch.zeros((N, K), **kw), ax=2.5, bx=bx, model="UV",
+            stats=stats, **LOW_RANK_TIGHT)
+        X = torch.einsum("...mk,...nk->...mn", r[0], r[2]) / math.sqrt(N)
+        return X.cpu(), r[1].reshape(-1).cpu()
+
+    stats = {}
+    X4, _ = tight(torch.as_tensor(bxs, **f64), M, N, stats, **f64)
+    for lane in (0, 3):
+        one = {}
+        X1, _ = tight(torch.as_tensor(bxs[lane], **f64), M, N, one, **f64)
+        err = rel_to_largest(torch, X4[lane], X1)
+        check(err < LOW_RANK_TIGHT_RTOL,
+              f"low rank f64: lane {lane} is {err:.3g} of the largest |x| "
+              f"off its single solve (bound {LOW_RANK_TIGHT_RTOL})")
+        print(f"low rank M=N={N} Delta 0.4 f64, 4 lanes at tol "
+              f"{LOW_RANK_TIGHT['tol']:g}: lane {lane} vs its single solve: "
+              f"x within {err:.3e} of the largest |x| (bound "
+              f"{LOW_RANK_TIGHT_RTOL}); {stats['iterations']} iterations for "
+              f"the batch, {one['iterations']} alone")
+    M2 = 128
+    _, bxs = low_rank_instances(0.4, 1, M2, M2, K)
+    post, loops = {}, {}
+    for device in ("cpu", "cuda"):
+        kw = dict(device=device, dtype=torch.float64)
+        loops[device] = {}
+        X, v = tight(torch.as_tensor(bxs[0], **kw), M2, M2, loops[device],
+                     **kw)
+        post[device] = {"x": {"r": X, "v": v}}
+    what = (f"low rank UV M=N={M2} Delta 0.4 f64 at tol "
+            f"{LOW_RANK_TIGHT['tol']:g}, x = u v^T / sqrt(N)")
+    card_against_cpu(torch, what, post["cpu"], None, post["cuda"], None,
+                     ("x",))
+    # The loop counts: where the stop fires moves with rounding (about 7
+    # iterations per decade of the diff), so the card's count is held to
+    # the spread of the CPU's own count when bx moves by 1e-15 of itself.
+    cpu = dict(device="cpu", dtype=torch.float64)
+    bx = torch.as_tensor(bxs[0], **cpu)
+    gen = torch.Generator().manual_seed(0)
+    counts = [loops["cpu"]["iterations"]]
+    for _ in range(4):
+        one = {}
+        tight(bx * (1.0 + 1e-15 * torch.randn(bx.shape, generator=gen,
+                                              **cpu)), M2, M2, one, **cpu)
+        counts.append(one["iterations"])
+    lo, hi = min(counts), max(counts)
+    n_card = loops["cuda"]["iterations"]
+    check(lo - (hi - lo) <= n_card <= hi + (hi - lo),
+          f"{what}: {n_card} loop iterations on the card, {counts} on the "
+          f"CPU with bx moved by 1e-15")
+    print(f"{what}: {n_card} loop iterations on the card, {counts[0]} on the "
+          f"CPU and {counts[1:]} there with bx moved by 1e-15 of itself "
+          f"(band [{lo - (hi - lo)}, {hi + (hi - lo)}])")
+
+
+def low_rank_ep_models(torch, tt, device, dtype, seed=0):
+    """tests/test_low_rank_activation.py:326-388's two models at
+    LOW_RANK_EP's width: (UV model, factor, X0), (Gram model, factor, X0)."""
+    from tramp_tpu_torch.channels import (
+        LowRankFactorization, LowRankGramChannel)
+    from tramp_tpu_torch.likelihoods import GaussianLikelihood
+    from tramp_tpu_torch.priors import GaussianPrior
+    dkw = dict(device=device, dtype=dtype)
+    n, K = LOW_RANK_EP["width"], LOW_RANK_EP["K"]
+    rng = np.random.RandomState(seed)
+    u0, v0 = rng.randn(n, K), rng.randn(n, K)
+    X0 = u0 @ v0.T / np.sqrt(n)
+    Y = X0 + np.sqrt(LOW_RANK_EP["delta_uv"]) * rng.randn(n, n)
+    uv = LowRankFactorization(M=n, N=n, K=K)
+    uv_model = (
+        (GaussianPrior(size=(n, K), **dkw) @ tt.V(id="u") +
+         GaussianPrior(size=(n, K), **dkw) @ tt.V(id="v")) @
+        uv @ tt.V(id="x") @
+        GaussianLikelihood(y=Y, var=LOW_RANK_EP["delta_uv"], **dkw)
+    ).to_model()
+    rng = np.random.RandomState(seed)
+    z0 = rng.randn(n, K)
+    Z0 = z0 @ z0.T / np.sqrt(n)
+    E = rng.randn(n, n)
+    Yg = Z0 + np.sqrt(LOW_RANK_EP["delta_gram"]) * (E + E.T) / np.sqrt(2)
+    gram = LowRankGramChannel(N=n, K=K)
+    gram_model = (
+        GaussianPrior(size=(n, K), **dkw) @ tt.V(id="z") @ gram
+        @ tt.V(id="x") @
+        GaussianLikelihood(y=Yg, var=LOW_RANK_EP["delta_gram"], **dkw)
+    ).to_model()
+    return (uv_model, uv, X0), (gram_model, gram, Z0)
+
+
+def phase_13e_low_rank_ep(torch, tt, pl, card):
+    """LowRankFactorization and LowRankGramChannel inside the EP engine at
+    tests/test_low_rank_activation.py:326-388's protocol, 512 wide, float32:
+    the x posterior's MSE under 0.25 of the signal power; the embedded
+    solves' iterations per sweep (a sweep's cost is about that many
+    iterations of the loop profiled in 13d, twice). Returns the
+    launches."""
+    reset_launches(pl)
+    for (model, factor, X0), name in zip(
+            low_rank_ep_models(torch, tt, "cuda", torch.float32),
+            ("LowRankFactorization", "LowRankGramChannel")):
+        ep = tt.ExpectationPropagation(model)
+        wall = timed_solve(torch, lambda: ep.iterate(
+            max_iter=LOW_RANK_EP["max_iter"],
+            damping=LOW_RANK_EP["damping"]))
+        Xh = ep.get_variable_data("x")["r"].double().cpu().numpy()
+        tau = float(np.mean(X0**2))
+        mse = float(np.mean((Xh - X0) ** 2))
+        check(np.isfinite(Xh).all() and mse < 0.25 * tau,
+              f"{name} EP: mse_x {mse:.4g}, 0.25 tau_x {0.25 * tau:.4g}")
+        st = factor.stats
+        print(f"{name} in the EP engine, {LOW_RANK_EP['width']} wide, f32: "
+              f"n_iter={ep.n_iter} mse_x={mse:.6g} < 0.25 tau_x = "
+              f"{0.25 * tau:.6g}; {st.get('solves', 0)} embedded solves, "
+              f"{st.get('iterations', 0) / max(ep.n_iter, 1):.1f} solver "
+              f"iterations per sweep, wall={wall:.3f} s [{card}]")
+    launches = read_launches(pl)
+    check(not any(launches.values()), f"phase 13e ran kernels {launches}")
+    return launches
+
+
+def tanh_net(torch, tt, dtype, N=TANH_N, alpha=0.5, device="cuda",
+             svd=None):
+    """The relu net of phase 4 (RandomState(11)) with tanh in place of
+    relu. Returns (student, x0, linear)."""
+    from tramp_tpu_torch.channels import (
+        GaussianChannel, LinearChannel, TanhChannel)
+    from tramp_tpu_torch.priors import GaussBernoulliPrior
+    M = int(alpha * N)
+    rng = np.random.RandomState(11)
+    W = rng.randn(M, N) / np.sqrt(N)
+    x0 = (rng.rand(N) < RHO) * rng.randn(N)
+    y = np.tanh(W @ x0) + np.sqrt(NOISE) * rng.randn(M)
+    linear = LinearChannel(W, name="W", svd=svd, device=device, dtype=dtype)
+    teacher = (
+        GaussBernoulliPrior(size=N, rho=RHO, device=device, dtype=dtype)
+        @ tt.V(id="x") @ linear @ tt.V(id="z") @ TanhChannel()
+        @ tt.V(id="a") @ GaussianChannel(var=NOISE) @ tt.O(id="y")
+    ).to_model()
+    y = torch.as_tensor(y, device=device, dtype=dtype)
+    return teacher.to_observed({"y": y}), x0, linear
+
+
+def phase_13f_tanh(torch, tt, pl, card):
+    """TanhChannel mid-graph at the relu net's shape: f32 against f64 in v
+    and MSE within 5e-2 (bench.py:118-119's band), a profiled sweep window,
+    N = 256 f64 on the card against the CPU, and no piecewise-linear
+    launch. Returns the launches."""
+    results = {}
+    launches = {}
+    for dtype in (torch.float32, torch.float64):
+        student, x0, _ = tanh_net(torch, tt, dtype)
+        ep, mse, v, wall, got = solve(torch, tt, pl, student, x0)
+        launches = {k: launches.get(k, 0) + n for k, n in got.items()}
+        results[dtype_name(dtype)] = (mse, v)
+        print(f"tanh net N={TANH_N} {dtype_name(dtype)}: n_iter={ep.n_iter} "
+              f"mse={mse:.6g} v={v:.6g} wall={wall:.3f} s [{card}]")
+        if dtype == torch.float32:
+            kernels, device, wall_ms = sweep_window(ep)
+            print(f"tanh net N={TANH_N} f32, torch.profiler over 10 warm "
+                  f"sweeps: {kernels:.1f} kernels per sweep, device "
+                  f"{device:.4f} ms of {wall_ms:.4f} ms, busy "
+                  f"{100 * device / wall_ms:.2f}% [{card}]")
+    (m32, v32), (m64, v64) = results["float32"], results["float64"]
+    v_rel, mse_rel = abs(v32 - v64) / v64, abs(m32 - m64) / m64
+    check(v_rel < V_MSE_BOUND and mse_rel < V_MSE_BOUND,
+          f"tanh net f32 vs f64: v {v_rel:.3g}, mse {mse_rel:.3g}")
+    print(f"tanh net f32 vs f64: v rel err {v_rel:.3e}, mse rel err "
+          f"{mse_rel:.3e} (bound {V_MSE_BOUND})")
+    cpu, _, lin = tanh_net(torch, tt, torch.float64, N=256, device="cpu")
+    gpu, _, _ = tanh_net(torch, tt, torch.float64, N=256,
+                         svd=(lin.U, lin.s, lin.V.T))
+    cpu_ep = tt.ExpectationPropagation(cpu).iterate(**SOLVE)
+    reset_launches(pl)
+    gpu_ep = tt.ExpectationPropagation(gpu).iterate(**SOLVE)
+    launches = {k: launches[k] + n for k, n in read_launches(pl).items()}
+    card_against_cpu(torch, "tanh net N=256 f64 through the engine",
+                     {"x": cpu_ep.get_variable_data("x")}, cpu_ep.n_iter,
+                     {"x": gpu_ep.get_variable_data("x")}, gpu_ep.n_iter,
+                     ("x",))
+    check(not any(launches.values()), f"tanh net ran kernels {launches}")
+    return launches
+
+
+def phase_13(torch, tt, pl, card):
+    """Phase 13: the structured channels, total variation, the low-rank
+    family and the tanh channel. Returns the launches by path, each path's
+    counts set to 0 just before it and read just after (all 0: none of
+    these factors reaches the piecewise-linear kernels)."""
+    t0 = time.perf_counter()
+    paths, seconds = {}, {}
+
+    def lap(part):
+        seconds[part] = time.perf_counter() - t0 - sum(seconds.values())
+
+    paths["sparse_gradient_ep"] = phase_13a_sparse_gradient(
+        torch, tt, pl, card)
+    lap("a")
+    paths["sparse_gradient_tree_batch"] = phase_13b_tree_lanes(
+        torch, tt, pl, card)
+    lap("b")
+    paths["images_2d_ep"] = phase_13c_images(torch, tt, pl, card)
+    lap("c")
+    reset_launches(pl)
+    phase_13d_low_rank_sweep(torch, tt, pl, card)
+    paths["low_rank_delta_sweep"] = read_launches(pl)
+    lap("d")
+    paths["low_rank_ep"] = phase_13e_low_rank_ep(torch, tt, pl, card)
+    lap("e")
+    paths["tanh_ep"] = phase_13f_tanh(torch, tt, pl, card)
+    lap("f")
+    for path, launches in paths.items():
+        check(not any(launches.values()),
+              f"phase 13 {path} ran piecewise-linear kernels: {launches}")
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s, by part "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items())
+          + f"; pl_fused launches 0 on every path [{card}]")
+    return paths
 
 
 def main():
@@ -3112,6 +3746,8 @@ def main():
     tree_launches, tree_err = phase_11(torch, tt, pl, card)
     # phase 12: item 3's factors that no earlier phase runs
     item3_launches["item3_factors_ep_se"] = phase_12(torch, tt, pl, card)
+    # phase 13: the structured channels, TV, low rank and tanh
+    tree_launches.update(phase_13(torch, tt, pl, card))
 
     # phase 8: summary. A main path is a solve with the posterior readout
     # that follows it: the engine's float32 relu-net solve (phase 4) and the

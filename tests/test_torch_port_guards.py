@@ -6,7 +6,8 @@ kernels are built at first launch); a model built without a device needs a
 card, and one built with ``device="cpu"`` does not (the priors and
 likelihoods of Queue 1 item 3 too, whose registries keep no waiting
 types, and the complex channels, shape channels and composite models of
-items 4a and 4b); the state-evolution entry points keep the same rule, take the
+items 4a and 4b, the structured channels, TV builders and low-rank state
+evolution of items 4c and 6); the state-evolution entry points keep the same rule, take the
 plain twin for their integrands on the CPU, refuse a mesh, and import no
 pandas until a DataFrame is asked for; and, on a card, the kernels agree
 with their plain versions.
@@ -376,34 +377,82 @@ def test_phase_grid_refuses_a_mesh():
             output_type="gaussian")
 
 
+def _jax_registry_keys(path, name):
+    """The keys of the dict literal ``name`` in a module of the JAX package,
+    read from its source (this file imports no JAX)."""
+    import ast
+    tree = ast.parse((REPO / path).read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == name for t in node.targets):
+            return {k.value for k in node.value.keys}
+    raise AssertionError(f"{name} not found in {path}")
+
+
 def test_no_prior_or_likelihood_type_waits_for_item_3():
-    """Queue 1 item 3 is in: the prior and likelihood registries hold every
-    type of the JAX package's (tests/test_torch_priors.py compares them) and
-    keep no list of waiting types, and no message of the port points at
-    item 3 any more."""
+    """Queue 1 items 3, 4a, 4b, 4c and 6 and the tanh channel are in: the
+    registries of priors, likelihoods, channels and ensembles hold every
+    type of the JAX package's and keep no list of waiting types, and no
+    module of the port points at item 3, 4c or 6 any more."""
     from tramp_tpu_torch import channels, ensembles, likelihoods, priors
-    assert not hasattr(priors, "_WAITING")
-    assert not hasattr(likelihoods, "_WAITING")
+    for module in (priors, likelihoods, channels, ensembles):
+        assert not hasattr(module, "_WAITING"), module.__name__
     assert len(priors.PRIOR_CLASSES) == 9
     assert len(likelihoods.LIKELIHOOD_CLASSES) == 10
-    # items 4a and 4b are in too: what still waits names item 4c or 7
-    for kind in ("conv", "dft", "rotation", "tanh"):
-        item = "7" if kind == "tanh" else "4c"
-        with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
-            channels.get_channel(kind)
-    for kind in ("binary", "rotation"):
-        with pytest.raises(NotImplementedError, match=r"item 4c\)"):
-            ensembles.get_ensemble(kind, M=2, N=3)
-    for kind in ("modulus", "complex_linear", "unitary", "bias", "sum",
-                 "duplicate", "concat", "reshape"):
-        assert kind in channels.CHANNEL_CLASSES and \
-            kind not in channels._WAITING
-    for kind in ("complex_gaussian", "unitary", "complex_unitary"):
-        assert kind in ensembles.ENSEMBLE_CLASSES and \
-            kind not in ensembles._WAITING
+    assert set(channels.CHANNEL_CLASSES) == _jax_registry_keys(
+        "tramp_tpu/channels/__init__.py", "CHANNEL_CLASSES")
+    assert set(ensembles.ENSEMBLE_CLASSES) == _jax_registry_keys(
+        "tramp_tpu/ensembles/__init__.py", "ENSEMBLE_CLASSES")
+    for kind in ("conv", "dft", "rotation", "tanh", "low_rank_gram"):
+        assert channels.CHANNEL_CLASSES[kind].__name__ in channels.__all__
     stale = [str(p) for p in sorted((REPO / "tramp_tpu_torch").rglob("*.py"))
-             if "item 3" in p.read_text()]
+             if re.search(r"item (3|4c|6)\b", p.read_text())]
     assert not stale, stale
+
+
+def test_structured_factors_need_a_card_or_an_explicit_cpu():
+    """The structured channels, the ensembles of item 4c, the TV builders
+    and the low-rank state evolution put their arrays on the card unless
+    told otherwise, so each raises here; with device='cpu' a TV regression
+    builds and solves, and the low-rank solver runs where its inputs are."""
+    code = (
+        "import numpy as np, torch\n"
+        "from tramp_tpu_torch import channels, ensembles, models, parallel\n"
+        "from tramp_tpu_torch.channels import low_rank\n"
+        "A = np.random.RandomState(0).randn(6, 8) / np.sqrt(8)\n"
+        "y = A @ np.cumsum(np.ones(8))\n"
+        "calls = {\n"
+        "    'conv': lambda: channels.ConvChannel(np.ones(4)),\n"
+        "    'blur_2d': lambda: channels.Blur2DChannel((1.0, 1.0), (4, 4)),\n"
+        "    'gradient': lambda: channels.GradientChannel((4, 5)),\n"
+        "    'rotation': lambda: channels.RotationChannel(np.eye(3)),\n"
+        "    'ensemble': lambda: ensembles.get_ensemble(\n"
+        "        'rotation', N=3).generate(),\n"
+        "    'tv': lambda: models.tv_regression(A, y, x_shape=(8,),\n"
+        "        grad_scale=1.0, noise_var=0.1, prior_var=1.0),\n"
+        "    'se': lambda: low_rank.se_matrix_factorization_kk(\n"
+        "        1.0, 1.0, 2.0, 'UV', K=2)}\n"
+        "for name, call in calls.items():\n"
+        "    try:\n"
+        "        call()\n"
+        "    except RuntimeError as e:\n"
+        "        assert \"device='cpu'\" in str(e), (name, e)\n"
+        "    else:\n"
+        "        raise SystemExit(name + ': no error without a card')\n"
+        "cpu = dict(device='cpu', dtype=torch.float64)\n"
+        "model = models.tv_regression(A, y, x_shape=(8,), grad_scale=1.0,\n"
+        "    noise_var=0.1, prior_var=1.0, **cpu)\n"
+        "init = __import__('tramp_tpu_torch').ConstantInit(a=1.0, b=1.0)\n"
+        "post, n_iter = parallel.dispatch_solver(model, damping=0.1,\n"
+        "    max_iter=30).solve(model, initializer=init)\n"
+        "assert post['x']['r'].device.type == 'cpu' and int(n_iter) > 1\n"
+        "out = low_rank.vamp_matrix_factorization(1.0, 1.0,\n"
+        "    torch.zeros(6, 2, **cpu), torch.zeros(8, 2, **cpu), 2.0,\n"
+        "    torch.ones(6, 8, **cpu))\n"
+        "assert out[0].device.type == 'cpu'\n"
+        "low_rank.se_matrix_factorization_kk(1.0, 1.0, 2.0, 'UV', K=2, **cpu)\n")
+    proc = _run(code, env=NO_CARD)
+    assert proc.returncode == 0, proc.stderr + proc.stdout
 
 
 def test_new_factors_need_a_card_or_an_explicit_cpu():

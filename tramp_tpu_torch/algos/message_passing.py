@@ -113,9 +113,13 @@ class MessagePassing:
                                           dname, device, dtype)
                     for key in self.message_keys})
         if self.spectral_factors:
+            # placeholders of the image's shape, k or (k, K) for a variable
+            # with a trailing K axis; the refresh below fills them
             state.append({
-                str(i): torch.zeros(self.nodes[i].k, device=device,
-                                    dtype=dtype)
+                str(i): torch.zeros(
+                    (self.nodes[i].k,)
+                    + tuple(shapes[self._out_variable(i)][1:]),
+                    device=device, dtype=dtype)
                 for i in self.spectral_factors})
         state = tuple(state)
         if self.needs_shapes:
@@ -133,10 +137,13 @@ class MessagePassing:
         nodes = self.nodes if model is None else model.nodes
         cache = {}
         for i in self.spectral_factors:
-            e_out = self.model.out_edges[i][0]
-            cache[str(i)] = nodes[i].spectral_image(
-                state[slot(e_out, BWD)]["b"])
+            msg = state[slot(self.model.out_edges[i][0], BWD)]
+            cache[str(i)] = nodes[i].spectral_image(msg["b"], msg["a"])
         return tuple(state[:self.n_slots]) + (cache,)
+
+    def _out_variable(self, i):
+        "Node index of the variable on factor i's (one) out edge."
+        return self.edge_variable[self.model.out_edges[i][0]]
 
     def _harmonize_state(self, state):
         """Broadcast each slot's init values to the shapes and dtypes a sweep

@@ -1,6 +1,6 @@
-"""Channels. The registry mirrors tramp_tpu/channels/__init__.py for the
-ported types."""
-from .base_channel import Channel, SIFactor, SOFactor
+"""Channels. The registry mirrors tramp_tpu/channels/__init__.py: every
+type of the JAX package's."""
+from .base_channel import Channel, SIFactor, SOFactor, MatrixFactorization
 from .complex_linear_channel import ComplexLinearChannel
 from .modulus_channel import ModulusChannel
 from .shape_channels import (
@@ -16,6 +16,18 @@ from .piecewise_linear_channel import (
     ReluChannel, LeakyReluChannel, HardTanhChannel, HardSigmoidChannel,
     SymmetricDoorChannel,
 )
+from .conv_channel import (
+    ConvChannel, DifferentialChannel, LaplacianChannel, Blur1DChannel,
+    Blur2DChannel,
+)
+from .gradient_channel import GradientChannel
+from .dft_channel import DFTChannel
+from .rotation_channel import RotationChannel
+from .activation_channel import ActivationChannel, TanhChannel
+from .low_rank import (
+    LowRankGramChannel, LowRankFactorization, vamp_matrix_factorization,
+    se_matrix_factorization,
+)
 
 CHANNEL_CLASSES = {
     "gaussian": GaussianChannel,
@@ -23,6 +35,14 @@ CHANNEL_CLASSES = {
     "complex_linear": ComplexLinearChannel,
     "marchenko": MarchenkoPasturChannel,
     "analytical": AnalyticalLinearChannel,
+    "conv": ConvChannel,
+    "blur_1d": Blur1DChannel,
+    "blur_2d": Blur2DChannel,
+    "differential": DifferentialChannel,
+    "laplacian": LaplacianChannel,
+    "gradient": GradientChannel,
+    "dft": DFTChannel,
+    "rotation": RotationChannel,
     "unitary": UnitaryChannel,
     "modulus": ModulusChannel,
     "bias": BiasChannel,
@@ -38,18 +58,13 @@ CHANNEL_CLASSES = {
     "h-tanh": HardTanhChannel,
     "h-sigm": HardSigmoidChannel,
     "door": SymmetricDoorChannel,
+    "tanh": TanhChannel,
+    "low_rank_gram": LowRankGramChannel,
+    "low_rank_factorization": LowRankFactorization,
 }
-#: channel types of the JAX package that are not ported yet: the structured
-#: real channels (ROADMAP Queue 1 item 4c) and the tanh activation (item 7)
-_WAITING = ("conv", "blur_1d", "blur_2d", "differential", "laplacian",
-            "gradient", "dft", "rotation", "tanh")
 
 
 def get_channel(channel_type, **kwargs):
-    if channel_type in _WAITING:
-        raise NotImplementedError(
-            f"channel {channel_type!r} is not ported yet (ROADMAP Queue 1 "
-            f"item {'7' if channel_type == 'tanh' else '4c'})")
     return CHANNEL_CLASSES[channel_type](**kwargs)
 
 
@@ -62,5 +77,10 @@ __all__ = [
     "LeakyReluChannel", "HardTanhChannel", "HardSigmoidChannel",
     "SymmetricDoorChannel", "ComplexLinearChannel", "UnitaryChannel",
     "ModulusChannel", "BiasChannel", "SumChannel", "DuplicateChannel",
-    "ConcatChannel", "ReshapeChannel",
+    "ConcatChannel", "ReshapeChannel", "MatrixFactorization",
+    "ConvChannel", "DifferentialChannel", "LaplacianChannel",
+    "Blur1DChannel", "Blur2DChannel", "GradientChannel", "DFTChannel",
+    "RotationChannel", "ActivationChannel", "TanhChannel",
+    "LowRankGramChannel", "LowRankFactorization",
+    "vamp_matrix_factorization", "se_matrix_factorization",
 ]

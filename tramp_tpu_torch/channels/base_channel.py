@@ -95,3 +95,9 @@ class SOFactor(Factor):
     """Single-output factor (multi-input). Reference base_channel.py:120-136;
     its messages and SE updates are ``Factor``'s."""
     n_next = 1
+
+
+class MatrixFactorization(SOFactor):
+    """Two-input factor x = f(u, v) (the low-rank factorization).
+    Reference base_channel.py:139-140."""
+    n_prev = 2

@@ -7,18 +7,31 @@ V (Nz, k), k = min(Nx, Nz); the matvecs are exact in the working dtype
 projector identity V_perp V_perp^T = I - V V^T
 (spectral_backward_posterior).
 
-Lanes (tramp_tpu_torch/lanes.py): messages of shape ``(B, n)`` with
-precisions ``(B, 1)``. With one shared operator (two-dimensional factors)
-the B matvecs are one GEMM, ``x @ A``; with an operator per lane (factors
-stacked to ``(B, Nx, k)``) they are one ``torch.bmm``. The spectral sums
-are taken per lane."""
+A variable may carry a trailing K axis, ``(n, K)``, which the channel
+multiplies as ``W @ Z`` (the JAX package's ``s[:, None]``).
+
+Lanes (tramp_tpu_torch/lanes.py): messages of shape ``(B, n)`` or ``(B, n,
+K)`` with precisions ``(B, 1)`` or ``(B, 1, 1)``; the precision tells lanes
+from a trailing K axis (``lane_count``). With one shared operator
+(two-dimensional factors) the B matvecs are one GEMM, ``x @ A``; with an
+operator per lane (factors stacked to ``(B, Nx, k)``) they are one
+``torch.bmm``. The spectral sums are taken per lane."""
 import math
 
 import torch
 
 from .base_channel import Channel
 from ..config import as_tensor
-from ..lanes import last_axis
+from ..lanes import last_axis, lane_count, per_lane
+
+
+def _per_lane(x, a):
+    """A spectrum ``(k,)``, or one per lane ``(B, k)`` lifted to ``(B, 1,
+    ..., k)`` so that it broadcasts against a precision ``a`` ``(B, 1, ...)``
+    of a variable with a trailing K axis."""
+    if x.ndim == 2 and isinstance(a, torch.Tensor) and a.ndim > 2:
+        return x.reshape((x.shape[0],) + (1,) * (a.ndim - 2) + x.shape[1:])
+    return x
 
 
 class LinearChannel(Channel):
@@ -70,54 +83,72 @@ class LinearChannel(Channel):
     def compute_n_eff(self, az, ax):
         "Effective number of parameters / Nz. Reference l:58-67."
         ratio = az / torch.clamp(ax, min=1e-30)
-        n_eff = last_axis(self.singular / (ratio + self.singular),
-                          torch.sum) / self.Nz
+        singular = _per_lane(self.singular, az)
+        n_eff = last_axis(singular / (ratio + singular), torch.sum) / self.Nz
         return torch.where(ax == 0, 0.0, n_eff)
 
     @staticmethod
-    def _mm(A, x, transpose=False):
+    def _mm(A, x, *, lanes, transpose=False):
         """``A @ x`` (or ``A.T @ x``) for the SVD-basis factors, for every
-        lane of ``x``: ``x`` is ``(n,)`` or ``(B, n)``, ``A`` one matrix or
-        one per lane ``(B, rows, columns)``."""
+        lane of ``x``: ``x`` is ``(n,)`` or ``(n, K)``, with ``lanes``
+        ``(B, n)`` or ``(B, n, K)``; ``A`` one matrix or one per lane
+        ``(B, rows, columns)``. The caller tells lanes from the precision
+        (``lane_count``) or from its loop's lane count."""
+        if not lanes:
+            return (A.T if transpose else A) @ x
         if A.ndim == 3:
+            if x.ndim == 3:
+                return torch.bmm(A.transpose(1, 2) if transpose else A, x)
             if transpose:
                 return torch.bmm(x.unsqueeze(1), A).squeeze(1)
             return torch.bmm(A, x.unsqueeze(2)).squeeze(2)
         if x.ndim == 2:
             return x @ (A if transpose else A.T)
-        return (A.T if transpose else A) @ x
+        return torch.matmul(A.T if transpose else A, x)
 
-    def spectral_image(self, bx):
-        "The image u = U^T bx (k-length) that the EP engine carries."
-        return self._mm(self.U, bx, transpose=True)
+    def _s(self, a, b):
+        """The singular values as they broadcast against the k-length image
+        of ``b``: ``s[..., None]`` when the variable has a trailing K axis
+        (the JAX package's ``s[:, None]``)."""
+        lanes = lane_count(a, b) is not None
+        return self.s[..., None] if b.ndim > (2 if lanes else 1) else self.s
+
+    def spectral_image(self, bx, ax=None):
+        """The image u = U^T bx (k-length) that the EP engine carries; the
+        precision ``ax`` tells lanes from a trailing K axis (None: ``bx``
+        has no lanes)."""
+        return self._mm(self.U, bx, transpose=True,
+                        lanes=lane_count(ax, bx) is not None)
 
     def _mean_svd(self, az, bz, ax, u):
         """k-length spectral mean m = res_k (V^T bz + s u) with
-        res_k = 1/(az + ax s^2), and t = V^T bz. Ref linear_channel.py
-        l:69-83, on the thin factors only."""
-        t = self._mm(self.V, bz, transpose=True)
-        res = 1.0 / (az + ax * self.s**2)
-        return res * (t + self.s * u), t
+        res_k = 1/(az + ax s^2), t = V^T bz, and the broadcast s. Ref
+        linear_channel.py l:69-83 and l:115-121, on the thin factors only."""
+        lanes = lane_count(az, bz) is not None
+        t = self._mm(self.V, bz, transpose=True, lanes=lanes)
+        s = self._s(az, bz)
+        res = 1.0 / (az + ax * s**2)
+        return res * (t + s * u), t, s, lanes
 
     # The posteriors take u = U^T bx as an argument: the EP engine passes
     # the image it carried from the previous backward pass, so the cached
     # and uncached paths run the same code.
     def spectral_forward_posterior(self, az, bz, ax, u):
         "(rx, vx): rx = W rz = U (s * m), only the k signal modes contribute."
-        m, _ = self._mean_svd(az, bz, ax, u)
-        rx = self._mm(self.U, self.s * m)
+        m, _, s, lanes = self._mean_svd(az, bz, ax, u)
+        rx = self._mm(self.U, s * m, lanes=lanes)
         return rx, self.compute_forward_variance(az, ax)
 
     def spectral_backward_posterior(self, az, bz, ax, bx):
         "(rz, vz, u): the fresh u = U^T bx becomes the carried image."
-        u = self.spectral_image(bx)
-        m, t = self._mean_svd(az, bz, ax, u)
+        u = self.spectral_image(bx, ax)
+        m, t, _, lanes = self._mean_svd(az, bz, ax, u)
         if self.k == self.Nz:
-            rz = self._mm(self.V, m)
+            rz = self._mm(self.V, m, lanes=lanes)
         else:
             # complement modes (s=0) have resolvent 1/az:
             #   V_perp V_perp^T bz / az = (bz - V_k V_k^T bz) / az
-            rz = bz / az + self._mm(self.V, m - t / az)
+            rz = bz / az + self._mm(self.V, m - t / az, lanes=lanes)
         return rz, self.compute_backward_variance(az, ax), u
 
     def compute_backward_variance(self, az, ax):
@@ -126,7 +157,7 @@ class LinearChannel(Channel):
         return (1.0 - n_eff) / az
 
     def compute_forward_variance(self, az, ax):
-        s_mean = last_axis(self.singular, torch.mean)
+        s_mean = last_axis(_per_lane(self.singular, az), torch.mean)
         v0 = s_mean * self.rank / (self.Nx * az)  # ax == 0 limit (ref l:97-99)
         n_eff = self.compute_n_eff(az, ax)
         v = n_eff / (self.alpha * torch.clamp(ax, min=1e-30))
@@ -137,7 +168,7 @@ class LinearChannel(Channel):
 
     def compute_forward_posterior(self, az, bz, ax, bx):
         return self.spectral_forward_posterior(az, bz, ax,
-                                               self.spectral_image(bx))
+                                               self.spectral_image(bx, ax))
 
     # -- SE and the Bethe objective (reference l:168-187) ------------------
     def compute_backward_error(self, az, ax, tau_z):
@@ -148,11 +179,15 @@ class LinearChannel(Channel):
 
     def compute_log_partition(self, az, bz, ax, bx):
         rz = self.compute_backward_posterior(az, bz, ax, bx)[0]
-        b = bz + self._mm(self.W, bx, transpose=True)
+        lanes = lane_count(az, bz) is not None
+        b = bz + self._mm(self.W, bx, transpose=True, lanes=lanes)
+        # the log term sums over the Nz modes only, also with a trailing
+        # K axis, as the JAX package's does
+        if lanes:
+            az, ax = az.reshape(-1, 1), ax.reshape(-1, 1)
         a = az + ax * self.spectrum
-        return (0.5 * last_axis(b * rz, torch.sum).reshape(a.shape[:-1])
-                + 0.5 * last_axis(torch.log(2 * math.pi / a),
-                                  torch.sum).reshape(a.shape[:-1]))
+        return (0.5 * per_lane(b * rz, lanes).sum(-1)
+                + 0.5 * per_lane(torch.log(2 * math.pi / a), lanes).sum(-1))
 
     def compute_mutual_information(self, az, ax, tau_z):
         return last_axis(

@@ -24,6 +24,11 @@ duplicate, concat) is wired by its edges like any other; its variables are
 the JAX model's SIMO/MISO classes. The JAX package stores a complex
 operator as a packed real pair ``(2, ...)`` (real part, imaginary part);
 the port keeps it as a complex tensor (a class's ``_packed_fields``).
+The FFT channels (conv, differential, laplacian, blur, gradient) are
+rebuilt from their filter and meta fields (``from_description``): the JAX
+package's spectra are complex leaves or packed pairs, depending on its FFT
+mode, and its ``packed`` flag has no counterpart here; neither has an
+activation channel's function object, which the port looks up by name.
 """
 import numpy as np
 import torch
@@ -36,7 +41,10 @@ from .channels import (
     GaussianChannel, LinearChannel, SgnChannel, AbsChannel,
     AsymmetricAbsChannel, ReluChannel, LeakyReluChannel, HardTanhChannel,
     HardSigmoidChannel, SymmetricDoorChannel, AnalyticAbsChannel,
-    AnalyticReluChannel,
+    AnalyticReluChannel, ConvChannel, DifferentialChannel, LaplacianChannel,
+    Blur1DChannel, Blur2DChannel, GradientChannel, DFTChannel,
+    RotationChannel, ActivationChannel, TanhChannel, LowRankGramChannel,
+    LowRankFactorization,
 )
 from .config import as_complex, as_tensor
 from .ensembles import MarchenkoPasturEnsemble
@@ -68,12 +76,18 @@ FACTOR_CLASSES = {cls.__name__: cls for cls in (
     AnalyticalLinearChannel, AnalyticAbsChannel, AnalyticReluChannel,
     ComplexLinearChannel, UnitaryChannel, ModulusChannel, BiasChannel,
     SumChannel, DuplicateChannel, ConcatChannel, ReshapeChannel,
+    ConvChannel, DifferentialChannel, LaplacianChannel, Blur1DChannel,
+    Blur2DChannel, GradientChannel, DFTChannel, RotationChannel,
+    ActivationChannel, TanhChannel, LowRankGramChannel, LowRankFactorization,
     GaussianLikelihood, SgnLikelihood, AbsLikelihood, ModulusLikelihood,
     PiecewiseLinearLikelihood, ReluLikelihood, LeakyReluLikelihood,
     AsymmetricAbsLikelihood, HardTanhLikelihood, HardSigmoidLikelihood,
     SymmetricDoorLikelihood,
 )}
 ENSEMBLE_CLASSES = {"MarchenkoPasturEnsemble": MarchenkoPasturEnsemble}
+#: meta fields of the JAX package that the port has no use for: the FFT
+#: mode of the spectral channels, an activation's function object
+_JAX_ONLY_META = ("packed", "_func")
 VARIABLE_CLASSES = {cls.__name__: cls for cls in (
     SISOVariable, SIMOVariable, MISOVariable, MILeafVariable,
     SILeafVariable, MORootVariable, SORootVariable)}
@@ -86,6 +100,9 @@ def factor_from_description(desc, device=None, dtype=None):
     if name not in FACTOR_CLASSES:
         raise NotImplementedError(f"factor {name} is not ported yet")
     cls = FACTOR_CLASSES[name]
+    meta = {k: v for k, v in desc["meta"].items() if k not in _JAX_ONLY_META}
+    if hasattr(cls, "from_description"):
+        return cls.from_description(desc["data"], meta, device, dtype)
     factor = cls.__new__(cls)
     Factor.__init__(factor)
     packed = getattr(cls, "_packed_fields", ())
@@ -101,7 +118,7 @@ def factor_from_description(desc, device=None, dtype=None):
                 else as_tensor(np.array(value), device, dtype))
         else:
             setattr(factor, field, float(value))
-    for field, value in desc["meta"].items():
+    for field, value in meta.items():
         if field == "ensemble":
             # {"class": name, **constructor keywords}
             kw = dict(value)

@@ -1,7 +1,7 @@
-"""Random matrix ensembles of the ported linear channels. Counterpart of
-tramp_tpu/ensembles; ``generate`` draws with a ``torch.Generator`` on its
-device (None: the first card). The complex ensembles return complex
-tensors whose parts have ``dtype``."""
+"""Random matrix ensembles. Counterpart of tramp_tpu/ensembles;
+``generate`` draws with a ``torch.Generator`` on its device (None: the
+first card). The complex ensembles return complex tensors whose parts have
+``dtype``. The registry has every type of the JAX package's."""
 import math
 
 import torch
@@ -66,6 +66,89 @@ class UnitaryEnsemble(Ensemble):
         return Q * (d / torch.abs(d))
 
 
+class RotationEnsemble(Ensemble):
+    "Haar SO(N) matrix. Reference rotation_ensemble.py:5-19."
+
+    def __init__(self, N):
+        self.N = N
+
+    def generate(self, generator=None, device=None, dtype=None):
+        A = torch.randn((self.N, self.N), generator=generator,
+                        device=_device(generator, device),
+                        dtype=dtype or DEFAULT_DTYPE)
+        Q, R = torch.linalg.qr(A)
+        Q = Q * torch.sign(torch.diagonal(R))
+        # determinant +1 (SO(N))
+        Q[:, 0] = Q[:, 0] * torch.sign(torch.linalg.det(Q))
+        return Q
+
+
+class BinaryEnsemble(Ensemble):
+    """iid +-1/sqrt(N) with P(+) = p_pos. Reference binary_ensemble.py:5-28
+    (the JAX package implements the documented p_pos, which the reference
+    ignores)."""
+
+    def __init__(self, M, N, p_pos=0.5):
+        self.M = M
+        self.N = N
+        self.p_pos = p_pos
+
+    def generate(self, generator=None, device=None, dtype=None):
+        u = torch.rand((self.M, self.N), generator=generator,
+                       device=_device(generator, device),
+                       dtype=dtype or DEFAULT_DTYPE)
+        one = torch.ones_like(u)
+        return torch.where(u < self.p_pos, one, -one) / math.sqrt(self.N)
+
+
+class TernaryEnsemble(Ensemble):
+    "iid {+1, 0, -1}/sqrt(N). Reference ternary_ensemble.py:5-33."
+
+    def __init__(self, M, N, p_pos=0.33, p_neg=0.33):
+        self.M = M
+        self.N = N
+        self.p_pos = p_pos
+        self.p_neg = p_neg
+        self.p_zero = 1.0 - p_pos - p_neg
+
+    def generate(self, generator=None, device=None, dtype=None):
+        u = torch.rand((self.M, self.N), generator=generator,
+                       device=_device(generator, device),
+                       dtype=dtype or DEFAULT_DTYPE)
+        one = torch.ones_like(u)
+        x = torch.where(u < self.p_neg, -one,
+                        torch.where(u < self.p_neg + self.p_zero, 0 * one,
+                                    one))
+        return x / math.sqrt(self.N)
+
+
+class RandomFeatureEnsemble(Ensemble):
+    "X = f(WZ)/sqrt(N). Reference random_feature_ensemble.py:27-55."
+
+    ACTIVATIONS = {
+        "relu": lambda x: torch.clamp(x, min=0.0),
+        "relu_zero_mean": lambda x: torch.clamp(x, min=0.0)
+        - 1.0 / math.sqrt(2 * math.pi),
+        "abs_zero_mean": lambda x: torch.abs(x) - math.sqrt(2.0 / math.pi),
+        "abs": torch.abs,
+        "tanh": torch.tanh,
+        "sgn": torch.sign,
+    }
+
+    def __init__(self, M, N, f):
+        self.M = M
+        self.N = N
+        self.f_name = f
+        self.f = self.ACTIVATIONS[f]
+
+    def generate(self, generator=None, device=None, dtype=None):
+        kw = dict(generator=generator, device=_device(generator, device),
+                  dtype=dtype or DEFAULT_DTYPE)
+        Z = torch.randn((self.N, self.N), **kw) / math.sqrt(self.N)
+        W = torch.randn((self.M, self.N), **kw)
+        return self.f(W @ Z) / math.sqrt(self.N)
+
+
 class ComplexUnitaryEnsemble(Ensemble):
     "Random phases e^{i phi}. Reference complex_unitary_ensemble.py:5-24."
 
@@ -84,23 +167,22 @@ class ComplexUnitaryEnsemble(Ensemble):
 ENSEMBLE_CLASSES = {
     "gaussian": GaussianEnsemble,
     "complex_gaussian": ComplexGaussianEnsemble,
+    "rotation": RotationEnsemble,
     "unitary": UnitaryEnsemble,
+    "binary": BinaryEnsemble,
+    "ternary": TernaryEnsemble,
     "marchenko": MarchenkoPasturEnsemble,
+    "random_feature": RandomFeatureEnsemble,
     "complex_unitary": ComplexUnitaryEnsemble,
 }
-#: ensembles of the JAX package not ported yet: they come with the
-#: structured real channels (ROADMAP Queue 1 item 4c)
-_WAITING = ("rotation", "binary", "ternary", "random_feature")
 
 
 def get_ensemble(ensemble_type, **kwargs):
-    if ensemble_type in _WAITING:
-        raise NotImplementedError(
-            f"ensemble {ensemble_type!r} is not ported yet (ROADMAP Queue 1 "
-            "item 4c)")
     return ENSEMBLE_CLASSES[ensemble_type](**kwargs)
 
 
 __all__ = ["Ensemble", "GaussianEnsemble", "ComplexGaussianEnsemble",
-           "UnitaryEnsemble", "ComplexUnitaryEnsemble",
-           "MarchenkoPasturEnsemble", "ENSEMBLE_CLASSES", "get_ensemble"]
+           "RotationEnsemble", "UnitaryEnsemble", "BinaryEnsemble",
+           "TernaryEnsemble", "RandomFeatureEnsemble",
+           "ComplexUnitaryEnsemble", "MarchenkoPasturEnsemble",
+           "ENSEMBLE_CLASSES", "get_ensemble"]

@@ -14,6 +14,9 @@ whether ``(B, n)`` is B lanes or one two-dimensional variable, so it asks
 the precision that travels with it: ``lane_count(a, like)`` is B when ``a``
 has ``like``'s number of axes (at least two), ``like``'s first length, and
 length 1 on every other axis; else None.
+Where no message stands beside the precisions (a channel's variance, its
+spectral means), ``precision_lanes`` reads any precision with axes as one
+value per lane, since a precision without lanes is a number or 0-d.
 
 Loop flags (done, converged, the iteration count) are 0-d without lanes and
 ``(B,)`` with them; ``select`` broadcasts such a flag against a state array.
@@ -60,6 +63,46 @@ def last_axis(x, reduce):
 def per_lane(x, lanes):
     "``x`` as ``(B, -1)`` with lanes and as ``(-1,)`` without."
     return x.reshape(x.shape[0], -1) if lanes else x.reshape(-1)
+
+
+def precision_lanes(*precisions):
+    """B when one of ``precisions`` is one value per lane (a tensor with a
+    first axis), else None: the rule where no message stands beside the
+    precisions (a channel's variance), since a precision without lanes is a
+    number or 0-d."""
+    for a in precisions:
+        if isinstance(a, torch.Tensor) and a.ndim > 0:
+            return a.shape[0]
+    return None
+
+
+def spectral(a, B, d):
+    """A precision (or second moment) as it broadcasts against a spectrum
+    of ``d`` axes: itself without lanes, ``(B,) + (1,) * d`` with them."""
+    if B is None or not isinstance(a, torch.Tensor):
+        return a
+    return a.reshape((B,) + (1,) * d)
+
+
+def spectral_mean(x, B, d):
+    """Mean over the ``d`` spectral axes: 0-d without lanes, ``(B,) + (1,)
+    * d`` with them."""
+    if B is None:
+        return torch.mean(x)
+    return x.mean(dim=tuple(range(-d, 0)), keepdim=True)
+
+
+def like(x, a):
+    """``x`` (0-d, or one value per lane) in the shape of the precision
+    ``a`` it stands beside."""
+    if isinstance(a, torch.Tensor) and a.ndim > 0:
+        return x.reshape(a.shape)
+    return x
+
+
+def lane_sum(x, lanes):
+    "Sum over everything but the lanes: 0-d, or ``(B,)``."
+    return per_lane(x, lanes).sum(-1)
 
 
 def select(flag, new, old):

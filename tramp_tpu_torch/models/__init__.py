@@ -8,9 +8,17 @@ from .multi_layer_model import MultiLayerModel
 from .committee_model import committee, sgn_committee, soft_committee
 from .vae_prior import (
     vae_prior_block, vae_prior_from_h5, load_vae_decoder_weights)
+from .total_variation_model import (
+    sparse_gradient_block, tv_block, regression_block, classification_block,
+    sparse_gradient_regression, sparse_gradient_classification,
+    tv_regression, tv_classification,
+)
 
 __all__ = ["Model", "DAG", "FactorDAG", "ModelDAG", "FactorModel",
            "glm_generative", "glm_state_evolution", "MultiLayerModel",
            "committee", "sgn_committee", "soft_committee",
            "vae_prior_block", "vae_prior_from_h5",
-           "load_vae_decoder_weights"]
+           "load_vae_decoder_weights", "sparse_gradient_block", "tv_block",
+           "regression_block", "classification_block",
+           "sparse_gradient_regression", "sparse_gradient_classification",
+           "tv_regression", "tv_classification"]

@@ -44,7 +44,7 @@ import torch
 
 from ..base import compute_ab_new
 from ..channels import LinearChannel
-from ..lanes import lane_values, model_lanes, per_lane, select
+from ..lanes import lane_count, lane_values, model_lanes, per_lane, select
 from ..likelihoods import GaussianLikelihood
 
 
@@ -81,24 +81,26 @@ def _lin_fwd(lin, az, bz, ax, tx):
     tx = U^T bx; returns (rx, vx, tz) with tz = V^T bz (k-length) for the
     backward pass. Mirrors LinearChannel._mean_svd (thin factors; only the
     k signal modes reach x-space)."""
-    tz = lin._mm(lin.V, bz, transpose=True)        # (k,)
+    lanes = lane_count(az, bz) is not None
+    tz = lin._mm(lin.V, bz, transpose=True, lanes=lanes)        # (k,)
     resolvent = 1.0 / (az + ax * lin.s**2)
     m = resolvent * (tz + lin.s * tx)
-    rx = lin._mm(lin.U, lin.s * m)
+    rx = lin._mm(lin.U, lin.s * m, lanes=lanes)
     vx = lin.compute_forward_variance(az, ax)
     return rx, vx, tz
 
 
 def _lin_bwd(lin, az, bz, ax, tx, tz):
     "Linear backward posterior (rz, vz) from tx = U^T bx and tz = V^T bz."
+    lanes = lane_count(az, bz) is not None
     resolvent = 1.0 / (az + ax * lin.s**2)
     m = resolvent * (tz + lin.s * tx)
     if lin.k == lin.Nz:
-        rz = lin._mm(lin.V, m)
+        rz = lin._mm(lin.V, m, lanes=lanes)
     else:
         # complement modes (s=0, resolvent 1/az):
         # V_perp V_perp^T bz / az = (bz - V_k tz) / az
-        rz = bz / az + lin._mm(lin.V, m - tz / az)
+        rz = bz / az + lin._mm(lin.V, m - tz / az, lanes=lanes)
     vz = lin.compute_backward_variance(az, ax)
     return rz, vz
 
@@ -170,7 +172,8 @@ class MLVAMPSolver:
             "b": torch.broadcast_to(c["b"], lanes + shape)}
         if self._skip_fwd_terminal:
             lin = model.factors[self.L - 1]
-            inv["tx"] = lin._mm(lin.U, inv["pin"]["b"], transpose=True)
+            inv["tx"] = lin._mm(lin.U, inv["pin"]["b"], transpose=True,
+                                lanes=B is not None)
         return inv
 
     def _carry_lanes(self, carry):
@@ -216,7 +219,8 @@ class MLVAMPSolver:
                     if l == L - 1 and self._skip_fwd_terminal:
                         # the pinned likelihood never reads this message;
                         # only cache tz for the backward pass
-                        tzs[l] = f._mm(f.V, bz, transpose=True)
+                        tzs[l] = f._mm(f.V, bz, transpose=True,
+                                       lanes=lane_count(az, bz) is not None)
                         continue
                     rx, vx, tzs[l] = _lin_fwd(f, az, bz, ax, txs[str(l)])
                     a_new, b_new = compute_ab_new(rx, vx, ax, bx)
@@ -242,7 +246,8 @@ class MLVAMPSolver:
                         # tx = U^T (y/var) is loop-invariant: no carry
                         tx = inv["tx"]
                     else:
-                        tx = f._mm(f.U, bx, transpose=True)    # (k,)
+                        tx = f._mm(f.U, bx, transpose=True,    # (k,)
+                                   lanes=lane_count(ax, bx) is not None)
                         txs[str(l)] = tx
                     rz, vz = _lin_bwd(f, az, bz, ax, tx, tzs[l])
                     a_new, b_new = compute_ab_new(rz, vz, az, bz)

@@ -36,7 +36,8 @@ import torch
 from .. import config
 from ..channels import LinearChannel
 from ..lanes import (
-    last_axis, lane_mean, lane_values, model_lanes, per_lane, select,
+    last_axis, lane_count, lane_mean, lane_values, model_lanes, per_lane,
+    select,
 )
 from ..likelihoods import GaussianLikelihood
 
@@ -76,12 +77,12 @@ class SpectralVAMPSolver:
         self.max_iter = max_iter
         self.damping = 0.0 if damping is None else float(damping)
 
-    @staticmethod
-    def _spectral(model):
+    def _spectral(self, model):
         "Loop-invariant spectral quantities (thin k-length vectors)."
         prior, lin, lik = _find_glm_parts(model)
         Delta = lik.var
-        uy = lin._mm(lin.U, lik.y, transpose=True)   # (k,)
+        uy = lin._mm(lin.U, lik.y, transpose=True,   # (k,)
+                     lanes=model_lanes(model, self.template) is not None)
         p = lin.s * uy / Delta                       # (k,)
         s2d = lin.s**2 / Delta                       # (k,)
         return prior, lin, p, s2d
@@ -105,16 +106,17 @@ class SpectralVAMPSolver:
         prior, lin, p, s2d = spectral or self._spectral(model)
         r1, gamma1 = carry
         x1, v1, r2, gamma2 = self._lmmse_input(prior, r1, gamma1)
-        t = lin._mm(lin.V, r2, transpose=True)    # (k,)
+        lanes = lane_count(gamma2, r2) is not None
+        t = lin._mm(lin.V, r2, transpose=True, lanes=lanes)    # (k,)
         den = s2d + gamma2
         d = (gamma2 * t + p) / den
         if lin.k == lin.Nz:
-            x2 = lin._mm(lin.V, d)
+            x2 = lin._mm(lin.V, d, lanes=lanes)
             inv_den_mean = last_axis(1.0 / den, torch.mean)
         else:
             # complement modes (s=0): d_perp = t_perp, so
             # x2 = V_k d + V_perp V_perp^T r2 = r2 + V_k (d - t)
-            x2 = r2 + lin._mm(lin.V, d - t)
+            x2 = r2 + lin._mm(lin.V, d - t, lanes=lanes)
             inv_den_mean = (last_axis(1.0 / den, torch.sum)
                             + (lin.Nz - lin.k) / gamma2) / lin.Nz
         alpha2 = torch.clamp(gamma2 * inv_den_mean, 1e-11, 1.0 - 1e-11)
@@ -176,11 +178,12 @@ class SpectralVAMPSolver:
         r1, gamma1 = carry
         x1, v1, r2, gamma2 = self._lmmse_input(prior, r1, gamma1)
         # z = W x posterior: one readout LMMSE pass (not per iteration)
-        t = lin._mm(lin.V, r2, transpose=True)    # (k,)
+        lanes = B is not None
+        t = lin._mm(lin.V, r2, transpose=True, lanes=lanes)    # (k,)
         den = s2d + gamma2
         d = (gamma2 * t + p) / den
         # z = W x: only the k signal modes contribute (s=0 beyond k)
-        z_hat = lin._mm(lin.U, lin.s * d)
+        z_hat = lin._mm(lin.U, lin.s * d, lanes=lanes)
         v_z = last_axis(lin.s**2 / den, torch.sum) / lin.Nx
         post = {self.x_id: {"r": x1, "v": lane_values(v1, B)},
                 self.z_id: {"r": z_hat, "v": lane_values(v_z, B)}}
