@@ -67,7 +67,9 @@ line is printed):
    solved twice: at tol 1e-5, where every lane must converge
    and three lanes are held against their single solves, and at the single
    solve's 1e-6, where the count of converged lanes is only printed;
-8. a JSON line on the kernels, then the result line
+8. a JSON line on the kernels (``pl_posterior``'s row carries the
+   adaptive EP sweep's launches, device ms and bound under
+   ``adaptive_ep_sweep``), then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
 9. (run before the summary) the state evolution, all in float64:
    a. the compressed-sensing golden rows of tests/test_golden_csv.py through
@@ -224,6 +226,50 @@ line is printed):
    f. ``TanhChannel`` in place of the relu net's relu (N = 4096): f32
       against f64 within 5e-2 in v and MSE; N = 256 float64 card against
       CPU.
+
+14. (run before the summary) the engine extras and the tooling of ROADMAP
+    Queue 1 item 7, on the relu net of phase 4:
+   a. ``iterate(damping="adaptive")`` (Bethe backtracking) at N = 4096 in
+      float32 and float64, 8 sweeps: exactly 1 launch of each message and
+      22 of ``pl_posterior`` per sweep after the undamped first (the relu
+      factor's log-partition scores the old message and 10 candidates of
+      each of the two writes into it); the loop without callback and the
+      callback loop reach the same bits; the Bethe objective does not fall
+      from the second sweep on by more than 1e-4 (f32) or 1e-10 (f64) of
+      its largest magnitude; one adaptive sweep beside a ``damping=0.1``
+      one under torch.profiler (kernels, device ms, wall ms, busy share,
+      ``pl_posterior``'s device ms); at N = 256 in float64 the card against
+      the CPU, with the count of accept decisions that differ (r and v at
+      rtol 1e-8, 1e-6 where a decision differs);
+   b. adaptive ``StateEvolution`` of the relu-net student in float64, card
+      against CPU: equal n_iter, v within rtol 1e-8, exactly 2 + 22
+      launches of ``pl_posterior`` per sweep after the first, the card's
+      wall time (the CPU's run not in it); one warm adaptive sweep: the
+      objectives it scores by node type, its calls of the engine's
+      ``_prepare`` (the model's second moments) and their host time, and
+      the sweep under torch.profiler (kernels, device ms, wall ms);
+   c. ``iterate(update_dA=True)``: ``dA`` of every slot, finite, 4 launches
+      of ``pl_posterior`` per sweep; at N = 256 in float64 equal to the
+      CPU's within rtol 1e-8 of |dA| plus the largest;
+   d. ``run_trace`` of 50 sweeps in float32 and float64: the v curves of a
+      ``TrackEvolution`` callback within rtol 1e-5 / 1e-10, one host read
+      (torch's sync debug mode), one launch of each message per sweep, and
+      its time per sweep beside ``iterate(tol=0)``'s;
+   e. ``save_state`` after 10 sweeps, ``load_state`` into a fresh engine and
+      10 more sweeps: the bits of 20 sweeps; a checkpoint written on the
+      CPU (N = 256, float64) resumed on the card against the CPU's
+      continuation (as phase 4); ``solve_batch_with_state`` of
+      ``MLVAMPSolver`` and ``EPSolver`` at 2048 lanes interrupted after 5
+      iterations, ``save_checkpoint`` / ``restore_checkpoint`` and the
+      rest: every lane's r, v and n_iter equal to the solve that was not
+      interrupted;
+   f. ``check_prior_grad_EP``, ``check_likelihood_grad_EP`` and
+      ``check_belief_grad_b`` on the card in float64 (the autograd
+      Functions of utils/special.py on CUDA), equal to the CPU's within
+      rtol 1e-10;
+   g. ``ExplainMessagePassing``, one sweep of a relu net with N = 64 on the
+      card: the CPU's lines (the first 20 printed) and one launch of each
+      message.
 
 The messages at a path's final state (11d-f) are held element by element
 within rtol (|a| + |a + a_new|) and rtol (|b| + |b + b_new|), the two terms
@@ -3532,6 +3578,577 @@ def phase_13(torch, tt, pl, card):
     return paths
 
 
+ADAPTIVE_SWEEPS = 8    # sweeps of the adaptive EP runs of phase 14a
+# pl_posterior launches of one adaptive EP sweep of the relu net after the
+# first (undamped) one: two slots go into the relu factor (z -> relu and
+# a -> relu), and each of their writes scores the old message and 10
+# candidates with the factor's log-partition, one launch each
+ADAPTIVE_PL_POSTERIOR = 2 * (1 + 10)
+# update_dA: each of the two writes into the relu factor scores the new and
+# the old message
+DA_PL_POSTERIOR = 2 * 2
+TRACE_SWEEPS = 50
+EXTRAS_N = 256          # card against CPU, float64
+BATCH_SPLIT = 5         # the batched solves are interrupted after it
+# the Bethe objective of an adaptive run may fall by rounding from the
+# second sweep on: bound relative to its largest magnitude over the run
+OBJECTIVE_ROUNDING = {"float32": 1e-4, "float64": 1e-10}
+TRACE_RTOL = {"float32": 1e-5, "float64": 1e-10}
+FLIP_RTOL = 1e-6        # card against CPU where accept decisions differ
+
+
+def extras_dir():
+    "A scratch directory of phase 14 inside the checkout (git-ignored)."
+    import os
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "phase14")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def recording_engine(tt):
+    """The EP engine, recording every local Bethe objective an adaptive
+    write scores (the old message, then the candidates from the smallest
+    beta up), so that two runs' accept decisions can be compared."""
+    class Recording(tt.ExpectationPropagation):
+        def __init__(self, model):
+            super().__init__(model)
+            self.scored = []
+
+        def _local_objective(self, state, s, msg, aux=None):
+            A = super()._local_objective(state, s, msg, aux)
+            self.scored.append(A.reshape(()))
+            return A
+
+    return Recording
+
+
+def accept_choices(torch, engine, n_max=10):
+    """The beta each adaptive write kept, as its exponent n of 1/2^n (-1:
+    the old message), from the objectives the recording engine scored."""
+    scores = torch.stack(engine.scored).double().cpu().reshape(-1, n_max + 1)
+    ok = (scores[:, 1:] - scores[:, :1]) >= 0     # n = n_max - 1 ... 0
+    # the largest beta that passes wins: the last column with ok
+    last = torch.where(ok, torch.arange(n_max), -1).amax(1)
+    return torch.where(last >= 0, n_max - 1 - last, -1)
+
+
+def same_state(torch, a, b):
+    return len(a) == len(b) and all(
+        set(m) == set(n) and all(torch.equal(m[k], n[k]) for k in m)
+        for m, n in zip(a, b))
+
+
+def sweep_readings(torch, pl, sweep, reps=3):
+    """(launches by kernel, kernels, device ms, wall ms, pl_posterior
+    device ms) of one warm sweep, from torch.profiler over ``reps`` calls
+    of ``sweep()`` (launches from the wrappers' counts over one call)."""
+    sweep()
+    torch.cuda.synchronize()
+    reset_launches(pl)
+    sweep()
+    torch.cuda.synchronize()
+    launches = read_launches(pl)
+    events, wall = device_events(sweep, reps)
+    check(events, "torch.profiler shows no device time")
+    kernels = [e for e in events
+               if not e.name.lower().startswith(("memcpy", "memset"))]
+    device = 1e-3 * sum(e.time_range.elapsed_us() for e in events) / reps
+    post = 1e-3 * sum(e.time_range.elapsed_us() for e in events
+                      if "pl_posterior" in e.name) / reps
+    return launches, len(kernels) / reps, device, 1e3 * wall / reps, post
+
+
+def phase_14a_adaptive_ep(torch, tt, pl, students, card):
+    """Adaptive EP on the relu net (N = 4096) in float32 and float64, and
+    card against CPU at N = 256. Returns (launches by path, readings of
+    the profiled adaptive sweep)."""
+    from tramp_tpu_torch.channels import ReluChannel
+    paths, readings = {}, {}
+    K = ADAPTIVE_SWEEPS
+    for dtype in (torch.float32, torch.float64):
+        dname = dtype_name(dtype)
+        student = students[dname][0]
+        tt.ExpectationPropagation(student).iterate(
+            max_iter=2, damping="adaptive", tol=0.0)      # warm-up
+        torch.cuda.synchronize()
+        reset_launches(pl)
+        t0 = time.perf_counter()
+        ep = tt.ExpectationPropagation(student).iterate(
+            max_iter=K, damping="adaptive", tol=0.0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = paths[f"adaptive_ep_relu_net_{dname}"] = read_launches(pl)
+        want = {"pl_posterior": ADAPTIVE_PL_POSTERIOR * (K - 1),
+                "pl_forward_message": K, "pl_backward_message": K}
+        check(ep.n_iter == K and launches == want,
+              f"adaptive EP {dname}: {ep.n_iter} sweeps, launches "
+              f"{launches}, want {want}")
+        objectives = []
+
+        def track(algo, i, max_iter):
+            objectives.append(float(algo.log_evidence()))
+            return False
+
+        py = tt.ExpectationPropagation(student).iterate(
+            max_iter=K, damping="adaptive", callback=track)
+        check(py.n_iter == K and same_state(torch, py.state, ep.state),
+              f"adaptive EP {dname}: the callback loop's state differs "
+              "from the loop without callback's")
+        scale = max(abs(a) for a in objectives)
+        fall = max(0.0, max(a - b for a, b in zip(objectives[1:],
+                                                   objectives[2:])))
+        check(all(math.isfinite(a) for a in objectives)
+              and fall <= OBJECTIVE_ROUNDING[dname] * scale,
+              f"adaptive EP {dname}: objectives {objectives} fall by "
+              f"{fall:.3g} (bound {OBJECTIVE_ROUNDING[dname]:g} of "
+              f"{scale:.4g})")
+        x = ep.get_variable_data("x")
+        check(bool(torch.isfinite(x["r"]).all())
+              and float(x["v"].double().mean()) > 0,
+              f"adaptive EP {dname}: x posterior not finite")
+        # one adaptive sweep from the run's state beside a plain one
+        a_l, a_k, a_dev, a_wall, a_post = sweep_readings(
+            torch, pl, lambda: ep.iterate(max_iter=1, damping="adaptive",
+                                          warm_start=True, tol=0.0))
+        check(a_l == {"pl_posterior": ADAPTIVE_PL_POSTERIOR,
+                      "pl_forward_message": 1, "pl_backward_message": 1},
+              f"adaptive EP {dname}: a warm sweep launched {a_l}")
+        # the relu factor's log-partition runs the kernel on z and a
+        n = ep.get_variable_data("z")["r"].numel()
+        check(n == ep.get_variable_data("a")["r"].numel(),
+              f"adaptive EP {dname}: z and a differ in size")
+        p_l, p_k, p_dev, p_wall, _ = sweep_readings(
+            torch, pl, lambda: ep.iterate(max_iter=1, damping=0.1,
+                                          warm_start=True, tol=0.0))
+        readings[dname] = dict(
+            n=n, launches_per_sweep=a_l["pl_posterior"],
+            kernels=a_k, device_ms=a_dev, wall_ms=a_wall,
+            pl_posterior_device_ms=a_post, plain_kernels=p_k,
+            plain_device_ms=p_dev, plain_wall_ms=p_wall)
+        print(f"phase 14a adaptive EP relu net N={students[dname][2].Nz} "
+              f"{dname}: {K} sweeps "
+              f"in {wall:.3f} s, launches {launches}; objectives from "
+              f"{objectives[0]:.8g} to {objectives[-1]:.8g}, largest fall "
+              f"after the first sweep {fall:.3g} ({fall / scale:.3g} of "
+              f"the largest |A|); both loops one state. One warm sweep "
+              f"under torch.profiler: adaptive {a_k:.1f} kernels, device "
+              f"{a_dev:.4f} ms (pl_posterior {a_post:.4f} ms in "
+              f"{a_l['pl_posterior']} launches of n={n}) of {a_wall:.4f} "
+              f"ms, busy "
+              f"{100 * a_dev / a_wall:.2f}%; damping=0.1 {p_k:.1f} kernels, "
+              f"device {p_dev:.4f} ms of {p_wall:.4f} ms, busy "
+              f"{100 * p_dev / p_wall:.2f}%; adaptive/plain wall "
+              f"{a_wall / p_wall:.2f}x [{card}]")
+    # card against CPU, float64, accept decisions compared
+    Recording = recording_engine(tt)
+    cpu_student, _, cpu_linear = relu_net(torch, tt, torch.float64,
+                                          N=EXTRAS_N, device="cpu")
+    svd = (cpu_linear.U, cpu_linear.s, cpu_linear.V.T)
+    gpu_student = relu_net(torch, tt, torch.float64, N=EXTRAS_N, svd=svd)[0]
+    runs = [Recording(m).iterate(max_iter=K, damping="adaptive", tol=0.0)
+            for m in (cpu_student, gpu_student)]
+    choices = [accept_choices(torch, run) for run in runs]
+    check(choices[0].shape == choices[1].shape
+          and choices[0].numel() == 12 * (K - 1),
+          f"adaptive EP N={EXTRAS_N}: {choices[0].numel()} and "
+          f"{choices[1].numel()} scored writes")
+    flips = int((choices[0] != choices[1]).sum())
+    kept = int((choices[0] >= 0).sum())
+    card_against_cpu(
+        torch, f"phase 14a adaptive EP relu net N={EXTRAS_N} f64 ({flips} "
+        f"of {choices[0].numel()} accept decisions differ; {kept} writes "
+        "took a candidate on the CPU)",
+        {"x": runs[0].get_variable_data("x")}, K,
+        {"x": runs[1].get_variable_data("x")}, runs[1].n_iter, ("x",),
+        rtol=1e-8 if flips == 0 else FLIP_RTOL)
+    return paths, readings, (cpu_student, gpu_student)
+
+
+def counting_se(tt):
+    """The SE engine, counting the node objectives it scores by node type
+    and its calls of ``_prepare`` (the model's second moments), with their
+    host time."""
+    class Counting(tt.StateEvolution):
+        def __init__(self, model):
+            super().__init__(model)
+            self.reset()
+
+        def reset(self):
+            self.objectives, self.prepares, self.prepare_s = {}, 0, 0.0
+
+        def node_objective_at(self, i, state, aux=None):
+            kind = type(self.nodes[i]).__name__
+            self.objectives[kind] = self.objectives.get(kind, 0) + 1
+            return super().node_objective_at(i, state, aux)
+
+        def _prepare(self, model):
+            t0 = time.perf_counter()
+            aux = super()._prepare(model)
+            self.prepares += 1
+            self.prepare_s += time.perf_counter() - t0
+            return aux
+
+    return Counting
+
+
+def phase_14b_adaptive_se(torch, tt, pl, students, card):
+    """Adaptive SE of the relu-net student, float64, card against CPU, and
+    where one warm adaptive sweep's time goes."""
+    student, _, linear = students["float64"]
+    svd = tuple(t.cpu() for t in (linear.U, linear.s, linear.V.T))
+    cpu_student, _, _ = relu_net(torch, tt, torch.float64, device="cpu",
+                                 svd=svd, N=linear.W.shape[1])
+    tt.StateEvolution(student).iterate(max_iter=3, damping="adaptive")
+    torch.cuda.synchronize()
+    reset_launches(pl)
+    t0 = time.perf_counter()
+    se = tt.StateEvolution(student).iterate(max_iter=200, damping="adaptive")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(pl)
+    # 2 SE integrands per sweep, and from the second sweep on the 22
+    # objectives of the two writes into the relu factor
+    want = 2 * se.n_iter + ADAPTIVE_PL_POSTERIOR * (se.n_iter - 1)
+    check(launches == {"pl_posterior": want, "pl_forward_message": 0,
+                       "pl_backward_message": 0} and se.n_iter > 1,
+          f"adaptive SE: launches {launches} for {se.n_iter} sweeps "
+          f"(want {want} of pl_posterior)")
+    cpu_se = tt.StateEvolution(cpu_student).iterate(max_iter=200,
+                                                    damping="adaptive")
+    ids = ("x", "z", "a")
+    v, v_cpu = se_v(se, ids), se_v(cpu_se, ids)
+    err = worst_of(abs(v[id] - v_cpu[id]) / v_cpu[id] for id in ids)
+    check(se.n_iter == cpu_se.n_iter and err <= 1e-8,
+          f"adaptive SE: card n_iter {se.n_iter} vs CPU {cpu_se.n_iter}, v "
+          f"rel err {err:.3g} (rtol 1e-8)")
+    print(f"phase 14b adaptive SE of the relu-net student f64: n_iter "
+          f"{se.n_iter} on the card and the CPU, v rel err {err:.3e} (rtol "
+          f"1e-8), v " + ", ".join(f"{id} {v[id]:.8g}" for id in ids)
+          + f"; {launches['pl_posterior']} pl_posterior launches "
+          f"({launches['pl_posterior'] / se.n_iter:.2f} per sweep), "
+          f"{wall:.3f} s on the card alone [{card}]")
+    # one warm adaptive sweep: what it scores, and where its time goes
+    counting = counting_se(tt)(student)
+    counting.iterate(max_iter=2, damping="adaptive", tol=0.0)
+    torch.cuda.synchronize()
+    counting.reset()
+    t0 = time.perf_counter()
+    counting.iterate(max_iter=1, damping="adaptive", warm_start=True,
+                     tol=0.0)
+    torch.cuda.synchronize()
+    sweep_wall = time.perf_counter() - t0
+    scored = dict(counting.objectives)
+    check(sum(scored.values()) == 12 * (1 + 10),
+          f"adaptive SE: one sweep scored {scored}, want 12 x 11")
+    prepares, prepare_s = counting.prepares, counting.prepare_s
+    s_l, s_k, s_dev, s_wall, s_post = sweep_readings(
+        torch, pl, lambda: counting.iterate(
+            max_iter=1, damping="adaptive", warm_start=True, tol=0.0),
+        reps=1)
+    check(s_l == {"pl_posterior": 2 + ADAPTIVE_PL_POSTERIOR,
+                  "pl_forward_message": 0, "pl_backward_message": 0},
+          f"adaptive SE: a warm sweep launched {s_l}")
+    print(f"phase 14b one warm adaptive SE sweep: {1e3 * sweep_wall:.4f} ms "
+          f"wall; objectives scored by node type {scored}; {prepares} calls "
+          f"of _prepare (the model's second moments), {1e3 * prepare_s:.4f} "
+          f"ms of host time ({100 * prepare_s / sweep_wall:.2f}%); under "
+          f"torch.profiler {s_k:.1f} kernels, device {s_dev:.4f} ms "
+          f"(pl_posterior {s_post:.4f} ms in {s_l['pl_posterior']} "
+          f"launches) of {s_wall:.4f} ms, busy {100 * s_dev / s_wall:.2f}% "
+          f"[{card}]")
+    return launches
+
+
+def phase_14c_update_dA(torch, tt, pl, students, pair, card):
+    "update_dA on the relu net: every slot, finite, the CPU's at N = 256."
+    K = 5
+    student = students["float32"][0]
+    reset_launches(pl)
+    ep = tt.ExpectationPropagation(student).iterate(
+        max_iter=K, damping=0.1, update_dA=True)
+    torch.cuda.synchronize()
+    launches = read_launches(pl)
+    want = {"pl_posterior": DA_PL_POSTERIOR * K, "pl_forward_message": K,
+            "pl_backward_message": K}
+    check(ep.n_iter == K and set(ep.dA) == set(range(ep.n_slots))
+          and all(math.isfinite(v) for v in ep.dA.values())
+          and launches == want,
+          f"update_dA N=4096 f32: {ep.n_iter} sweeps, slots "
+          f"{sorted(ep.dA)}, launches {launches} (want {want}), dA {ep.dA}")
+    engines = [tt.ExpectationPropagation(m).iterate(
+        max_iter=K, damping=0.1, update_dA=True) for m in pair]
+    dA = [np.array([e.dA[s] for s in range(e.n_slots)]) for e in engines]
+    scale = float(np.abs(dA[0]).max())
+    err = float(np.max(np.abs(dA[1] - dA[0])
+                       / (np.abs(dA[0]) + scale)))
+    check(np.isfinite(dA[1]).all() and err <= 1e-8,
+          f"update_dA N={EXTRAS_N} f64: card against CPU {err:.3g} (rtol "
+          "1e-8 of each |dA| plus the largest)")
+    print(f"phase 14c update_dA: N=4096 f32 {K} sweeps, dA of all "
+          f"{ep.n_slots} slots finite (largest |dA| "
+          f"{max(abs(v) for v in ep.dA.values()):.4g}), launches {launches};"
+          f" N={EXTRAS_N} f64 card against CPU: worst {err:.3e} (rtol 1e-8"
+          f" of |dA| plus the largest, {scale:.4g}) [{card}]")
+    return launches
+
+
+def host_reads(torch, fn):
+    """(fn(), the synchronizing CUDA calls it made as "file:line" of the
+    Python line that made each), from torch's sync debug mode."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [f"{w.filename}:{w.lineno}" for w in caught
+                 if "called a synchronizing" in str(w.message)]
+
+
+def phase_14d_run_trace(torch, tt, pl, students, card):
+    """run_trace against a TrackEvolution callback, its host reads, its
+    launches and wall time per sweep beside the plain loop's."""
+    from tramp_tpu_torch.algos import TrackEvolution
+    paths = {}
+    n = TRACE_SWEEPS
+    for dtype in (torch.float32, torch.float64):
+        dname = dtype_name(dtype)
+        student = students[dname][0]
+        tt.ExpectationPropagation(student).run_trace(n_iter=3, damping=0.1)
+        torch.cuda.synchronize()
+        ep = tt.ExpectationPropagation(student)
+        ep.state = ep.init_state()
+        reset_launches(pl)
+        t0 = time.perf_counter()
+        trace, reads = host_reads(
+            torch, lambda: ep.run_trace(n_iter=n, damping=0.1,
+                                        warm_start=True))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = paths[f"run_trace_relu_net_{dname}"] = read_launches(pl)
+        check(launches == {"pl_posterior": 0, "pl_forward_message": n,
+                           "pl_backward_message": n} and len(reads) == 1
+              and ep.n_iter == n,
+              f"run_trace {dname}: launches {launches}, {len(reads)} host "
+              f"reads (want 1) at {reads}, n_iter {ep.n_iter}")
+        track = TrackEvolution()
+        tt.ExpectationPropagation(student).iterate(
+            max_iter=n, damping=0.1, callback=track)
+        worst = 0.0
+        for id, curve in trace.items():
+            want = np.array([r["v"] for r in track.records if r["id"] == id])
+            got = curve.double().numpy()
+            check(got.shape == want.shape == (n,),
+                  f"run_trace {dname}: {id} has {got.shape}, the callback "
+                  f"{want.shape}")
+            worst = max(worst, float(np.max(np.abs(got - want)
+                                            / np.abs(want))))
+        check(worst <= TRACE_RTOL[dname],
+              f"run_trace {dname}: {worst:.3g} off the callback's curve "
+              f"(rtol {TRACE_RTOL[dname]:g})")
+        plain = tt.ExpectationPropagation(student)
+        plain.iterate(max_iter=3, damping=0.1, tol=0.0)
+        plain.state = plain.init_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain.iterate(max_iter=n, damping=0.1, tol=0.0, warm_start=True)
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
+        print(f"phase 14d run_trace relu net N={students[dname][2].Nz} "
+              f"{dname}: {n} sweeps, "
+              f"{len(reads)} host read, launches {launches}, "
+              f"{1e3 * wall / n:.4f} ms per sweep against "
+              f"{1e3 * plain_wall / n:.4f} ms for iterate(tol=0) "
+              f"({wall / plain_wall:.3f}x); v curves within {worst:.3e} of "
+              f"TrackEvolution's (rtol {TRACE_RTOL[dname]:g}) [{card}]")
+    return paths
+
+
+def phase_14e_checkpoints(torch, tt, pl, students, pair, card):
+    """save_state / load_state (on the card; a CPU checkpoint resumed on
+    the card) and save_checkpoint / restore_checkpoint around the batched
+    solvers at LANES lanes."""
+    import os
+    from tramp_tpu_torch.parallel import (
+        EPSolver, MLVAMPSolver, restore_checkpoint, save_checkpoint,
+        with_buffers)
+    where = extras_dir()
+    paths = {}
+    student, _, linear = students["float32"]
+    path = os.path.join(where, "relu_net.npz")
+    reset_launches(pl)
+    full = tt.ExpectationPropagation(student).iterate(max_iter=10,
+                                                      damping=0.1, tol=0.0)
+    full.save_state(path)
+    full.iterate(max_iter=10, damping=0.1, tol=0.0, warm_start=True)
+    resumed = tt.ExpectationPropagation(student).load_state(path)
+    resumed.iterate(max_iter=10, damping=0.1, tol=0.0, warm_start=True)
+    torch.cuda.synchronize()
+    paths["checkpoint_resume_relu_net_float32"] = read_launches(pl)
+    check(resumed.n_iter == full.n_iter == 20
+          and same_state(torch, resumed.state, full.state),
+          "save_state / load_state / resume differs from the run that was "
+          "not interrupted")
+    print("phase 14e save_state / load_state N=4096 f32: 10 + 10 sweeps "
+          "bit-identical to 20; launches "
+          + str(paths["checkpoint_resume_relu_net_float32"]))
+    cpu_student, gpu_student = pair
+    cpu_path = os.path.join(where, "cpu.npz")
+    cpu_ep = tt.ExpectationPropagation(cpu_student).iterate(
+        max_iter=5, damping=0.1, tol=0.0)
+    cpu_ep.save_state(cpu_path)
+    gpu_ep = tt.ExpectationPropagation(gpu_student).load_state(cpu_path)
+    check(all(v.device.type == "cuda" for m in gpu_ep.state
+              for v in m.values()), "a CPU checkpoint did not load onto "
+                                    "the card")
+    for ep in (cpu_ep, gpu_ep):
+        ep.iterate(max_iter=10, damping=0.1, tol=0.0, warm_start=True)
+    card_against_cpu(torch, f"phase 14e CPU checkpoint (N={EXTRAS_N} f64) "
+                     "resumed on the card",
+                     {"x": cpu_ep.get_variable_data("x")}, cpu_ep.n_iter,
+                     {"x": gpu_ep.get_variable_data("x")}, gpu_ep.n_iter,
+                     ("x",))
+    likelihood = len(student.factors) - 1
+    _, ys = batch_of_observations(torch, linear.W, LANES, True, seed=7)
+    stacked = with_buffers(student, {(likelihood, "y"): ys})
+    for cls, kw in ((MLVAMPSolver, {}),
+                    (EPSolver, dict(rollback_increase=float("inf")))):
+        kw = dict(kw, damping=0.1, tol=BATCH_TOL)
+        name = cls.__name__
+        reset_launches(pl)
+        t0 = time.perf_counter()
+        post, n_full = cls(student, max_iter=500, **kw).solve_batch(stacked)
+        _, state, n_first = cls(student, max_iter=BATCH_SPLIT,
+                                **kw).solve_batch_with_state(stacked)
+        ckpt = save_checkpoint(os.path.join(where, name), state, n_first)
+        state_r, n_r = restore_checkpoint(ckpt, like=(state, n_first))
+        post_r, n_rest = cls(student, max_iter=500 - BATCH_SPLIT,
+                             **kw).solve_batch(stacked, state=state_r)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        paths[f"checkpoint_batch_{name}"] = read_launches(pl)
+        check(n_first.tolist() == [BATCH_SPLIT] * LANES
+              and torch.equal(n_r, n_first)
+              and torch.equal(n_rest + BATCH_SPLIT, n_full),
+              f"{name} checkpoint at {LANES} lanes: n_iter of the halves "
+              f"({int(n_first.max())}, {int(n_rest.max())}) against "
+              f"{int(n_full.max())}")
+        for vid in post:
+            for key in ("r", "v"):
+                check(torch.equal(post_r[vid][key], post[vid][key]),
+                      f"{name} checkpoint at {LANES} lanes: {key} of {vid} "
+                      "differs from the run that was not interrupted")
+        print(f"phase 14e {name} relu net f32, {LANES} lanes: "
+              f"{BATCH_SPLIT} iterations, save_checkpoint, "
+              f"restore_checkpoint, resume: r, v and n_iter (up to "
+              f"{int(n_full.max())}) equal to the solve that was not "
+              f"interrupted, {wall:.3f} s for both [{card}]")
+    return paths
+
+
+def phase_14f_checks(torch, tt, card):
+    "The gradient checks on the card in float64 against the CPU."
+    from tramp_tpu_torch import beliefs, checks
+    from tramp_tpu_torch.likelihoods import SgnLikelihood
+    from tramp_tpu_torch.priors import GaussBernoulliPrior
+    calls = {
+        "check_prior_grad_EP": lambda d: checks.check_prior_grad_EP(
+            GaussBernoulliPrior(size=1, rho=0.4, device=d,
+                                dtype=torch.float64)),
+        "check_likelihood_grad_EP": lambda d: checks.check_likelihood_grad_EP(
+            SgnLikelihood(y=None), y=1.0, device=d),
+        "check_belief_grad_b": lambda d: checks.check_belief_grad_b(
+            beliefs.sparse, a=1.3, eta=0.4, device=d)}
+    t0 = time.perf_counter()
+    for name, call in calls.items():
+        gpu, cpu = call("cuda"), call("cpu")
+        worst = 0.0
+        for col in cpu.columns:
+            if col.endswith("err"):
+                continue
+            want, got = cpu[col].to_numpy(), gpu[col].to_numpy()
+            scale = float(np.abs(want).max())
+            worst = max(worst, float(np.max(np.abs(got - want)
+                                            / (np.abs(want) + scale))))
+        check(worst <= 1e-10 and len(gpu) == len(cpu),
+              f"{name} on the card against the CPU: {worst:.3g} (rtol "
+              "1e-10)")
+        print(f"phase 14f {name} float64 on the card: {len(gpu)} rows, "
+              f"worst {worst:.3e} against the CPU (rtol 1e-10), largest "
+              + ", ".join(f"{c} {gpu[c].max():.3g}" for c in gpu.columns
+                          if c.endswith("err")) + f" [{card}]")
+    return time.perf_counter() - t0
+
+
+def phase_14g_explain(torch, tt, pl):
+    "One explained sweep of a small relu net on the card."
+    import contextlib
+    import io
+    from tramp_tpu_torch.algos import ExplainMessagePassing
+    lines = {}
+    cpu_student, _, linear = relu_net(torch, tt, torch.float64, N=64,
+                                      device="cpu")
+    svd = (linear.U, linear.s, linear.V.T)
+    gpu_student = relu_net(torch, tt, torch.float64, N=64, svd=svd)[0]
+    for where, student in (("card", gpu_student), ("host", cpu_student)):
+        out = io.StringIO()
+        reset_launches(pl)
+        with contextlib.redirect_stdout(out):
+            ExplainMessagePassing(student).iterate(max_iter=1)
+        lines[where] = out.getvalue().splitlines()
+        if where == "card":
+            launches = read_launches(pl)
+    check(lines["card"] == lines["host"] and len(lines["card"]) > 4,
+          "ExplainMessagePassing prints other lines on the card than on the "
+          "CPU")
+    check(launches == {"pl_posterior": 0, "pl_forward_message": 1,
+                       "pl_backward_message": 1},
+          f"ExplainMessagePassing: launches {launches}")
+    print(f"phase 14g ExplainMessagePassing, one sweep of the relu net N=64 "
+          f"on the card ({len(lines['card'])} lines, the CPU's; the first "
+          "20):")
+    for line in lines["card"][:20]:
+        print("    " + line[:160])
+    return launches
+
+
+def phase_14(torch, tt, pl, students, card):
+    """Phase 14: the engine extras and the tooling. Returns (launches by
+    path, each path's counts set to 0 just before it and read just after;
+    the adaptive sweep's readings)."""
+    t0 = time.perf_counter()
+    seconds = {}
+
+    def lap(part):
+        seconds[part] = time.perf_counter() - t0 - sum(seconds.values())
+
+    paths, readings, pair = phase_14a_adaptive_ep(torch, tt, pl, students,
+                                                  card)
+    lap("a")
+    paths["adaptive_se_relu_net"] = phase_14b_adaptive_se(
+        torch, tt, pl, students, card)
+    lap("b")
+    paths["update_dA_relu_net_float32"] = phase_14c_update_dA(
+        torch, tt, pl, students, pair, card)
+    lap("c")
+    paths.update(phase_14d_run_trace(torch, tt, pl, students, card))
+    lap("d")
+    paths.update(phase_14e_checkpoints(torch, tt, pl, students, pair, card))
+    lap("e")
+    phase_14f_checks(torch, tt, card)
+    lap("f")
+    paths["explain_relu_net"] = phase_14g_explain(torch, tt, pl)
+    lap("g")
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s, by part "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items())
+          + f" [{card}]")
+    return paths, readings
+
+
 def main():
     import torch
     # phase 1: the device
@@ -3748,6 +4365,8 @@ def main():
     item3_launches["item3_factors_ep_se"] = phase_12(torch, tt, pl, card)
     # phase 13: the structured channels, TV, low rank and tanh
     tree_launches.update(phase_13(torch, tt, pl, card))
+    # phase 14: the engine extras and the tooling
+    extras_launches, adaptive = phase_14(torch, tt, pl, students, card)
 
     # phase 8: summary. A main path is a solve with the posterior readout
     # that follows it: the engine's float32 relu-net solve (phase 4) and the
@@ -3773,14 +4392,17 @@ def main():
                          + sum(path[name]
                                for path in item3_launches.values())
                          + sum(path[name]
-                               for path in tree_launches.values())),
+                               for path in tree_launches.values())
+                         + sum(path[name]
+                               for path in extras_launches.values())),
             "launches_by_path": dict(
                 {"engine_relu_net_f32": engine_launches[name],
                  "front_door_relu_net": relu_launches[name],
                  "front_door_flagship": 0, "se_cs_grid": 0},
                 **{k: path[name] for k, path in se_launches.items()},
                 **{k: path[name] for k, path in item3_launches.items()},
-                **{k: path[name] for k, path in tree_launches.items()}),
+                **{k: path[name] for k, path in tree_launches.items()},
+                **{k: path[name] for k, path in extras_launches.items()}),
             "max_abs_err": max_err[name],
             "final_state_max_abs_err": {
                 path: errs[name] for path, errs in tree_err.items()},
@@ -3794,6 +4416,17 @@ def main():
                 "bound_ms": one["bound_ms"], "bound_by": one["bound_by"],
                 "device_ms": one["device_ms"], "host_ms": one["host_ms"]}})
         if name == "pl_posterior":
+            sweep = adaptive["float32"]
+            bound, by, _ = bound_ms(name, relu.region_specs, sweep["n"],
+                                    torch.float32)
+            kernels[-1]["adaptive_ep_sweep"] = {
+                "n": sweep["n"], "dtype": "float32",
+                "launches_per_sweep": sweep["launches_per_sweep"],
+                "device_ms_per_sweep": sweep["pl_posterior_device_ms"],
+                "bound_ms_per_sweep": sweep["launches_per_sweep"] * bound,
+                "bound_by": by,
+                "sweep_wall_ms": sweep["wall_ms"],
+                "sweep_device_ms": sweep["device_ms"]}
             kernels[-1]["se_integrand"] = {
                 str(shape): {"ms": row["per_call_ms"],
                              "plain_ms": row["plain_ms"],

@@ -65,6 +65,23 @@ def test_port_sources_import_no_jax():
     assert len(sources) > 10 and not offenders, offenders
 
 
+def test_tooling_modules_import_no_jax_pandas_or_matplotlib():
+    """The engine extras and the tooling (checks, explain, plots, layout,
+    checkpoints) import neither JAX nor the JAX package, and leave pandas
+    and matplotlib to the functions that draw or return a DataFrame."""
+    code = (
+        "import sys\n"
+        "import tramp_tpu_torch.checks, tramp_tpu_torch.algos.explain\n"
+        "import tramp_tpu_torch.experiments.plots\n"
+        "import tramp_tpu_torch.models.dag_layout\n"
+        "import tramp_tpu_torch.parallel.checkpoint\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'tramp_tpu', 'pandas', 'matplotlib')]\n"
+        "assert not bad, bad\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+
+
 def _inputs(n, dtype, device="cpu", seed=0):
     rng = np.random.RandomState(seed)
     bz = torch.as_tensor(2 * rng.randn(n), dtype=dtype, device=device)
@@ -549,6 +566,24 @@ def test_tree_and_complex_factors_need_a_card_or_an_explicit_cpu():
     assert proc.returncode == 0, proc.stderr + proc.stdout
 
 
+def test_checks_need_a_card_or_an_explicit_cpu():
+    "A check of a factor built without a device runs on the card or raises."
+    code = (
+        "from tramp_tpu_torch import checks\n"
+        "from tramp_tpu_torch.priors import BinaryPrior\n"
+        "prior = BinaryPrior(size=1, p_pos=0.6)\n"
+        "try:\n"
+        "    checks.check_prior_grad_EP(prior)\n"
+        "except RuntimeError as e:\n"
+        "    assert \"device='cpu'\" in str(e), e\n"
+        "else:\n"
+        "    raise SystemExit('no error without a card')\n"
+        "df = checks.check_prior_grad_EP(prior, device='cpu')\n"
+        "assert df['r_err'].max() < 1e-8\n")
+    proc = _run(code, env=NO_CARD)
+    assert proc.returncode == 0, proc.stderr + proc.stdout
+
+
 def test_kernel_module_imports_without_nvcc_or_gpu():
     env = dict(os.environ, PATH="/usr/bin:/bin", CUDA_VISIBLE_DEVICES="")
     code = ("import shutil, torch; "
@@ -655,3 +690,28 @@ def test_message_kernels_match_plain_on_card():
                                        channel.region_specs)
                         assert torch.equal(got[0][i, 0], single[0])
                         assert torch.equal(got[1][i], single[1])
+
+
+@pytest.mark.cuda
+def test_special_function_derivatives_on_card():
+    """The autograd Functions of utils/special.py on the card: first
+    derivatives equal to the CPU's at rtol 1e-12 (float64), second ones at
+    rtol 1e-5, where log_norm_cdf_prime's cancels at x = -1e3 (as in
+    tests/test_torch_checks.py); NaN and infinities where the CPU has
+    them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from tramp_tpu_torch.utils import special
+    xs = [-1e3, -40.0, -5.0, 0.0, 5.0, 40.0, 1e3, np.inf, -np.inf]
+    for name in ("erfcx", "log_Phi_erfcx", "log_norm_cdf_prime"):
+        out = []
+        for device in ("cpu", "cuda"):
+            x = torch.tensor(xs, dtype=torch.float64, device=device,
+                             requires_grad=True)
+            d1, = torch.autograd.grad(getattr(special, name)(x).sum(), x,
+                                      create_graph=True)
+            d2, = torch.autograd.grad(d1.sum(), x)
+            out.append([d.detach().cpu().numpy() for d in (d1, d2)])
+        for got, want, rtol in zip(out[1], out[0], (1e-12, 1e-5)):
+            np.testing.assert_allclose(got, want, rtol=rtol, atol=1e-300,
+                                       err_msg=name)

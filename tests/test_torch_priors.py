@@ -153,8 +153,15 @@ def test_committee_binary_prior_one_instance():
                      what=method)
     x = port.sample(torch.Generator().manual_seed(1))
     assert x.shape == (N, K) and set(x.unique().tolist()) <= {-1.0, 1.0}
-    with pytest.raises(ValueError, match="item 7"):
-        port.compute_forward_posterior(_t(ax), _t(rng.randn(2, N, K)))
+    # a lane axis on bx alone shares the precision: lane by lane the same
+    bxs = rng.randn(2, N, K)
+    rx, vx = port.compute_forward_posterior(_t(ax), _t(bxs))
+    for i in range(2):
+        r_i, v_i = port.compute_forward_posterior(_t(ax), _t(bxs[i]))
+        assert_close(rx[i], r_i, 1e-12)
+        assert_close(vx[i], v_i, 1e-12)
+    with pytest.raises(ValueError, match="K x K precision"):
+        port.compute_forward_posterior(_t(1.5), _t(bx))
 
 
 def test_committee_binary_prior_denoiser_ep_raises_on_both_sides():

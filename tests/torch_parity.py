@@ -124,3 +124,28 @@ def committee_case(kind, seed=0):
     sample = model.sample(jax.random.PRNGKey(seed + 1))
     j_student = model.to_observed({"y": sample["y"]})
     return j_student, port_model(j_student), sample
+
+
+def glm_scenario(N=200, prior_rho=0.25, key=3, seed=7, alpha=0.6):
+    """The BayesOptimalScenario of a JAX GLM of tests/test_ep_glm.py
+    (gauss-Bernoulli prior, Gaussian output of variance 1e-2): by default
+    the instance of its adaptive-damping tests (:141-147); its checkpoint
+    test's is ``N=80, prior_rho=0.4, key=5, seed=2``."""
+    import jax
+    from tramp_tpu import glm_generative
+    from tramp_tpu.experiments import BayesOptimalScenario
+    model = glm_generative(
+        N=N, alpha=alpha, ensemble_type="gaussian",
+        prior_type="gauss_bernoulli", output_type="gaussian",
+        prior_rho=prior_rho, output_var=1e-2, key=jax.random.PRNGKey(key))
+    scenario = BayesOptimalScenario(model, x_ids=["x"])
+    scenario.setup(seed=seed)
+    return scenario
+
+
+def no_carry(engine_cls):
+    "A subclass of a port engine without the spectral-image carry."
+    class NoCarry(engine_cls):
+        def _init_spectral_factors(self):
+            return ()
+    return NoCarry

@@ -97,14 +97,14 @@ class ExpectationPropagation(MessagePassing):
         return dict(r=b_hat / a_hat, v=1.0 / a_hat)
 
     # -- objective ---------------------------------------------------------
-    def variable_objective(self, var, v_idx, post):
+    def variable_objective(self, var, v_idx, post, aux=None):
         "Variable log partition. Reference base.py:146-150."
         ax, bx = post["a"], post["b"]
         logZ = 0.5 * torch.sum(
             bx**2 / ax + torch.log(2 * math.pi / ax) * torch.ones_like(bx))
         return torch.where(torch.all(ax > 0), logZ, math.inf)
 
-    def node_objective_at(self, i, state):
+    def node_objective_at(self, i, state, aux=None):
         "Reference expectation_propagation.py:154-171."
         node = self.nodes[i]
         if isinstance(node, Variable):

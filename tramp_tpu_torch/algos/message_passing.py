@@ -15,7 +15,15 @@ tramp_tpu/algos/message_passing.py.
 - NaN guard: if a sweep produces any non-finite message the previous state
   is kept and the loop stops (reference message_passing.py:187-209).
 - Damping: constant per-edge factor->variable damping
-  ``new = d*old + (1-d)*new`` (reference message_passing.py:119-127).
+  ``new = d*old + (1-d)*new`` (reference message_passing.py:119-127), or
+  ``damping="adaptive"``: Bethe-objective backtracking on every slot write
+  (reference message_passing.py:151-185), branchless, so it runs in both
+  loops without a host read.
+- ``update_dA=True`` records each slot write's local Bethe change in
+  ``self.dA``; ``run_trace`` stacks the mean posterior variances of a fixed
+  number of sweeps on the device; ``save_state`` / ``load_state`` persist
+  the state in the JAX package's ``.npz`` layout, so a checkpoint of either
+  package resumes in the other.
 
 Slot layout: model edge e gets slots 2e (direction "fwd") and 2e+1 ("bwd").
 
@@ -26,6 +34,7 @@ same code against a model whose buffers carry lanes, and ``_metric``,
 shape ``(B,)``. ``iterate`` solves one instance; the batched loop is
 ``parallel.EPSolver``.
 """
+import numpy as np
 import torch
 
 from ..base import Variable, Factor
@@ -54,6 +63,10 @@ class MessagePassing:
     #: so SE-only factors skip shape propagation (the reference builds SE
     #: GLMs with size=None, generalized_linear_model.py:45)
     needs_shapes = True
+
+    #: Engines whose sweep prints concrete values (the explain wrappers)
+    #: keep the raw init: the shape sweeps on meta tensors would print.
+    harmonize = True
 
     def __init__(self, model, message_keys):
         if not isinstance(model, Model):
@@ -122,7 +135,7 @@ class MessagePassing:
                     device=device, dtype=dtype)
                 for i in self.spectral_factors})
         state = tuple(state)
-        if self.needs_shapes:
+        if self.needs_shapes and self.harmonize:
             state = self._harmonize_state(state)
         if self.spectral_factors:
             # the cache must equal U^T bx0 of the initialized slots (the
@@ -223,29 +236,91 @@ class MessagePassing:
         return {key: sum(state[s][key] for s in in_slots)
                 for key in self.message_keys}
 
-    def _sweep(self, model, state, damp, aux=None):
+    # -- adaptive damping and the local Bethe change --------------------------
+    def _msg_target(self, s):
+        "Node index receiving the message in slot s."
+        e, d = divmod(s, 2)
+        ui, vi = self.edges[e]
+        return vi if d == FWD else ui
+
+    def _edge_objective(self, e, state, aux=None):
+        "Edge term of the Bethe objective: variable objective of fwd+bwd."
+        v_idx = self.edge_variable[e]
+        msgs = [state[slot(e, FWD)], state[slot(e, BWD)]]
+        post = {k: sum(m[k] for m in msgs) for k in self.message_keys}
+        return self.variable_objective(self.nodes[v_idx], v_idx, post, aux)
+
+    def _local_objective(self, state, s, msg, aux=None):
+        """The part of the Bethe objective that slot s's message moves: the
+        objective of the node it goes to less its edge term, with ``msg``
+        in slot s. ``aux`` is the sweep's ``_prepare(model)``."""
+        st = list(state)
+        st[s] = msg
+        return (self.node_objective_at(self._msg_target(s), st, aux)
+                - self._edge_objective(s // 2, st, aux))
+
+    def _adaptive_update(self, state, s, new_msg, is_first, aux=None,
+                         n_max=10):
+        """Bethe-objective backtracking: accept new = old + beta*(new-old)
+        with the largest beta in {1, 1/2, ..., 1/2^(n_max-1)} for which the
+        local objective change dA >= 0; keep old otherwise (reference
+        message_passing.py:151-185). The first sweep is undamped."""
+        if is_first:
+            return new_msg
+        old = state[s]
+        A_old = self._local_objective(state, s, old, aux)
+        accepted = old
+        # smallest beta first, so that the largest beta with dA >= 0 wins:
+        # the reference's first accept from beta = 1 down, with no host read
+        for n in reversed(range(n_max)):
+            beta = 0.5**n
+            cand = {k: old[k] + beta * (new_msg[k] - old[k])
+                    for k in self.message_keys}
+            ok = self._local_objective(state, s, cand, aux) - A_old >= 0
+            accepted = {k: torch.where(ok, cand[k], accepted[k])
+                        for k in self.message_keys}
+        return accepted
+
+    def _edge_dA(self, state, s, new_msg, aux=None):
+        """Local Bethe objective change of writing new_msg into slot s
+        (reference compute_dA, message_passing.py:129-149)."""
+        return (self._local_objective(state, s, new_msg, aux)
+                - self._local_objective(state, s, state[s], aux))
+
+    def _sweep(self, model, state, damp, aux=None, adaptive=False,
+               is_first=False, update_dA=False):
         """One forward + backward sweep of ``model`` (the engine's model or
         its meta copy) from ``state``; ``aux`` is ``_prepare(model)``.
-        Returns the new state tuple."""
+        ``adaptive``: Bethe backtracking on every slot write in place of
+        ``damp`` (undamped when ``is_first``). Returns the new state tuple,
+        and with ``update_dA`` also ``{slot: local Bethe change}`` (0-d
+        tensors)."""
         state = list(state)
         if self.spectral_factors:
             # local cache copy at index n_slots; spectral factor reads go
             # through state[self.n_slots], writes through ("spec", key)
             cache = dict(state[self.n_slots])
             state[self.n_slots] = cache
+        dA = {}
 
         def write(updates):
             for s, msg in updates.items():
                 if isinstance(s, tuple):
                     # ("spec", key): the carried spectral image, a derived
-                    # quantity, never damped
+                    # quantity, never damped, no part of the objective
                     cache[s[1]] = msg
                     continue
-                d = damp[s]
-                if d:
-                    old = state[s]
-                    msg = {k: d * old[k] + (1.0 - d) * msg[k]
-                           for k in self.message_keys}
+                if adaptive:
+                    msg = self._adaptive_update(state, s, msg, is_first,
+                                                aux)
+                else:
+                    d = damp[s]
+                    if d:
+                        old = state[s]
+                        msg = {k: d * old[k] + (1.0 - d) * msg[k]
+                               for k in self.message_keys}
+                if update_dA:
+                    dA[s] = self._edge_dA(state, s, msg, aux)
                 state[s] = msg
 
         # forward pass
@@ -265,6 +340,8 @@ class MessagePassing:
                 write(self._variable_out(i, state, BWD))
             else:
                 write(self._factor_backward(i, node, state, aux))
+        if update_dA:
+            return tuple(state), dA
         return tuple(state)
 
     # -- convergence metrics ----------------------------------------------
@@ -351,17 +428,20 @@ class MessagePassing:
     # -- iterate ----------------------------------------------------------
     def iterate(self, max_iter=200, callback=None, initializer=None,
                 damping=None, warm_start=False, tol=1e-6, check_nan=True,
-                early_stop=None):
+                early_stop=None, update_dA=False):
         """Run message passing until the stop rule fires or ``max_iter``
         sweeps have run.
 
-        With a ``callback`` the loop is the JAX package's Python loop
-        (message_passing.py:610-630): after every finite sweep the engine's
-        state and ``n_iter`` are brought up to date and
-        ``callback(self, i, max_iter)`` is called, which may read the engine,
-        put back an earlier state and stop the loop by returning true; a
-        sweep that is not finite ends the loop and is dropped. ``tol``,
-        ``early_stop`` and ``check_nan`` belong to the loop without callback.
+        With a ``callback`` (or ``update_dA=True``) the loop is the JAX
+        package's Python loop (message_passing.py:610-630): after every
+        finite sweep the engine's state and ``n_iter`` are brought up to
+        date and ``callback(self, i, max_iter)`` is called, which may read
+        the engine, put back an earlier state and stop the loop by returning
+        true; a sweep that is not finite ends the loop and is dropped.
+        ``tol``, ``early_stop`` and ``check_nan`` belong to the loop without
+        callback. ``update_dA=True`` records each slot write's local Bethe
+        change as ``self.dA = {slot: float}`` after every sweep (one host
+        read of all slots).
 
         Without one the loop follows the JAX package's compiled ``while_loop``
         (tramp_tpu/algos/message_passing.py:631-680): a sweep whose state is
@@ -370,6 +450,10 @@ class MessagePassing:
         previous state and stops when ``i > wait_increase`` and the metric
         grew by more than ``max_increase``. ``early_stop`` may be an
         EarlyStopping/EarlyStoppingEP to override the engine's default rule.
+
+        ``damping`` is None, a float, a list of ``(id, direction, d)`` or
+        ``"adaptive"`` (Bethe backtracking, in either loop; the first sweep
+        of a run from the initial state is undamped).
         """
         if warm_start:
             if self.state is None:
@@ -377,10 +461,13 @@ class MessagePassing:
         else:
             self.state = self.init_state(initializer)
             self.n_iter = 0
-        damp = self._damping_per_slot(damping)
+        adaptive = damping == "adaptive"
+        damp = self._damping_per_slot(None if adaptive else damping)
         aux = self._prepare(self.model)
-        if callback is not None:
-            return self._iterate_python(max_iter, damp, callback, aux)
+        if callback is not None or update_dA:
+            callback = callback or (lambda algo, i, max_iter: False)
+            return self._iterate_python(max_iter, damp, callback, aux,
+                                        adaptive, update_dA)
         kind, tol, wait_increase, max_increase = self._stop_params(
             early_stop, tol)
 
@@ -390,7 +477,8 @@ class MessagePassing:
         old_m = self._metric(state, kind)
         i = 0
         while i < max_iter:
-            new_state = self._sweep(self.model, state, damp, aux)
+            new_state = self._sweep(self.model, state, damp, aux, adaptive,
+                                    self.n_iter + i == 0)
             new_m = self._metric(new_state, kind)
             delta, inc = self._delta_increase(kind, new_m, old_m)
             true = torch.ones((), dtype=torch.bool, device=delta.device)
@@ -408,17 +496,100 @@ class MessagePassing:
         self.n_iter += i
         return self
 
-    def _iterate_python(self, max_iter, damp, callback, aux):
+    def _iterate_python(self, max_iter, damp, callback, aux, adaptive=False,
+                        update_dA=False):
         if self.spectral_factors:
             self.state = self._refresh_spectral_cache(self.state)
         for i in range(max_iter):
-            new_state = self._sweep(self.model, self.state, damp, aux)
+            new_state = self._sweep(self.model, self.state, damp, aux,
+                                    adaptive, self.n_iter == 0, update_dA)
+            if update_dA:
+                new_state, dA = new_state
+                # per-slot local Bethe change, keyed like get_edges_data
+                self.dA = dict(zip(
+                    dA, torch.stack(list(dA.values())).tolist()))
             if not bool(self._all_finite(new_state)):
                 break
             self.state = new_state
             self.n_iter += 1
             if callback(self, i, max_iter):
                 break
+        return self
+
+    # -- on-device trace (JAX package message_passing.py:715-747) ----------
+    def run_trace(self, n_iter=50, damping=None, initializer=None,
+                  warm_start=False):
+        """Run exactly ``n_iter`` sweeps, stacking each sweep's mean
+        posterior variance of every variable on the device, and read the
+        stack once at the end. Returns ``{variable id: (n_iter,) tensor}``
+        on the CPU and advances the engine state and ``n_iter`` like
+        ``iterate(warm_start=...)``. No stop rule and no finite guard, as in
+        the JAX package's scan."""
+        if warm_start:
+            if self.state is None:
+                raise ValueError("message state was never initialized")
+        else:
+            self.state = self.init_state(initializer)
+            self.n_iter = 0
+        damp = self._damping_per_slot(damping)
+        aux = self._prepare(self.model)
+        state = self.state
+        if self.spectral_factors:
+            state = self._refresh_spectral_cache(state)
+        rows = []
+        for _ in range(n_iter):
+            state = self._sweep(self.model, state, damp, aux)
+            rows.append(torch.stack(
+                [torch.mean(v) for v in self._metric(state, "v")]))
+        self.state = state
+        self.n_iter += int(n_iter)
+        if not rows:
+            return {self.nodes[vi].id: torch.zeros(0)
+                    for vi in self.variable_indices}
+        # the one host read of the trace
+        trace = torch.stack(rows).cpu()
+        return {self.nodes[vi].id: trace[:, j]
+                for j, vi in enumerate(self.variable_indices)}
+
+    # -- checkpoint / resume (JAX package message_passing.py:749-788) ------
+    # The layout is the JAX package's: ``__n_iter__``, ``s{slot}_{key}``
+    # and ``spec_{factor index}`` for the carried spectral images, so a
+    # checkpoint of either package resumes in the other.
+    def save_state(self, path):
+        "Persist the message state and iteration counter to ``path`` (.npz)."
+        if self.state is None:
+            raise ValueError("message state was never initialized")
+        arrays = {"__n_iter__": np.asarray(self.n_iter)}
+        for s, msg in enumerate(self.state[:self.n_slots]):
+            for key in self.message_keys:
+                arrays[f"s{s}_{key}"] = msg[key].detach().cpu().numpy()
+        if self.spectral_factors:
+            for k, v in self.state[self.n_slots].items():
+                arrays[f"spec_{k}"] = v.detach().cpu().numpy()
+        np.savez(path, **arrays)
+
+    def load_state(self, path):
+        """Restore a checkpoint written by ``save_state`` (of either
+        package) onto the engine's device and dtype. Follow with
+        ``iterate(..., warm_start=True)`` to resume. A checkpoint without
+        the spectral images rebuilds them from the slots."""
+        device, dtype = self.device_dtype()
+        with np.load(path) as data:
+            def load(name):
+                return torch.as_tensor(data[name], device=device,
+                                       dtype=dtype)
+            state = tuple({key: load(f"s{s}_{key}")
+                           for key in self.message_keys}
+                          for s in range(self.n_slots))
+            if self.spectral_factors:
+                if f"spec_{self.spectral_factors[0]}" in data.files:
+                    state += ({str(i): load(f"spec_{i}")
+                               for i in self.spectral_factors},)
+                else:
+                    state = self._refresh_spectral_cache(state)
+            n_iter = int(data["__n_iter__"])
+        self.state = state
+        self.n_iter = n_iter
         return self
 
     # -- data access (reference message_passing.py:265-304) ---------------
@@ -453,8 +624,9 @@ class MessagePassing:
         return records
 
     # -- objective (Bethe free entropy, reference l:306-328) ---------------
-    # Engines implement ``node_objective_at(i, state)`` and
-    # ``variable_objective(variable, node index, posterior)``.
+    # Engines implement ``node_objective_at(i, state, aux=None)`` and
+    # ``variable_objective(variable, node index, posterior, aux=None)``;
+    # ``aux`` is ``_prepare(model)`` where the caller has it.
     def update_objective(self):
         A_nodes = 0.0
         for i in range(len(self.nodes)):

@@ -102,22 +102,26 @@ class StateEvolution(MessagePassing):
         return dict(v=1.0 / post["a"])
 
     # -- objective ---------------------------------------------------------
-    def variable_objective(self, var, v_idx, post):
-        "Variable free energy. Reference base.py:133-136."
+    def variable_objective(self, var, v_idx, post, aux=None):
+        """Variable free energy. Reference base.py:133-136. ``aux``: the
+        second moments, when the caller has them (an adaptive sweep scores
+        132 objectives)."""
         ax = post["a"]
-        tau_x = self._prepare(self.model)[v_idx]
+        tau_x = (self._prepare(self.model) if aux is None else aux)[v_idx]
         I = 0.5 * torch.log(ax * tau_x)
         return (0.5 * ax * tau_x - I
                 + 0.5 * torch.log(2 * math.pi * tau_x / math.e))
 
-    def node_objective_at(self, i, state):
+    def node_objective_at(self, i, state, aux=None):
         node = self.nodes[i]
         if isinstance(node, Variable):
-            return self.variable_objective(node, i, self._posterior(i, state))
+            return self.variable_objective(node, i, self._posterior(i, state),
+                                           aux)
         prev_msgs, next_msgs = self._gather(i, state)
         if node.n_prev == 0:
             return node.compute_free_energy(_unwrap_a(next_msgs, node.n_next))
-        tau_z = self._tau_prev(i, self._prepare(self.model))
+        tau_z = self._tau_prev(i, self._prepare(self.model) if aux is None
+                               else aux)
         az = _unwrap_a(prev_msgs, node.n_prev)
         if node.n_next == 0:
             return node.compute_free_energy(az, tau_z)

@@ -51,8 +51,10 @@ class _Node:
             fields = list(self._data_fields) + list(self._meta_fields)
 
         def fmt(v):
+            # the JAX package's summary, so that the explain engines print
+            # its lines
             if isinstance(v, torch.Tensor) and v.ndim > 0:
-                return f"<tensor {tuple(v.shape)}>"
+                return f"<array {tuple(v.shape)}>"
             return repr(v)
 
         args = ", ".join(f"{f}={fmt(getattr(self, f, None))}" for f in fields)
@@ -69,6 +71,9 @@ class Variable(_Node):
         self.id = id
         self.n_prev = n_prev
         self.n_next = n_next
+
+    def math(self):
+        return rf"${self.id}$"
 
 
 class Factor(_Node, nn.Module):
@@ -94,6 +99,9 @@ class Factor(_Node, nn.Module):
     def __init__(self):
         nn.Module.__init__(self)
         self.id = None
+
+    def math(self):
+        return rf"$\mathrm{{{type(self).__name__}}}$"
 
     def out_shape(self, *shapes):
         "Shape of the emitted variable. Default: elementwise in the input."

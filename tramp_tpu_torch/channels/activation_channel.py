@@ -31,6 +31,9 @@ class ActivationChannel(Channel):
         self.name = name or getattr(func, "__name__", "f")
         self._func = func
 
+    def math(self):
+        return rf"$\mathrm{{{self.name}}}$"
+
     @property
     def func(self):
         func = self.__dict__.get("_func")

@@ -21,6 +21,9 @@ class AnalyticAbsChannel(Channel):
     _data_fields = ()
     _meta_fields = ()
 
+    def math(self):
+        return r"$\mathrm{abs}$"
+
     def sample(self, generator, Z):
         return torch.abs(Z)
 
@@ -62,6 +65,9 @@ class AnalyticReluChannel(Channel):
 
     _data_fields = ()
     _meta_fields = ()
+
+    def math(self):
+        return r"$\mathrm{relu}$"
 
     def sample(self, generator, Z):
         return torch.clamp(Z, min=0.0)

@@ -20,6 +20,9 @@ class AnalyticalLinearChannel(Channel):
         self.alpha = ensemble.alpha
         self.ensemble = ensemble
 
+    def math(self):
+        return rf"${self.name}$"
+
     def sample(self, generator, Z):
         F = self.ensemble.generate(generator, Z.shape[0], device=Z.device,
                                    dtype=Z.dtype)

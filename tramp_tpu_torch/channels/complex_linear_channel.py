@@ -67,6 +67,9 @@ class ComplexLinearChannel(Channel):
         self.register_buffer("singular", spectrum[:self.rank].clone())
         self.alpha = self.Nx / self.Nz
 
+    def math(self):
+        return rf"${self.name}$"
+
     def out_shape(self, shape):
         return (2, self.Nx) + tuple(shape[2:])
 

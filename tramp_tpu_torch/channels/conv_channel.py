@@ -59,6 +59,9 @@ class ConvChannel(Channel):
             "spectrum", as_tensor(np.abs(w_fft_bar) ** 2, filt.device,
                                   filt.dtype))
 
+    def math(self):
+        return r"$\ast$"
+
     @classmethod
     def from_description(cls, data, meta, device=None, dtype=None):
         """The channel of a JAX description: the spectra rebuilt from the
@@ -186,11 +189,17 @@ class DifferentialChannel(ConvChannel):
         f = differential_filter(shape=shape, D1=D1, D2=D2)
         super().__init__(filter=f, real=real, device=device, dtype=dtype)
 
+    def math(self):
+        return r"$\partial$"
+
 
 class LaplacianChannel(ConvChannel):
     def __init__(self, shape, real=True, device=None, dtype=None):
         super().__init__(filter=laplacian_filter(shape), real=real,
                          device=device, dtype=dtype)
+
+    def math(self):
+        return r"$\Delta$"
 
 
 class Blur1DChannel(ConvChannel):

@@ -26,6 +26,9 @@ class DFTChannel(Channel):
         super().__init__()
         self.real = real
 
+    def math(self):
+        return r"$\mathcal{F}$"
+
     def out_shape(self, shape):
         return (2,) + tuple(shape) if self.real else tuple(shape)
 

@@ -17,6 +17,9 @@ class GaussianChannel(Channel):
         super().__init__()
         self.var = var
 
+    def math(self):
+        return r"$\mathcal{N}$"
+
     @property
     def a(self):
         return 1.0 / self.var

@@ -45,6 +45,9 @@ class GradientChannel(Channel):
             "spectrum", as_tensor((np.abs(w_fft_bar) ** 2).sum(axis=0),
                                   filt.device, filt.dtype))
 
+    def math(self):
+        return r"$\nabla$"
+
     @classmethod
     def from_description(cls, data, meta, device=None, dtype=None):
         "The channel of a JAX description, its spectra rebuilt."

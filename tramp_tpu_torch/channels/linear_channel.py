@@ -71,6 +71,9 @@ class LinearChannel(Channel):
         self.register_buffer("singular", spectrum[:self.rank].clone())
         self.alpha = self.Nx / self.Nz
 
+    def math(self):
+        return rf"${self.name}$"
+
     def out_shape(self, shape):
         return (self.Nx,) + tuple(shape[1:])
 

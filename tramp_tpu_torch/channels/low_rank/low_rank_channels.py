@@ -35,6 +35,9 @@ class LowRankGramChannel(Channel):
         self.N = N
         self.K = K
 
+    def math(self):
+        return r"$zz^T$"
+
     def out_shape(self, shape):
         return (self.N, self.N)
 
@@ -80,6 +83,9 @@ class LowRankFactorization(MatrixFactorization):
         self.M = M
         self.N = N
         self.K = K
+
+    def math(self):
+        return r"$uv^T$"
 
     def out_shape(self, shape_u, shape_v):
         return (self.M, self.N)

@@ -99,6 +99,9 @@ class ModulusChannel(Channel):
         super().__init__()
         self.isotropic = isotropic
 
+    def math(self):
+        return r"$|\cdot|$"
+
     def out_shape(self, shape):
         return tuple(shape[1:])
 

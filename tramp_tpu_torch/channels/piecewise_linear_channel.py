@@ -38,6 +38,9 @@ class PiecewiseLinearChannel(Channel):
         self.region_specs = tuple(
             (r["zmin"], r["zmax"], r["x0"], r["slope"]) for r in regions)
 
+    def math(self):
+        return rf"$\mathrm{{{self.name}}}$"
+
     @property
     def regions(self):
         return [LinearRegion(zmin=zmin, zmax=zmax, x0=x0, slope=slope)

@@ -37,6 +37,9 @@ class RotationChannel(Channel):
         self.N = R.shape[0]
         self.register_buffer("R", as_tensor(R, device, dtype))
 
+    def math(self):
+        return rf"${self.name}$"
+
     def sample(self, generator, Z):
         return self.R @ Z
 

@@ -39,6 +39,9 @@ class BiasChannel(Channel):
         super().__init__()
         self.register_buffer("bias", as_tensor(bias, device, dtype))
 
+    def math(self):
+        return r"$+$"
+
     def sample(self, generator, Z):
         return Z + self.bias
 
@@ -82,6 +85,9 @@ class SumChannel(SOFactor):
     def __init__(self, n_prev):
         super().__init__()
         self.n_prev = n_prev
+
+    def math(self):
+        return r"$\Sigma$"
 
     def sample(self, generator, *Zs):
         return sum(Zs)
@@ -136,6 +142,9 @@ class DuplicateChannel(SIFactor):
         super().__init__()
         self.n_next = n_next
 
+    def math(self):
+        return r"$\delta$"
+
     def out_shape(self, shape):
         return [tuple(shape)] * self.n_next
 
@@ -177,6 +186,9 @@ class ConcatChannel(SOFactor):
         self.axis = axis
         self.n_prev = len(Ns)
         self.N = sum(Ns)
+
+    def math(self):
+        return r"$\oplus$"
 
     def _dim(self, a, b):
         "The tensor axis of the concatenation for a message b with precision a."
@@ -236,6 +248,9 @@ class ReshapeChannel(Channel):
                            else (prev_shape,))
         self.next_shape = (next_shape if isinstance(next_shape, tuple)
                            else (next_shape,))
+
+    def math(self):
+        return r"$\delta$"
 
     def out_shape(self, shape):
         return self.next_shape

@@ -46,6 +46,9 @@ class UnitaryChannel(Channel):
         self.register_buffer("U", as_complex(U, device, dtype))
         self.N = self.U.shape[-1]
 
+    def math(self):
+        return rf"${self.name}$"
+
     def sample(self, generator, Z):
         return pair_matmul(self.U, Z)
 

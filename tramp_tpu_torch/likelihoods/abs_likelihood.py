@@ -43,6 +43,9 @@ class AbsLikelihood(Likelihood):
         self.register_buffer(
             "y", None if y is None else as_tensor(y, device, dtype))
 
+    def math(self):
+        return r"$\mathrm{abs}$"
+
     def sample(self, generator, X):
         return torch.abs(X)
 

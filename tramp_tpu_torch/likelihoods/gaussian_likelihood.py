@@ -25,6 +25,9 @@ class GaussianLikelihood(Likelihood):
         self.register_buffer(
             "y", None if y is None else as_tensor(y, device, dtype))
 
+    def math(self):
+        return r"$\mathcal{N}$"
+
     @property
     def a(self):
         return 1.0 / self.var

@@ -75,6 +75,9 @@ class ModulusLikelihood(Likelihood):
         self.register_buffer(
             "y", None if y is None else as_tensor(y, device, dtype))
 
+    def math(self):
+        return r"$|\cdot|$"
+
     def sample(self, generator, Z):
         return pair_abs(Z)
 

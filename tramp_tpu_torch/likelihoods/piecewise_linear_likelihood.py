@@ -211,6 +211,9 @@ class PiecewiseLinearLikelihood(Likelihood):
         self.region_specs = tuple(
             (r["zmin"], r["zmax"], r["x0"], r["slope"]) for r in regions)
 
+    def math(self):
+        return rf"$\mathrm{{{self.name}}}$"
+
     @property
     def regions(self):
         return [LinearRegionLikelihood(zmin=a, zmax=b, x0=x0, slope=s)

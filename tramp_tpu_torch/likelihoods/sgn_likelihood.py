@@ -25,6 +25,9 @@ class SgnLikelihood(Likelihood):
         self.register_buffer(
             "y", None if y is None else as_tensor(y, device, dtype))
 
+    def math(self):
+        return r"$\mathrm{sgn}$"
+
     def sample(self, generator, X):
         return torch.sign(X)
 

@@ -1,7 +1,10 @@
 """Model DSL: DAG algebra, the lowered Model, the GLM builders and the
 composite models."""
+from .graph import DiGraph
+from .dag_algebra import (
+    DAG, FactorDAG, ModelDAG, PlaceHolder, RootPlaceHolder, LeafPlaceHolder,
+)
 from .base_model import Model
-from .dag_algebra import DAG, FactorDAG, ModelDAG
 from .factor_model import FactorModel
 from .generalized_linear_model import glm_generative, glm_state_evolution
 from .multi_layer_model import MultiLayerModel
@@ -14,7 +17,8 @@ from .total_variation_model import (
     tv_regression, tv_classification,
 )
 
-__all__ = ["Model", "DAG", "FactorDAG", "ModelDAG", "FactorModel",
+__all__ = ["DiGraph", "Model", "DAG", "FactorDAG", "ModelDAG",
+           "PlaceHolder", "RootPlaceHolder", "LeafPlaceHolder", "FactorModel",
            "glm_generative", "glm_state_evolution", "MultiLayerModel",
            "committee", "sgn_committee", "soft_committee",
            "vae_prior_block", "vae_prior_from_h5",

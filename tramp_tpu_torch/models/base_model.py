@@ -55,6 +55,9 @@ class Model:
                 return i
         raise ValueError(f"id={id} not in variables")
 
+    def plot(self, layout=None):
+        return self.model_dag.plot(layout)
+
     def to_observed(self, observations):
         return Model(self.model_dag.to_observed(observations))
 

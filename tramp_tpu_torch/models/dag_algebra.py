@@ -8,6 +8,9 @@ from .graph import DiGraph
 
 
 class PlaceHolder:
+    def math(self):
+        return r"$\emptyset$"
+
     def __repr__(self):
         return type(self).__name__
 
@@ -103,6 +106,10 @@ class DAG:
         "The lowered Model."
         from .base_model import Model
         return Model(self.to_model_dag())
+
+    def plot(self, layout=None):
+        from .dag_layout import plot_dag
+        return plot_dag(self.dag, layout=layout)
 
 
 def check_factor_dag(dag):

@@ -327,10 +327,13 @@ class MLVAMPSolver:
                       for n, o in zip(new[0], old[0])),
                 {k: fn(new[1][k], old[1][k]) for k in new[1]})
 
-    def _run(self, model):
+    def _run(self, model, carry=None):
+        """The loop from ``carry`` (None: the zero carry). Returns the
+        posteriors, n_iter, the converged flags and the final carry."""
         B = model_lanes(model, self.template)
         inv = self._invariants(model, B)
-        carry = self._init(model, B)
+        if carry is None:
+            carry = self._init(model, B)
         old_r = self._posterior_r(carry, inv)
         device = old_r[0].device
         flags = () if B is None else (B,)
@@ -370,7 +373,7 @@ class MLVAMPSolver:
             # the one host read of the iteration
             if bool(done.all()):
                 break
-        return self._readout(model, carry, inv, B), n_iter, conv
+        return self._readout(model, carry, inv, B), n_iter, conv, carry
 
     def _readout(self, model, carry, inv=None, B=None):
         "Posterior {id: {r, v}} at every interface from the final state."
@@ -403,20 +406,32 @@ class MLVAMPSolver:
 
     def solve(self, model):
         "One instance: ({id: {r, v}}, n_iter)."
-        post, n_iter, _ = self._run(model)
+        post, n_iter, _, _ = self._run(model)
         return post, n_iter
 
     def solve_info(self, model):
         "Like solve, with the converged flag (True iff delta < tol fired)."
-        return self._run(model)
+        post, n_iter, conv, _ = self._run(model)
+        return post, n_iter, conv
 
-    def solve_batch(self, stacked_model):
+    def solve_batch(self, stacked_model, state=None):
         """Many instances in one loop: ``r`` comes back ``(B, n)``, ``v`` and
-        ``n_iter`` ``(B,)``. The loop runs until every lane is done."""
+        ``n_iter`` ``(B,)``. The loop runs until every lane is done.
+        Passing ``state`` (a carry as ``solve_batch_with_state`` returns
+        it, or as ``parallel.restore_checkpoint`` restores it) resumes from
+        it."""
+        post, _, n_iter = self.solve_batch_with_state(stacked_model, state)
+        return post, n_iter
+
+    def solve_batch_with_state(self, stacked_model, state=None):
+        """Like solve_batch but also returns the final carry with its
+        lanes, for checkpoints (``parallel.save_checkpoint``) and warm
+        restarts; the JAX package's MLVAMPSolver has no such call, its
+        EPSolver has."""
         if model_lanes(stacked_model, self.template) is None:
             raise ValueError("solve_batch: no buffer of the model has lanes")
-        post, n_iter, _ = self._run(stacked_model)
-        return post, n_iter
+        post, n_iter, _, carry = self._run(stacked_model, state)
+        return post, carry, n_iter
 
 
 def dispatch_solver(model, damping=None, tol=1e-6, max_iter=200, **kw):

@@ -30,6 +30,9 @@ class BinaryPrior(Prior):
         self.device = device
         self.dtype = dtype
 
+    def math(self):
+        return r"$p_\pm$"
+
     @property
     def p_neg(self):
         return 1.0 - self.p_pos

@@ -2,10 +2,13 @@
 enumeration over 2^K configurations. Counterpart of
 tramp_tpu/priors/committee_binary_prior.py.
 
-One instance only: its precision is a K x K matrix per component, which is
-not one value per lane (tramp_tpu_torch/lanes.py). Lanes raise here: the
-committee models do not use this prior, and its lanes wait for the engine
-extras (ROADMAP Queue 1 item 7)."""
+Lanes: the denoiser takes a first lane axis, the JAX denoiser under
+``jax.vmap``. Its precision is a K x K matrix, so a lane's precision is
+``(B, K, K)`` (not the ``(B, 1)`` of tramp_tpu_torch/lanes.py), with ``bx``
+``(B, N, K)`` (``(B, K)`` in the ``scalar_*`` methods) and ``p_pos`` a
+number or one value per lane ``(B, 1)``. The EP engine passes one number
+as the precision, so EP on a model with this prior raises, as in the JAX
+package."""
 import numpy as np
 import torch
 
@@ -41,6 +44,9 @@ class CommitteeBinaryPrior(Prior):
         self.device = device
         self.dtype = dtype
 
+    def math(self):
+        return r"$p_\pm$"
+
     @property
     def p_neg(self):
         return 1.0 - self.p_pos
@@ -57,13 +63,27 @@ class CommitteeBinaryPrior(Prior):
     def out_shape(self):
         return self.size
 
-    def _one_instance(self, ax, bx):
-        if (isinstance(self.p_pos, torch.Tensor) or ax.ndim > 2
-                or bx.ndim > 2):
-            raise ValueError(
-                "CommitteeBinaryPrior takes one instance: its precision is a "
-                "K x K matrix, not one value per lane; its lanes wait for "
-                "ROADMAP Queue 1 item 7")
+    def _lanes(self, ax):
+        "B when the precision or p_pos carries a lane axis, else None."
+        if ax.ndim == 3:
+            return ax.shape[0]
+        if isinstance(self.p_pos, torch.Tensor) and self.p_pos.ndim:
+            return self.p_pos.shape[0]
+        return None
+
+    def _bias(self, bx, lanes):
+        "The field b of p_pos, shaped to add to ``bx``."
+        b = self.b
+        if lanes is not None and isinstance(b, torch.Tensor) and b.ndim:
+            b = b.reshape((lanes,) + (1,) * (bx.ndim - 1))
+        return b
+
+    def _A_b(self, lanes):
+        "binary.A of the field: a number, or ``(B,)`` with lanes."
+        A = binary.A(self.b)
+        if lanes is not None and isinstance(A, torch.Tensor) and A.ndim:
+            A = A.reshape(lanes)
+        return A
 
     def sample(self, generator):
         u = torch.rand(self.size, generator=generator,
@@ -74,45 +94,53 @@ class CommitteeBinaryPrior(Prior):
     def second_moment(self):
         return 1.0
 
-    def _Ax(self, ax, b):
-        """Ax_.c = -1/2 x_c.ax.x_c + b.x_c with x_c the spin configs.
-        ax is (K, K), b is (..., K). Reference l:37-76."""
-        self._one_instance(ax, b)
+    def _Ax(self, ax, bx):
+        """Ax_.c = -1/2 x_c.ax.x_c + b.x_c with x_c the spin configs and b
+        the field bx plus that of p_pos. ax is (K, K) or (B, K, K), bx is
+        (..., K) or (B, ..., K). Reference l:37-76."""
+        if ax.ndim not in (2, 3) or tuple(ax.shape[-2:]) != (self.K,) * 2:
+            raise ValueError(
+                f"CommitteeBinaryPrior takes a K x K precision (K={self.K}), "
+                f"one per lane with lanes; got shape {tuple(ax.shape)}")
+        lanes = self._lanes(ax)
+        b = bx + self._bias(bx, lanes)
         x = self.spins(b)  # (C, K)
-        xax = torch.einsum("ck,kl,cl->c", x, ax, x)
-        bx = torch.einsum("...k,ck->...c", b, x)
-        return -0.5 * xax + bx
+        xax = torch.einsum("ck,...kl,cl->...c", x, ax, x)
+        if lanes is not None and ax.ndim == 3:
+            xax = xax.reshape((lanes,) + (1,) * (b.ndim - 2) + (-1,))
+        return -0.5 * xax + torch.einsum("...k,ck->...c", b, x)
 
     def scalar_forward_mean(self, ax, bx):
-        prob = torch.softmax(self._Ax(ax, bx + self.b), dim=-1)
+        prob = torch.softmax(self._Ax(ax, bx), dim=-1)
         return prob @ self.spins(bx)
 
     def scalar_forward_variance(self, ax, bx):
         x = self.spins(bx)
-        prob = torch.softmax(self._Ax(ax, bx + self.b), dim=-1)
-        m = prob @ x  # (K,)
-        xx = torch.einsum("c,ck,cl->kl", prob, x, x)
+        prob = torch.softmax(self._Ax(ax, bx), dim=-1)
+        m = prob @ x  # (..., K)
+        xx = torch.einsum("...c,ck,cl->...kl", prob, x, x)
         # V = sum_cd p_c p_d (x_c - x_d)(x_c - x_d)^T = 2 (E[xx^T] - m m^T)
-        return 2.0 * (xx - torch.outer(m, m))
+        return 2.0 * (xx - m[..., :, None] * m[..., None, :])
 
     def scalar_log_partition(self, ax, bx):
-        Ax = self._Ax(ax, bx + self.b)
-        return torch.logsumexp(Ax, dim=-1) / self.K - binary.A(self.b)
+        return (torch.logsumexp(self._Ax(ax, bx), dim=-1) / self.K
+                - self._A_b(self._lanes(ax)))
 
     def compute_forward_posterior(self, ax, bx):
         x = self.spins(bx)
-        prob = torch.softmax(self._Ax(ax, bx + self.b), dim=-1)  # (N, C)
-        rx = prob @ x  # (N, K)
+        prob = torch.softmax(self._Ax(ax, bx), dim=-1)  # (..., N, C)
+        rx = prob @ x  # (..., N, K)
         # V_kl = (1/N) sum_i sum_cd p_ic p_id C_cdkl
         #      = (2/N) sum_i (E_i[xx^T] - m_i m_i^T)
-        xx = torch.einsum("ic,ck,cl->kl", prob, x, x) / self.N
-        mm = torch.einsum("ik,il->kl", rx, rx) / self.N
+        xx = torch.einsum("...ic,ck,cl->...kl", prob, x, x) / self.N
+        mm = torch.einsum("...ik,...il->...kl", rx, rx) / self.N
         vx = 2.0 * (xx - mm)
         return rx, vx
 
     def compute_log_partition(self, ax, bx):
-        Ax = self._Ax(ax, bx + self.b)
-        return torch.mean(torch.logsumexp(Ax, dim=-1)) - binary.A(self.b)
+        Ax = self._Ax(ax, bx)
+        return (torch.logsumexp(Ax, dim=-1).mean(-1)
+                - self._A_b(self._lanes(ax)))
 
     def measure(self, f):
         one = torch.ones((), dtype=torch.float64,

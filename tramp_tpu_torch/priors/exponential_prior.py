@@ -30,6 +30,9 @@ class ExponentialPrior(Prior):
         self.device = device
         self.dtype = dtype
 
+    def math(self):
+        return r"$\exp$"
+
     @property
     def b(self):
         return -1.0 / self.mean

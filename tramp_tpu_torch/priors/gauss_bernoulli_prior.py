@@ -36,6 +36,9 @@ class GaussBernoulliPrior(Prior):
         self.device = device
         self.dtype = dtype
 
+    def math(self):
+        return r"$\mathcal{N}_\rho$"
+
     @property
     def a(self):
         return 1.0 / self.var

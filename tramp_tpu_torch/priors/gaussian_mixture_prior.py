@@ -37,6 +37,9 @@ class GaussianMixturePrior(Prior):
             self.register_buffer(name, as_tensor(
                 np.asarray(value, dtype=np.float64), device, dtype))
 
+    def math(self):
+        return r"$\mathrm{GMM}$"
+
     def _lanes(self):
         return self.probs.ndim == 2
 

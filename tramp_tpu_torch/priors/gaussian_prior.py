@@ -31,6 +31,9 @@ class GaussianPrior(Prior):
         self.device = device
         self.dtype = dtype
 
+    def math(self):
+        return r"$\mathcal{N}$"
+
     @property
     def a(self):
         return 1.0 / self.var

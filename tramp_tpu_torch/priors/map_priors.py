@@ -53,6 +53,9 @@ class MAP_L1NormPrior(Prior):
         self.device = device
         self.dtype = dtype
 
+    def math(self):
+        return r"$\Vert.\Vert_1$"
+
     def _shape(self):
         return self.size if isinstance(self.size, tuple) else (self.size,)
 
@@ -112,6 +115,9 @@ class MAP_L21NormPrior(Prior):
         self.isotropic = isotropic
         self.device = device
         self.dtype = dtype
+
+    def math(self):
+        return r"$\Vert.\Vert_{2,1}$"
 
     def out_shape(self):
         return self.size

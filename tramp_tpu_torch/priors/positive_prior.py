@@ -42,6 +42,9 @@ class PositivePrior(Prior):
         self.device = device
         self.dtype = dtype
 
+    def math(self):
+        return r"$\mathcal{N}_+$"
+
     def _shape(self):
         return self.size if isinstance(self.size, tuple) else (self.size,)
 

@@ -4,6 +4,16 @@ Counterpart of the default path of tramp_tpu/utils/special.py. The JAX
 package's Chebyshev "kernel mode" forms exist only because Pallas on a TPU
 cannot lower erf; the CUDA kernel (tramp_tpu_torch/csrc/pl_posterior.cu)
 calls CUDA's own erfcx/erfc/erf instead, so they have no counterpart here.
+
+``erfcx``, ``log_Phi_erfcx`` and the derivative of the latter carry their
+analytic derivatives as ``torch.autograd.Function``s, the JAX package's
+custom JVPs (tramp_tpu/utils/special.py:143-254): differentiating the
+branchless primals leaks NaN (0 x inf from the branch not taken) at extreme
+|x|, and the recursion y' = -y (x + y) of (log Phi)' keeps every order
+finite. Each backward is written with these same functions, so it is itself
+differentiable (the checks of tramp_tpu_torch.checks take second
+derivatives). The Functions are entered only where autograd needs them;
+their values are those of the plain compositions.
 """
 import torch
 
@@ -37,12 +47,38 @@ def log_Phi(x):
     return torch.special.log_ndtr(x)
 
 
+def _tracked(x):
+    "True where autograd records a call on ``x``."
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _Erfcx(torch.autograd.Function):
+    "d erfcx(x) = 2 x erfcx(x) - 2/sqrt(pi)."
+
+    @staticmethod
+    def forward(x):
+        return _erfcx(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, = ctx.saved_tensors
+        return grad * (2.0 * x * erfcx(x) - 2.0 / SQRT_PI)
+
+
 def erfcx(x):
     """Scaled complementary error function exp(x**2) * erfc(x), the same
     formula as tramp_tpu/utils/special.py:143-167: direct product for
     |x| <= dmax (dtype-aware), 5-term asymptotic series beyond, and
     2 exp(x^2) - erfcx(-x) for x < 0, which overflows to +inf for x << 0
     exactly as scipy does."""
+    return _Erfcx.apply(x) if _tracked(x) else _erfcx(x)
+
+
+def _erfcx(x):
     ax = torch.abs(x)
     dmax = (_ERFCX_DIRECT_MAX_F64 if torch.finfo(x.dtype).bits >= 64
             else _ERFCX_DIRECT_MAX_F32)
@@ -57,6 +93,23 @@ def erfcx(x):
     return torch.where(x >= 0, pos, neg)
 
 
+class _LogPhiErfcx(torch.autograd.Function):
+    "(log Phi)'(x) = _log_Phi_prime(x)."
+
+    @staticmethod
+    def forward(x):
+        return _log_Phi_erfcx(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, = ctx.saved_tensors
+        return grad * _log_Phi_prime(x)
+
+
 def log_Phi_erfcx(x):
     """log Phi(x) through ``erfcx`` (tramp_tpu/utils/special.py:205-228).
 
@@ -64,10 +117,44 @@ def log_Phi_erfcx(x):
     x >  0: Phi(x) = 1 - Phi(-x), via log1p (cancellation-free).
     Inputs are clamped to +-1e15 in u = x/sqrt2, so log Phi(-inf) saturates
     at -5e29 instead of -inf."""
+    return _LogPhiErfcx.apply(x) if _tracked(x) else _log_Phi_erfcx(x)
+
+
+def _log_Phi_erfcx(x):
     u = torch.clamp(x / SQRT2, -1e15, 1e15)
-    lower = torch.log(0.5 * erfcx(-u)) - u * u
-    upper = torch.log1p(-0.5 * erfcx(u) * torch.exp(-u * u))
+    lower = torch.log(0.5 * _erfcx(-u)) - u * u
+    upper = torch.log1p(-0.5 * _erfcx(u) * torch.exp(-u * u))
     return torch.where(x <= 0, lower, upper)
+
+
+class _LogPhiPrime(torch.autograd.Function):
+    """d/dx of (log Phi)'(x) = y is -y (x + y), at x clamped like the
+    primal (tramp_tpu/utils/special.py:239-248): x = +-inf gives 0, not
+    0 x inf."""
+
+    @staticmethod
+    def forward(x):
+        u = torch.clamp(x / SQRT2, -1e15, 1e15)
+        # erfcx(-u) -> inf for x >> 0 gives the correct 0 slope
+        return 1.0 / (SQRT_2PI * 0.5 * _erfcx(-u))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, = ctx.saved_tensors
+        y = _log_Phi_prime(x)
+        xc = torch.clamp(x, -SQRT2 * 1e15, SQRT2 * 1e15)
+        return grad * (-y * (xc + y))
+
+
+def _log_Phi_prime(x):
+    "(log Phi)'(x) = N(x)/Phi(x), the derivative of ``log_Phi_erfcx``."
+    if _tracked(x):
+        return _LogPhiPrime.apply(x)
+    return _LogPhiPrime.forward(x)
 
 
 def log_norm_cdf_prime(x):
