@@ -271,6 +271,33 @@ line is printed):
       card: the CPU's lines (the first 20 printed) and one launch of each
       message.
 
+15. (run before the summary) the device mesh of ROADMAP Queue 1 item 5
+    (``parallel.mesh``) on a world of one nccl rank, ``make_mesh((1, 1))``:
+    the stop test's all_reduce and a posterior's all_gather timed beside
+    the host read and a copy;
+   a. the relu net of phase 7 (LANES lanes on one W, float32, tol
+      BATCH_TOL) through ``shard_batched_model`` + ``EPSolver.solve_batch``,
+      ``solve_batch_shard_map`` and ``dispatch_solver``'s
+      ``MLVAMPSolver.solve_batch``: every lane's r, v and n_iter equal to
+      the same solver's unsharded ``solve_batch``, one launch of each
+      message kernel per iteration, time and busy share beside the
+      unsharded solve's;
+   b. phase 6's flagship batch through ``SpectralVAMPSolver.solve_batch`` on
+      the mesh: the unsharded bits, no kernel, the operator bytes on the
+      rank (the whole: a model axis of 1);
+   c. phase 9b's 1030-point grid through ``se_phase_grid_records`` on a
+      (1,) data mesh: every record equal to the grid without a mesh;
+      ``save_grid_csv`` writes its 1031 lines;
+   d. phase 14e's EPSolver checkpoint on the mesh: cut after 5 iterations,
+      saved from the rank's lanes (``shard_batched_state``), restored
+      through a sharded template, resumed: the uncut solve's bits;
+   e. two nccl ranks on the one card (what NCCL prints is a reading), and
+      a gloo world of 2 on the CPU, labelled so: the relu net at N = 256, 8
+      lanes, float64, on (2, 1) and (1, 2) meshes against the same solves
+      in one process (the same bits on the data axis; rtol 1e-6, atol 1e-8
+      for EP and rtol 1e-10, atol 1e-13 with equal n_iter for ML-VAMP on
+      the model axis, the JAX tests' tolerances).
+
 The messages at a path's final state (11d-f) are held element by element
 within rtol (|a| + |a + a_new|) and rtol (|b| + |b + b_new|), the two terms
 each subtraction takes; their largest absolute errors go to the kernels
@@ -1381,6 +1408,18 @@ def phase_9a_goldens(torch, tt, card):
               f"rel err {err:.3e} (rtol {rtol:g}) [{card}]")
 
 
+def cs_grid():
+    """The 1030-point grid of the compressed-sensing GLM (bench.py:742-754,
+    plus the golden alphas): (alphas, rhos, the keywords of
+    ``se_phase_grid_records``)."""
+    golden_alphas = [a for a, _, _ in CS_SE_ROWS]
+    alphas = sorted(set(np.linspace(0.02, 2.0, 100)) | set(golden_alphas))
+    rhos = list(np.linspace(0.05, 0.95, 10))
+    grid = {"alpha": alphas, "prior_rho": rhos}
+    return alphas, rhos, dict(grid_kwargs=grid, ids=("x",), a0=0.0,
+                              max_iter=200, tol=1e-6, **CS)
+
+
 def phase_9b_grid(torch, tt, pl, card):
     """The 1030-point grid of the compressed-sensing GLM and the 19 critical
     lines. Returns the launches of the path (none: it runs no kernel)."""
@@ -1388,12 +1427,8 @@ def phase_9b_grid(torch, tt, pl, card):
     from tramp_tpu_torch.experiments import find_critical_alpha_batched
     from tramp_tpu_torch.parallel import (
         SESolver, grid_combos, se_phase_grid_records, stack_models)
-    golden_alphas = [a for a, _, _ in CS_SE_ROWS]
-    alphas = sorted(set(np.linspace(0.02, 2.0, 100)) | set(golden_alphas))
-    rhos = list(np.linspace(0.05, 0.95, 10))
-    grid = {"alpha": alphas, "prior_rho": rhos}
-    kw = dict(grid_kwargs=grid, ids=("x",), a0=0.0, max_iter=200, tol=1e-6,
-              **CS)
+    alphas, rhos, kw = cs_grid()
+    grid = kw["grid_kwargs"]
     se_phase_grid_records(tt.glm_state_evolution, **kw)      # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4149,6 +4184,429 @@ def phase_14(torch, tt, pl, students, card):
     return paths, readings
 
 
+# ---------------------------------------------------------------- phase 15
+MESH_SOLVERS = {"EPSolver": (1e-6, 1e-8),        # tests/test_parallel.py:58-60
+                "MLVAMPSolver": (1e-10, 1e-13)}  # tests/test_vamp_glm.py:120-125
+GLOO_NET = dict(N=256, lanes=8, seed=5)  # 15e's relu net, float64, CPU
+GLOO_MESHES = [(2, 1), (1, 2)]
+COLLECTIVE_CALLS = 200
+
+
+def mesh_dir():
+    "A scratch directory of phase 15 inside the checkout (git-ignored)."
+    import os
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "phase15")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def same_bits(torch, what, got, want):
+    "Every lane's r, v and n_iter of ``got`` are those of ``want``."
+    (post, n_iter), (post_w, n_w) = got, want
+    check(torch.equal(n_iter, n_w), f"{what}: n_iter differs from the "
+                                    "unsharded solve")
+    for vid in post_w:
+        for key in ("r", "v"):
+            check(torch.equal(post[vid][key], post_w[vid][key]),
+                  f"{what}: {key} of {vid} differs from the unsharded solve")
+
+
+def timed_batch(torch, pl, run, reps=3):
+    """A warm-up run of ``run()``, ``reps`` timed ones (the kernels' counts
+    set to 0 just before the first and read just after it), and one under
+    torch.profiler. Returns (the first timed run's result, the median wall
+    seconds, its launches, device ms)."""
+    run()
+    walls = []
+    for rep in range(reps):
+        torch.cuda.synchronize()
+        reset_launches(pl)
+        t0 = time.perf_counter()
+        result = run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if rep == 0:
+            out, launches = result, read_launches(pl)
+    _, device_ms, _ = profiled(run, 1)
+    return out, float(np.median(walls)), launches, device_ms
+
+
+def collective_costs(torch, mesh, card):
+    """What the mesh's collectives cost on one nccl rank: the loop's stop
+    test (one all_reduce(MIN) and the host read) beside the host read
+    alone, and the gather of a (LANES, 4096) float32 posterior, per call."""
+    from tramp_tpu_torch.parallel.mesh import MeshLanes, all_done
+    where = MeshLanes(mesh, LANES)
+    done = torch.ones(LANES, dtype=torch.bool, device="cuda")
+    groups = where.stop_groups()
+    read = host_ms(lambda: bool(done.all()), COLLECTIVE_CALLS)
+    reduced = host_ms(lambda: all_done(done, groups), COLLECTIVE_CALLS)
+    r = torch.ones((LANES, 4096), device="cuda")
+    gather = per_call_ms(lambda: where.gather(r))
+    copy = per_call_ms(lambda: r.clone())
+    print(f"phase 15 collectives on one nccl rank: the stop test "
+          f"{reduced:.4f} ms per call with its all_reduce(MIN), "
+          f"{read:.4f} ms the host read alone; all_gather of a "
+          f"({LANES}, 4096) float32 posterior {gather:.4f} ms per call, a "
+          f"copy of it {copy:.4f} ms [{card}]")
+
+
+def phase_15a_relu_net(torch, tt, pl, students, mesh, card):
+    """The relu net at phase 7's width (LANES lanes on one W, float32, tol
+    BATCH_TOL) on a one-rank mesh through three entry points, each against
+    the same solver's unsharded solve_batch. Returns launches by path."""
+    from tramp_tpu_torch.parallel import (
+        EPSolver, MLVAMPSolver, dispatch_solver, shard_batched_model,
+        solve_batch_shard_map, with_buffers)
+    student, _, linear = students["float32"]
+    likelihood = len(student.factors) - 1
+    _, ys = batch_of_observations(torch, linear.W, LANES, True, seed=4)
+    stacked = with_buffers(student, {(likelihood, "y"): ys})
+    sharded = shard_batched_model(stacked, mesh)
+    kw = dict(SOLVE, tol=BATCH_TOL)
+    ep = EPSolver(student, **kw)
+    ml = dispatch_solver(student, **kw)
+    check(type(ml) is MLVAMPSolver,
+          f"relu net: dispatch_solver gave {type(ml).__name__}")
+    refs = {"EPSolver": timed_batch(torch, pl,
+                                    lambda: ep.solve_batch(stacked)),
+            "MLVAMPSolver": timed_batch(torch, pl,
+                                        lambda: ml.solve_batch(stacked))}
+    paths = {
+        "EPSolver.solve_batch": (
+            "EPSolver", lambda: ep.solve_batch(sharded)),
+        "solve_batch_shard_map(EPSolver)": (
+            "EPSolver",
+            lambda: solve_batch_shard_map(ep, stacked, mesh)[:2]),
+        "MLVAMPSolver.solve_batch": (
+            "MLVAMPSolver", lambda: ml.solve_batch(sharded))}
+    launches_by = {}
+    for path, (name, run) in paths.items():
+        what = f"phase 15a relu net f32, {LANES} lanes, {path}"
+        got, wall, launches, device_ms = timed_batch(torch, pl, run)
+        want, wall_w, _, device_w = refs[name]
+        same_bits(torch, what, got, want)
+        iterations = int(got[1].max())
+        check(launches["pl_forward_message"] == iterations
+              and launches["pl_backward_message"] == iterations
+              and launches["pl_posterior"] == 0,
+              f"{what}: launches {launches} for {iterations} iterations "
+              "(want one of each message per iteration)")
+        print(f"{what} on a one-rank nccl mesh (1, 1): the bits of the "
+              f"unsharded solve (r, v, n_iter of every lane), {iterations} "
+              f"iterations, {wall:.4f} s, {1e3 * wall / iterations:.4f} ms "
+              f"per iteration, device {device_ms / iterations:.4f} ms per "
+              f"iteration, busy {100 * device_ms / (1e3 * wall):.2f}%; "
+              f"unsharded {wall_w:.4f} s, "
+              f"{1e3 * wall_w / iterations:.4f} ms per iteration, busy "
+              f"{100 * device_w / (1e3 * wall_w):.2f}%; launches {launches} "
+              f"[{card}]")
+        launches_by[f"mesh_relu_net_{path}"] = launches
+    return launches_by
+
+
+def phase_15b_flagship(torch, tt, pl, student, linear, mesh, card):
+    """The flagship's LANES-lane batch of phase 6 through
+    SpectralVAMPSolver.solve_batch on a one-rank mesh, against the
+    unsharded solve; the operator bytes a rank holds. Returns launches."""
+    from tramp_tpu_torch.parallel import (
+        SpectralVAMPSolver, dispatch_solver, shard_batched_model,
+        with_buffers)
+    from tramp_tpu_torch.parallel.mesh import axis_size
+    solver = dispatch_solver(student)
+    check(type(solver) is SpectralVAMPSolver,
+          f"flagship: dispatch_solver gave {type(solver).__name__}")
+    _, ys = batch_of_observations(torch, linear.W, LANES, False, seed=3)
+    stacked = with_buffers(student, {(2, "y"): ys})
+    sharded = shard_batched_model(stacked, mesh)
+    want, wall_w, _, device_w = timed_batch(
+        torch, pl, lambda: solver.solve_batch(stacked))
+    got, wall, launches, device_ms = timed_batch(
+        torch, pl, lambda: solver.solve_batch(sharded))
+    what = f"phase 15b flagship f32, {LANES} lanes, SpectralVAMPSolver"
+    same_bits(torch, what, got, want)
+    check(not any(launches.values()), f"{what} ran kernels: {launches}")
+    fields = linear._model_split_fields
+    whole = sum(linear._buffers[k].nbytes for k in fields)
+    local = sum(sharded.factors[1]._buffers[k].nbytes for k in fields)
+    P = axis_size(mesh, "model")
+    check(whole == local * P, f"{what}: {local} operator bytes on the rank "
+                              f"of {whole}")
+    iterations = int(got[1].max())
+    print(f"{what}.solve_batch on a one-rank nccl mesh (1, 1): the bits "
+          f"of the unsharded solve, {iterations} iterations, {wall:.4f} s, "
+          f"busy {100 * device_ms / (1e3 * wall):.2f}%; unsharded "
+          f"{wall_w:.4f} s, busy {100 * device_w / (1e3 * wall_w):.2f}%; "
+          f"operator bytes (W, U, V) on the rank {local} of {whole}, ratio "
+          f"{whole / local:g} for a model axis of {P} [{card}]")
+    return launches
+
+
+def phase_15c_grid(torch, tt, pl, card):
+    """Phase 9b's 1030-point grid through se_phase_grid_records on a
+    one-rank (1,) data mesh, against the same call without one, and its
+    CSV. Returns launches."""
+    import os
+    import pandas as pd
+    from tramp_tpu_torch.parallel import (
+        make_mesh, save_grid_csv, se_phase_grid_records)
+    alphas, rhos, kw = cs_grid()
+    n = len(alphas) * len(rhos)
+    mesh = make_mesh((1,), ("data",))
+    want = se_phase_grid_records(tt.glm_state_evolution, **kw)
+    torch.cuda.synchronize()
+    reset_launches(pl)
+    t0 = time.perf_counter()
+    got = se_phase_grid_records(tt.glm_state_evolution, mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(pl)
+    check(len(got) == n and got == want,
+          f"phase 15c: {sum(a != b for a, b in zip(got, want))} of "
+          f"{len(got)} records differ from the grid without a mesh")
+    check(not any(launches.values()), f"phase 15c ran kernels: {launches}")
+    csv = os.path.join(mesh_dir(), "grid.csv")
+    wrote = save_grid_csv(pd.DataFrame(got), csv)
+    with open(csv) as f:
+        lines = sum(1 for _ in f)
+    check(wrote and lines == n + 1, f"phase 15c: save_grid_csv gave "
+                                    f"{wrote}, {lines} lines")
+    print(f"phase 15c SE grid of compressed sensing, {n} points on a "
+          f"one-rank (1,) nccl data mesh: every record equal to the grid "
+          f"without a mesh, {wall:.4f} s with building the models; "
+          f"save_grid_csv wrote {lines} lines [{card}]")
+    return launches
+
+
+def phase_15d_checkpoints(torch, tt, pl, students, mesh, card):
+    """The LANES-lane EPSolver batch (phase 14e's) on a one-rank mesh cut
+    after BATCH_SPLIT iterations, its state saved from the rank's lanes,
+    restored through a sharded template and resumed, against the uncut
+    solve. Returns launches."""
+    import os
+    from tramp_tpu_torch.parallel import (
+        EPSolver, restore_checkpoint, save_checkpoint, shard_batched_model,
+        shard_batched_state, with_buffers)
+    student, _, linear = students["float32"]
+    likelihood = len(student.factors) - 1
+    _, ys = batch_of_observations(torch, linear.W, LANES, True, seed=7)
+    sharded = shard_batched_model(
+        with_buffers(student, {(likelihood, "y"): ys}), mesh)
+    kw = dict(damping=0.1, tol=BATCH_TOL, rollback_increase=float("inf"))
+    reset_launches(pl)
+    t0 = time.perf_counter()
+    post, n_full = EPSolver(student, max_iter=500, **kw).solve_batch(sharded)
+    _, state, n_first = EPSolver(student, max_iter=BATCH_SPLIT,
+                                 **kw).solve_batch_with_state(sharded)
+    parts = shard_batched_state(state, mesh)
+    ckpt = save_checkpoint(os.path.join(mesh_dir(), "EPSolver"), parts,
+                           n_first)
+    state_r, n_r = restore_checkpoint(ckpt, like=(parts, n_first))
+    post_r, n_rest = EPSolver(student, max_iter=500 - BATCH_SPLIT,
+                              **kw).solve_batch(sharded, state=state_r)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(pl)
+    what = f"phase 15d EPSolver checkpoint on a one-rank mesh, {LANES} lanes"
+    check(n_first.tolist() == [BATCH_SPLIT] * LANES
+          and torch.equal(n_r, n_first)
+          and torch.equal(n_rest + BATCH_SPLIT, n_full),
+          f"{what}: n_iter of the halves ({int(n_first.max())}, "
+          f"{int(n_rest.max())}) against {int(n_full.max())}")
+    same_bits(torch, what, (post_r, n_rest + BATCH_SPLIT), (post, n_full))
+    sweeps = int(n_full.max()) + BATCH_SPLIT + int(n_rest.max())
+    check(launches["pl_forward_message"] == sweeps
+          and launches["pl_backward_message"] == sweeps,
+          f"{what}: launches {launches} for {sweeps} iterations")
+    print(f"{what}: {BATCH_SPLIT} iterations, save_checkpoint of the "
+          f"rank's lanes, restore_checkpoint through a sharded template, "
+          f"resume: r, v and n_iter (up to {int(n_full.max())}) equal to "
+          f"the uncut solve, {wall:.3f} s for both, launches {launches} "
+          f"[{card}]")
+    return launches
+
+
+def gloo_solves(torch, tt, mesh=None):
+    """15e's relu net (N = 256, 8 lanes, float64, on the CPU) through
+    EPSolver and MLVAMPSolver: {solver: (post, n_iter)}, sharded on
+    ``mesh`` if one is given."""
+    from tramp_tpu_torch.parallel import (
+        EPSolver, dispatch_solver, shard_batched_model, with_buffers)
+    student, _, linear = relu_net(torch, tt, torch.float64,
+                                  N=GLOO_NET["N"], device="cpu")
+    _, ys = batch_of_observations(torch, linear.W, GLOO_NET["lanes"], True,
+                                  seed=GLOO_NET["seed"])
+    stacked = with_buffers(student, {(len(student.factors) - 1, "y"): ys})
+    if mesh is not None:
+        stacked = shard_batched_model(stacked, mesh)
+    return {"EPSolver": EPSolver(student, **SOLVE).solve_batch(stacked),
+            "MLVAMPSolver": dispatch_solver(student, **SOLVE).solve_batch(
+                stacked)}
+
+
+def gloo_worker(argv):
+    """One rank of 15e's gloo world on the CPU: the solves of gloo_solves
+    on each mesh of GLOO_MESHES, saved to <dir>/rank<r>.npz."""
+    import os
+    import torch
+    import torch.distributed as dist
+    import tramp_tpu_torch as tt
+    from tramp_tpu_torch.parallel import make_mesh
+    rank, world, port, where = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    out = {}
+    for shape in GLOO_MESHES:
+        mesh = make_mesh(shape, device="cpu")
+        for name, (post, n_iter) in gloo_solves(torch, tt, mesh).items():
+            key = f"{shape[0]}x{shape[1]}/{name}"
+            out[f"{key}/n_iter"] = n_iter.numpy()
+            for vid, d in post.items():
+                for k in ("r", "v"):
+                    out[f"{key}/{vid}/{k}"] = d[k].numpy()
+    np.savez(os.path.join(where, f"rank{rank}.npz"), **out)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def nccl_worker(argv):
+    "One rank of 15e's two nccl ranks on the one card: an all_reduce."
+    import torch
+    import torch.distributed as dist
+    rank, world, port = int(argv[0]), int(argv[1]), argv[2]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    t = torch.ones(1, device="cuda")
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    print(f"rank {rank}: all_reduce gave {float(t)}")
+    dist.destroy_process_group()
+
+
+def spawn_world(flag, world, extra, env, timeout):
+    """Start ``world`` processes of this script in worker mode ``flag`` and
+    wait for them; every process is killed at the time limit. Returns
+    [(exit code or None if killed, the last line of stderr that names an
+    error and the line after it, else its last line, stdout)]."""
+    import os
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), flag, str(rank),
+         str(world), str(port)] + extra, cwd=here, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in range(world)]
+    deadline = time.monotonic() + timeout
+    results = []
+    for p in procs:
+        try:
+            out, err = p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+            code = p.returncode
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, err = p.communicate()
+            code = None
+        lines = [line for line in err.splitlines() if line.strip()] or [""]
+        last = max((i for i, line in enumerate(lines) if "rror" in line),
+                   default=len(lines) - 1)
+        results.append((code, " ".join(lines[last:last + 2]), out.strip()))
+    return results
+
+
+def phase_15e_several_ranks(torch, tt, card):
+    """Two nccl ranks on the one card (NCCL refuses a duplicate GPU: what
+    it prints is a reading), then a gloo world of 2 on the CPU: the relu
+    net (N = 256, 8 lanes, float64) on (2, 1) and (1, 2) meshes against
+    the same solves in this process, on the CPU."""
+    import os
+    env = dict(os.environ)
+    t0 = time.perf_counter()
+    ranks = spawn_world("--nccl-rank", 2, [], env, timeout=30)
+    wall = time.perf_counter() - t0
+    for rank, (code, err, out) in enumerate(ranks):
+        print(f"phase 15e two nccl ranks on one card, rank {rank}: exit "
+              f"{'killed at 30 s' if code is None else code} after "
+              f"{wall:.1f} s; {out or err}")
+    where = mesh_dir()
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    t0 = time.perf_counter()
+    ranks = spawn_world("--gloo-rank", 2, [where], env, timeout=240)
+    for rank, (code, err, _) in enumerate(ranks):
+        check(code == 0, f"phase 15e gloo rank {rank} (CPU): exit {code}: "
+                         f"{err}")
+    wall = time.perf_counter() - t0
+    got = []
+    for rank in range(2):
+        with np.load(os.path.join(where, f"rank{rank}.npz")) as f:
+            got.append({k: f[k] for k in f.files})
+    # the ranks run one thread each, and a CPU GEMM's order of summation
+    # can depend on its threads
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        want = gloo_solves(torch, tt)
+    finally:
+        torch.set_num_threads(threads)
+    for shape in GLOO_MESHES:
+        for name, (post, n_iter) in want.items():
+            key = f"{shape[0]}x{shape[1]}/{name}"
+            rtol, atol = MESH_SOLVERS[name] if shape[1] > 1 else (0, 0)
+            worst = 0.0
+            for res in got:
+                exact = shape[1] == 1 or name == "MLVAMPSolver"
+                check(not exact or np.array_equal(res[f"{key}/n_iter"],
+                                                  n_iter.numpy()),
+                      f"phase 15e (CPU) {key}: n_iter differs")
+                for vid, d in post.items():
+                    for k in ("r", "v"):
+                        a, b = res[f"{key}/{vid}/{k}"], d[k].numpy()
+                        ok = np.allclose(a, b, rtol=rtol, atol=atol)
+                        check(ok, f"phase 15e (CPU) {key}: {k} of {vid} "
+                                  f"off the one-process solve (rtol {rtol}, "
+                                  f"atol {atol})")
+                        worst = max(worst, float(np.max(np.abs(a - b))))
+            print(f"phase 15e (CPU, gloo, 2 ranks) relu net N="
+                  f"{GLOO_NET['N']} f64, {GLOO_NET['lanes']} lanes, {name} "
+                  f"on a {shape} mesh against one process: "
+                  + ("the same bits" if shape[1] == 1 else
+                     f"largest |difference| {worst:.3e} (rtol {rtol}, atol "
+                     f"{atol})") + f", n_iter {n_iter.tolist()}")
+    print(f"phase 15e (CPU): the gloo world of 2 took {wall:.1f} s")
+
+
+def phase_15(torch, tt, pl, students, flagship, card):
+    """Phase 15: the mesh, on a world of one nccl rank on the card (and a
+    gloo world of 2 on the CPU). Returns launches by path, each path's
+    counts set to 0 just before it and read just after."""
+    import torch.distributed as dist
+    from tramp_tpu_torch.parallel import make_mesh
+    t0 = time.perf_counter()
+    mesh = make_mesh((1, 1))
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          f"phase 15: a {dist.get_backend()} world of "
+          f"{dist.get_world_size()}")
+    collective_costs(torch, mesh, card)
+    paths = phase_15a_relu_net(torch, tt, pl, students, mesh, card)
+    paths["mesh_flagship"] = phase_15b_flagship(torch, tt, pl, *flagship,
+                                                mesh, card)
+    paths["mesh_se_cs_grid"] = phase_15c_grid(torch, tt, pl, card)
+    paths["mesh_checkpoint_EPSolver"] = phase_15d_checkpoints(
+        torch, tt, pl, students, mesh, card)
+    dist.destroy_process_group()
+    t1 = time.perf_counter()
+    phase_15e_several_ranks(torch, tt, card)
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s, of which a-d "
+          f"{t1 - t0:.1f} s [{card}]")
+    return paths
+
+
 def main():
     import torch
     # phase 1: the device
@@ -4367,6 +4825,9 @@ def main():
     tree_launches.update(phase_13(torch, tt, pl, card))
     # phase 14: the engine extras and the tooling
     extras_launches, adaptive = phase_14(torch, tt, pl, students, card)
+    # phase 15: the mesh
+    extras_launches.update(phase_15(torch, tt, pl, students,
+                                    (student, linear), card))
 
     # phase 8: summary. A main path is a solve with the posterior readout
     # that follows it: the engine's float32 relu-net solve (phase 4) and the
@@ -4444,4 +4905,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--gloo-rank"]:
+        gloo_worker(sys.argv[2:])
+    elif sys.argv[1:2] == ["--nccl-rank"]:
+        nccl_worker(sys.argv[2:])
+    else:
+        main()

@@ -172,14 +172,12 @@ def test_qplot_and_the_plot_functions():
 @pytest.mark.parametrize("package", ["algos", "models", "utils",
                                      "experiments", "checks", "parallel"])
 def test_the_jax_names_are_re_exported(package):
-    """Every public name of the JAX package's subpackage, but those of
-    ROADMAP Queue 1 item 5 (the mesh, shard_map) and the JAX-only
-    stack_pytrees (stack_models takes its place)."""
+    """Every public name of the JAX package's subpackage, the mesh and
+    ``solve_batch_shard_map`` of ``parallel`` included, and ``stack_pytrees``
+    (the JAX name of ``stack_models``)."""
     j_mod = importlib.import_module(f"tramp_tpu.{package}")
     mod = importlib.import_module(f"tramp_tpu_torch.{package}")
     names = getattr(j_mod, "__all__", None) or [
         n for n in dir(j_mod) if not n.startswith("_")]
-    later = {"stack_pytrees", "solve_batch_shard_map", "make_mesh",
-             "shard_batched_model", "shard_batched_state"}
-    missing = [n for n in names if not hasattr(mod, n) and n not in later]
+    missing = [n for n in names if not hasattr(mod, n)]
     assert not missing, missing

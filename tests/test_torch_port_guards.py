@@ -8,9 +8,9 @@ likelihoods of Queue 1 item 3 too, whose registries keep no waiting
 types, and the complex channels, shape channels and composite models of
 items 4a and 4b, the structured channels, TV builders and low-rank state
 evolution of items 4c and 6); the state-evolution entry points keep the same rule, take the
-plain twin for their integrands on the CPU, refuse a mesh, and import no
-pandas until a DataFrame is asked for; and, on a card, the kernels agree
-with their plain versions.
+plain twin for their integrands on the CPU, and import no pandas until a
+DataFrame is asked for; and, on a card, the kernels agree with their plain
+versions.
 
 This file imports no JAX, so the card-only test runs on a machine without
 it: ``python -m pytest --noconftest -p no:cacheprovider -m cuda
@@ -382,16 +382,6 @@ def test_se_measure_calls_the_integrand_once_for_all_regions():
         channel.beliefs_measure(az.expand(4, 1), ax.expand(4, 1),
                                 tau.expand(4, 1), f)
         assert shapes == [((4, nodes), (4, nodes), True)]
-
-
-def test_phase_grid_refuses_a_mesh():
-    import tramp_tpu_torch as tt
-    from tramp_tpu_torch import parallel
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        parallel.run_se_phase_grid(
-            tt.glm_state_evolution, {"alpha": [0.3]}, mesh=object(),
-            device="cpu", prior_type="gauss_bernoulli",
-            output_type="gaussian")
 
 
 def _jax_registry_keys(path, name):

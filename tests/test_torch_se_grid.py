@@ -155,9 +155,6 @@ def test_run_se_phase_grid_matches_jax():
     assert records == df.to_dict("records")
     assert parallel.grid_combos({"a": [1, 2], "b": 3.0}) == \
         jparallel.grid_combos({"a": [1, 2], "b": 3.0})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        parallel.run_se_phase_grid(tt.glm_state_evolution, mesh=object(),
-                                   **kw)
 
 
 def test_cs_critical_lines_golden_batched():

@@ -37,6 +37,9 @@ class ComplexLinearChannel(Channel):
 
     _data_fields = ("W", "U", "s", "V", "spectrum", "singular")
     _meta_fields = ("Nx", "Nz", "k", "rank", "alpha", "name")
+    #: operators that ``parallel.shard_batched_model`` splits over the model
+    #: axis (on their last axis; every product with them is made whole)
+    _model_split_fields = ("W", "U", "V")
     #: data fields the JAX package stores as packed (2, ...) re/im pairs
     _packed_fields = ("W", "U", "V")
 

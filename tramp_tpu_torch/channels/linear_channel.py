@@ -23,6 +23,7 @@ import torch
 from .base_channel import Channel
 from ..config import as_tensor
 from ..lanes import last_axis, lane_count, per_lane
+from ..utils.misc import split_product
 
 
 def _per_lane(x, a):
@@ -45,6 +46,9 @@ class LinearChannel(Channel):
 
     _data_fields = ("W", "U", "s", "V", "spectrum", "singular")
     _meta_fields = ("Nx", "Nz", "k", "rank", "alpha", "name")
+    #: operators that ``parallel.shard_batched_model`` splits over the model
+    #: axis (on their last axis; every product with them is made whole)
+    _model_split_fields = ("W", "U", "V")
 
     def __init__(self, W, name="W", rank=None, svd=None, device=None,
                  dtype=None):
@@ -78,7 +82,7 @@ class LinearChannel(Channel):
         return (self.Nx,) + tuple(shape[1:])
 
     def sample(self, generator, Z):
-        return self.W @ Z
+        return self._mm(self.W, Z, lanes=False)
 
     def second_moment(self, tau_z):
         return tau_z * last_axis(self.spectrum, torch.sum) / self.Nx
@@ -92,22 +96,29 @@ class LinearChannel(Channel):
 
     @staticmethod
     def _mm(A, x, *, lanes, transpose=False):
-        """``A @ x`` (or ``A.T @ x``) for the SVD-basis factors, for every
-        lane of ``x``: ``x`` is ``(n,)`` or ``(n, K)``, with ``lanes``
-        ``(B, n)`` or ``(B, n, K)``; ``A`` one matrix or one per lane
-        ``(B, rows, columns)``. The caller tells lanes from the precision
-        (``lane_count``) or from its loop's lane count."""
-        if not lanes:
-            return (A.T if transpose else A) @ x
-        if A.ndim == 3:
-            if x.ndim == 3:
-                return torch.bmm(A.transpose(1, 2) if transpose else A, x)
-            if transpose:
-                return torch.bmm(x.unsqueeze(1), A).squeeze(1)
-            return torch.bmm(A, x.unsqueeze(2)).squeeze(2)
-        if x.ndim == 2:
-            return x @ (A if transpose else A.T)
-        return torch.matmul(A.T if transpose else A, x)
+        """``A @ x`` (or ``A.T @ x``) for the operator and its SVD-basis
+        factors, for every lane of ``x``: ``x`` is ``(n,)`` or ``(n, K)``,
+        with ``lanes`` ``(B, n)`` or ``(B, n, K)``; ``A`` one matrix or one
+        per lane ``(B, rows, columns)``. The caller tells lanes from the
+        precision (``lane_count``) or from its loop's lane count. Every
+        product with a dense real operator goes through here, so an ``A``
+        split over the model axis (``utils.misc.model_shard``) gives the
+        whole product on every rank."""
+        def product(A, x):
+            if not lanes:
+                return (A.T if transpose else A) @ x
+            if A.ndim == 3:
+                if x.ndim == 3:
+                    return torch.bmm(A.transpose(1, 2) if transpose else A,
+                                     x)
+                if transpose:
+                    return torch.bmm(x.unsqueeze(1), A).squeeze(1)
+                return torch.bmm(A, x.unsqueeze(2)).squeeze(2)
+            if x.ndim == 2:
+                return x @ (A if transpose else A.T)
+            return torch.matmul(A.T if transpose else A, x)
+
+        return split_product(A, x, 1 if lanes else 0, transpose, product)
 
     def _s(self, a, b):
         """The singular values as they broadcast against the k-length image

@@ -36,6 +36,9 @@ class UnitaryChannel(Channel):
 
     _data_fields = ("U",)
     _meta_fields = ("name", "N")
+    #: operators that ``parallel.shard_batched_model`` splits over the model
+    #: axis (on their last axis; every product with them is made whole)
+    _model_split_fields = ("U",)
     #: data fields the JAX package stores as packed (2, ...) re/im pairs
     _packed_fields = ("U",)
 

@@ -238,6 +238,9 @@ def with_buffers(model, replace):
     out.nodes = [copies.get(id(n), n) if id(n) in factors else n
                  for n in model.nodes]
     out.factors = [copies.get(id(f), f) for f in model.factors]
+    # the model without lanes that the copy came from, the template against
+    # which ``model_lanes`` tells the lanes (``parallel.shard_batched_model``)
+    out.unstacked = getattr(model, "unstacked", model)
     return out
 
 
@@ -268,9 +271,10 @@ def model_lanes(model, template):
                     raise ValueError(f"{type(factor).__name__}.{name}: "
                                      "present in one model only")
                 continue
-            if tuple(buf.shape) == tuple(want.shape):
+            shape = _whole_shape(buf)
+            if shape == tuple(want.shape):
                 continue
-            if tuple(buf.shape[1:]) != tuple(want.shape):
+            if shape[1:] != tuple(want.shape):
                 raise ValueError(
                     f"{type(factor).__name__}.{name} has shape "
                     f"{tuple(buf.shape)}: need {tuple(want.shape)} or one "
@@ -281,3 +285,10 @@ def model_lanes(model, template):
                     f"lanes, another buffer {B}")
             B = buf.shape[0]
     return B
+
+
+def _whole_shape(buf):
+    """The shape of ``buf``, or of the whole operator where ``buf`` is this
+    rank's block of one split over a mesh's model axis."""
+    shard = getattr(buf, "model_shard", None)
+    return tuple(buf.shape) if shard is None else shard.whole_shape(buf)

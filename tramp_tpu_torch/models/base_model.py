@@ -150,9 +150,17 @@ def _per_output(node, value):
 
 
 def _meta_factor(factor):
-    "Shallow copy of ``factor`` with its buffers replaced by meta tensors."
+    """Shallow copy of ``factor`` with its buffers replaced by meta tensors;
+    an operator split over a mesh's model axis keeps its ``model_shard``."""
     meta = copy.copy(factor)
     meta.__dict__["_buffers"] = {
-        k: None if v is None else torch.empty_like(v, device="meta")
+        k: None if v is None else _meta_tensor(v)
         for k, v in factor._buffers.items()}
+    return meta
+
+
+def _meta_tensor(t):
+    meta = torch.empty_like(t, device="meta")
+    if getattr(t, "model_shard", None) is not None:
+        meta.model_shard = t.model_shard
     return meta

@@ -46,6 +46,7 @@ from ..base import compute_ab_new
 from ..channels import LinearChannel
 from ..lanes import lane_count, lane_values, model_lanes, per_lane, select
 from ..likelihoods import GaussianLikelihood
+from .mesh import all_done, stop_groups, whole_batch
 
 
 def chain_factors(model):
@@ -327,9 +328,12 @@ class MLVAMPSolver:
                       for n, o in zip(new[0], old[0])),
                 {k: fn(new[1][k], old[1][k]) for k in new[1]})
 
-    def _run(self, model, carry=None):
-        """The loop from ``carry`` (None: the zero carry). Returns the
-        posteriors, n_iter, the converged flags and the final carry."""
+    def _run(self, model, carry=None, stop=None):
+        """The loop from ``carry`` (None: the zero carry); ``stop``: the
+        process groups its stop flag is reduced over (None: those of the
+        model's mesh, if any). Returns the posteriors, n_iter, the converged
+        flags and the final carry."""
+        groups = stop_groups(model) if stop is None else stop
         B = model_lanes(model, self.template)
         inv = self._invariants(model, B)
         if carry is None:
@@ -371,7 +375,7 @@ class MLVAMPSolver:
             conv = conv | (active & converged)
             done = done | converged | ~ok
             # the one host read of the iteration
-            if bool(done.all()):
+            if all_done(done, groups):
                 break
         return self._readout(model, carry, inv, B), n_iter, conv, carry
 
@@ -420,18 +424,34 @@ class MLVAMPSolver:
         Passing ``state`` (a carry as ``solve_batch_with_state`` returns
         it, or as ``parallel.restore_checkpoint`` restores it) resumes from
         it."""
-        post, _, n_iter = self.solve_batch_with_state(stacked_model, state)
-        return post, n_iter
+        post, _, n_iter, _ = self._solve_batch(stacked_model, None, state)
+        return whole_batch((post, n_iter), stacked_model)
 
     def solve_batch_with_state(self, stacked_model, state=None):
         """Like solve_batch but also returns the final carry with its
         lanes, for checkpoints (``parallel.save_checkpoint``) and warm
         restarts; the JAX package's MLVAMPSolver has no such call, its
-        EPSolver has."""
+        EPSolver has. On a sharded model (``parallel.shard_batched_model``)
+        every rank returns the whole batch; ``state`` may hold the whole
+        batch or this rank's lanes (``parallel.shard_batched_state``)."""
+        post, carry, n_iter, _ = self._solve_batch(stacked_model, None, state)
+        return whole_batch((post, carry, n_iter), stacked_model)
+
+    def _solve_batch(self, stacked_model, initializer=None, state=None,
+                     stop=None):
+        """The batched loop on this rank's lanes: (post, carry, n_iter,
+        conv), not gathered. The loop starts from the zero carry or
+        ``state``: it takes no initializer."""
+        if initializer is not None:
+            raise ValueError("MLVAMPSolver starts from the zero carry: no "
+                             "initializer")
         if model_lanes(stacked_model, self.template) is None:
             raise ValueError("solve_batch: no buffer of the model has lanes")
-        post, n_iter, _, carry = self._run(stacked_model, state)
-        return post, carry, n_iter
+        where = getattr(stacked_model, "mesh_lanes", None)
+        if where is not None and state is not None:
+            state = where.local(state)
+        post, n_iter, conv, carry = self._run(stacked_model, state, stop)
+        return post, carry, n_iter, conv
 
 
 def dispatch_solver(model, damping=None, tol=1e-6, max_iter=200, **kw):

@@ -14,6 +14,15 @@ bound goes back to its previous state and ends, and a lane that is done is
 frozen (its state, its metric and its ``n_iter`` stay) while the slower
 lanes go on, so a lane of a batched solve follows the single solve on that
 lane's data.
+
+On a model sharded over a device mesh (``parallel.mesh``) each rank runs the
+loop on its own lanes; the stop flag is reduced over the mesh
+(``all_reduce(MIN)``, still one host read per iteration), and the results
+are gathered, so every rank returns the whole batch. Split over the data
+axis alone, each lane has the bits of the unsharded solve (ranks whose
+products sum in the same order; done lanes are frozen); the model axis
+changes the order of summation of each product. ``solve_batch_shard_map``
+lets each rank stop when its own lanes are done.
 """
 import torch
 
@@ -21,6 +30,7 @@ from ..algos import ExpectationPropagation, StateEvolution
 from ..lanes import (
     lane_precision, lane_values, model_lanes, select, to_lanes,
 )
+from .mesh import all_done, shard_batched_model, stop_groups, whole_batch
 
 
 class _Solver:
@@ -78,8 +88,12 @@ class _Solver:
                        for k, v in state[eng.n_slots].items()},)
         return slots
 
-    def _run(self, model, state):
+    def _run(self, model, state, stop=None):
+        """The loop from ``state``; ``stop``: the process groups its stop
+        flag is reduced over (None: those of the model's mesh, if any).
+        Returns (post, state, n_iter, conv)."""
         eng, kind = self.engine, self.stop_kind
+        groups = stop_groups(model) if stop is None else stop
         B = eng._lanes(state)
         aux = eng._prepare(model)
         if eng.spectral_factors:
@@ -125,7 +139,7 @@ class _Solver:
             conv = conv | (active & converged)
             done = done | converged | rb | ~ok
             # the one host read of the iteration
-            if bool(done.all()):
+            if all_done(done, groups):
                 break
         post = {eng.nodes[vi].id: self._post(vi, state, B)
                 for vi in eng.variable_indices}
@@ -148,10 +162,13 @@ class _Solver:
         ``initializer`` gives the initial state of every lane, or is a list
         of initializers, one per lane (an informed ``CustomInit`` each); the
         loop runs until every lane is done. Passing ``state`` (a state with
-        lanes, as ``solve_batch_with_state`` returns it) resumes from it."""
+        lanes, as ``solve_batch_with_state`` returns it) resumes from it.
+        On a sharded model (``shard_batched_model``) every rank returns the
+        whole batch; ``state`` may hold the whole batch or this rank's
+        lanes (``shard_batched_state``)."""
         post, _, n_iter, _ = self._solve_batch(stacked_model, initializer,
                                                state)
-        return post, n_iter
+        return whole_batch((post, n_iter), stacked_model)
 
     def solve_batch_with_state(self, stacked_model, initializer=None,
                                state=None):
@@ -159,16 +176,21 @@ class _Solver:
         its lanes, for warm restarts."""
         post, state, n_iter, _ = self._solve_batch(
             stacked_model, initializer, state)
-        return post, state, n_iter
+        return whole_batch((post, state, n_iter), stacked_model)
 
-    def _solve_batch(self, stacked_model, initializer, state):
+    def _solve_batch(self, stacked_model, initializer=None, state=None,
+                     stop=None):
+        """The batched loop on this rank's lanes: (post, state, n_iter,
+        conv), not gathered; ``stop`` as in ``_run``."""
         B = model_lanes(stacked_model, self.engine.model)
         if B is None:
             raise ValueError("solve_batch: no buffer of the model has lanes")
+        where = getattr(stacked_model, "mesh_lanes", None)
         if state is None and isinstance(initializer, (list, tuple)):
-            if len(initializer) != B:
+            total = B if where is None else where.lanes
+            if len(initializer) != total:
                 raise ValueError(f"solve_batch: {len(initializer)} "
-                                 f"initializers for {B} lanes")
+                                 f"initializers for {total} lanes")
             states = [self._with_lanes(self.init_state(iz), 1)
                       for iz in initializer]
             state = tuple({k: torch.cat([st[s][k] for st in states])
@@ -176,7 +198,51 @@ class _Solver:
                           for s in range(len(states[0])))
         elif state is None:
             state = self._with_lanes(self.init_state(initializer), B)
-        return self._run(stacked_model, state)
+        if where is not None:
+            state = where.local(state)
+        return self._run(stacked_model, state, stop)
+
+
+def solve_batch_shard_map(solver, stacked_model, mesh, data_axis="data",
+                          initializer=None):
+    """A batched solve whose ranks stop on their own: the lanes are split
+    over the mesh's ``data_axis`` and each rank runs the loop on its lanes
+    until they are done, with no collective over the data axis inside the
+    loop (the counterpart of the JAX package's ``jax.shard_map`` path;
+    ``solve_batch`` on a sharded model runs one loop to the slowest lane).
+    The only communication over the data axis comes at the end: an
+    ``all_gather`` of the posteriors and iteration counts and an
+    ``all_reduce(SUM)`` of the converged count. Where the mesh also splits
+    the operators over a model axis, the ranks of that axis share lanes and
+    reduce their stop flag among themselves.
+
+    ``solver`` is an ``EPSolver``, ``SESolver``, ``SpectralVAMPSolver`` or
+    ``MLVAMPSolver``; ``stacked_model`` a model whose buffers carry lanes
+    (``lanes.stack_models``, ``with_buffers``), or one already sharded on
+    ``mesh``. Each lane has the bits of ``solve_batch`` (done lanes are
+    frozen either way), and a repeated call gives the same bits. Returns
+    ``(post, n_iter, n_converged)``, the same on every rank;
+    ``n_converged`` counts the lanes whose stop criterion was met (delta <
+    tol), not those ended by a rollback or a sweep that was not finite.
+
+    ``initializer`` must be one initializer for every lane: per-lane lists
+    are only taken by ``solve_batch``."""
+    if isinstance(initializer, (list, tuple)):
+        raise ValueError(
+            "solve_batch_shard_map broadcasts one initial state across the "
+            "batch; per-instance initializer lists are only supported by "
+            "solve_batch")
+    where = getattr(stacked_model, "mesh_lanes", None)
+    if where is None:
+        stacked_model = shard_batched_model(stacked_model, mesh, data_axis)
+        where = stacked_model.mesh_lanes
+    elif where.mesh is not mesh or where.data_axis != data_axis:
+        raise ValueError("solve_batch_shard_map: the model is sharded on "
+                         "another mesh or data axis")
+    post, _, n_iter, conv = solver._solve_batch(
+        stacked_model, initializer, None, stop=where.stop_groups(False))
+    post, n_iter = where.gather((post, n_iter))
+    return post, n_iter, where.count(conv)
 
 
 class EPSolver(_Solver):

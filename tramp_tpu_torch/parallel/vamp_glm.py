@@ -40,6 +40,7 @@ from ..lanes import (
     select,
 )
 from ..likelihoods import GaussianLikelihood
+from .mesh import all_done, stop_groups, whole_batch
 
 
 def _find_glm_parts(model):
@@ -139,7 +140,10 @@ class SpectralVAMPSolver:
                             dtype=p.dtype, device=p.device)
         return r1, gamma1
 
-    def _run(self, model):
+    def _run(self, model, stop=None):
+        """The loop; ``stop``: the process groups its stop flag is reduced
+        over (None: those of the model's mesh, if any)."""
+        groups = stop_groups(model) if stop is None else stop
         B = model_lanes(model, self.template)
         spectral = self._spectral(model)
         prior, lin, p, s2d = spectral
@@ -171,7 +175,7 @@ class SpectralVAMPSolver:
             conv = conv | (active & converged)
             done = done | converged | ~ok
             # the one host read of the iteration
-            if bool(done.all()):
+            if all_done(done, groups):
                 break
         # final posteriors from the converged cavity (keys: the model's
         # variable ids, as EPSolver returns them)
@@ -200,8 +204,21 @@ class SpectralVAMPSolver:
 
     def solve_batch(self, stacked_model):
         """Many instances in one loop: ``r`` comes back ``(B, n)``, ``v`` and
-        ``n_iter`` ``(B,)``. The loop runs until every lane is done."""
+        ``n_iter`` ``(B,)``. The loop runs until every lane is done. On a
+        sharded model (``parallel.shard_batched_model``) every rank returns
+        the whole batch."""
+        post, _, n_iter, _ = self._solve_batch(stacked_model)
+        return whole_batch((post, n_iter), stacked_model)
+
+    def _solve_batch(self, stacked_model, initializer=None, state=None,
+                     stop=None):
+        """The batched loop on this rank's lanes: (post, None, n_iter,
+        conv), not gathered. The loop starts from the prior-only cavity:
+        it takes no initializer and no state."""
+        if initializer is not None or state is not None:
+            raise ValueError("SpectralVAMPSolver starts from the prior-only "
+                             "cavity: no initializer or state")
         if model_lanes(stacked_model, self.template) is None:
             raise ValueError("solve_batch: no buffer of the model has lanes")
-        post, n_iter, _ = self._run(stacked_model)
-        return post, n_iter
+        post, n_iter, conv = self._run(stacked_model, stop)
+        return post, None, n_iter, conv
