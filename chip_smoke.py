@@ -298,6 +298,35 @@ line is printed):
       for EP and rtol 1e-10, atol 1e-13 with equal n_iter for ML-VAMP on
       the model axis, the JAX tests' tolerances).
 
+16. (run before the summary) the reduced-precision throughput mode of
+    ROADMAP Queue 1 item 8, each A/B pair in turns in this process:
+   a. ``LinearChannel._mm`` with bfloat16 operands (``torch.mm`` /
+      ``torch.bmm`` with ``out_dtype=torch.float32``) in every layout at the
+      flagship's V (10^4 x 5000; LANES lanes; 4 operators per lane) against
+      its plain form: each element within 1e-4 of |A_bf16| @ |x_bf16|, a
+      float32 result; times beside the float32 product's and the bound;
+   b. the flagship's LANES lanes through ``SpectralVAMPSolver.solve_batch``
+      and ``EPSolver(stop_kind="v").solve_batch``, ``MATVEC_BF16`` off and
+      on: per iteration wall, device ms, busy share, iterations, peak
+      memory; each lane's mean v within 5e-2 of the float32 solve's
+      (bench.py:118-119), |mse - v| / v over the lanes within phase 5's
+      band;
+   c. bench_gated's protocol (bench.py:336-467) at LANES lanes, A (float32,
+      one phase) against B (``solve_batch_gated_bf16``'s two phases): its
+      fields for stop kind "v" at tol 1e-6 (bench_gated's) and for stop
+      kind "r" at BATCH_TOL, where v_rel_err_vs_f32 < 1e-3
+      (tests/test_parallel.py:305); the coarse stop fired and B's polish
+      converged on every lane in both;
+   d. the relu net's LANES lanes (tol BATCH_TOL) through
+      ``solve_batch_gated_bf16`` and one instance through
+      ``solve_gated_bf16``: one launch of each message kernel per loop
+      iteration in both phases, every lane converged, mean v within 1e-3
+      of the float32 solve;
+   e. ``PIN_CONSTANT_MESSAGES`` on the flagship, one instance, through the
+      engine: the JAX package's pinned slots, r within rtol 1e-4, atol 1e-9
+      of the unpinned solve in float64 (both to tol 1e-10), and float32
+      sweeps pinned against unpinned.
+
 The messages at a path's final state (11d-f) are held element by element
 within rtol (|a| + |a + a_new|) and rtol (|b| + |b + b_new|), the two terms
 each subtraction takes; their largest absolute errors go to the kernels
@@ -4607,6 +4636,451 @@ def phase_15(torch, tt, pl, students, flagship, card):
     return paths
 
 
+# -- phase 16: the reduced-precision throughput mode -----------------------
+GATED_SOLVE = dict(damping=0.1, max_iter=300, tol=1e-6,   # bench.py:356-357
+                   stop_kind="v")
+GATED_V_REL = 1e-3     # tests/test_parallel.py:305
+MM_TOL = 1e-4          # |bf16 product - plain form| per |A_bf16| @ |x_bf16|
+MM_PER_LANE = 4        # lanes of the one-operator-per-lane case
+MM_K = 2               # the trailing K axis of the (n, K) layouts
+BF16_PEAK_OPS_PER_S = 989e12
+PINNED_FLAGSHIP = ({7: 4}, {5: (7,)})   # the JAX package's pinned slots
+PIN_RTOL, PIN_ATOL = 1e-4, 1e-9         # tests/test_state_bf16.py:102
+PIN_SOLVE = dict(SOLVE, tol=1e-10)      # both float64 solves at the point
+
+
+def switched(name, value, run):
+    """``run()`` with ``tramp_tpu_torch.config.<name>`` set to ``value``,
+    and set back after."""
+    from tramp_tpu_torch import config
+    prev = getattr(config, name)
+    setattr(config, name, value)
+    try:
+        return run()
+    finally:
+        setattr(config, name, prev)
+
+
+def product_bound_ms(A, x, lanes, transpose):
+    """(bound ms, "bytes" or "operations") of one bfloat16 product: the
+    operator's bfloat16 copy and x (float32) read once, the float32 result
+    written once; 2 operations per multiply-add at the bf16 tensor peak."""
+    rows, cols = A.shape[-2:]
+    inner = rows if transpose else cols
+    out_per_column = cols if transpose else rows
+    columns = x.numel() // inner
+    moved = A.numel() * 2 + x.numel() * 4 + columns * out_per_column * 4
+    by_bytes = moved / HBM_BYTES_PER_S
+    by_ops = 2 * columns * inner * out_per_column / BF16_PEAK_OPS_PER_S
+    return 1e3 * max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                         else "operations")
+
+
+def phase_16a_products(torch, linear, card):
+    """``LinearChannel._mm`` with MATVEC_BF16 on the card, every layout at
+    the flagship's V (10^4 x 5000), against its plain form (operands
+    rounded to bfloat16, widened to float32, a float32 product): each
+    element within MM_TOL of |A_bf16| @ |x_bf16|, a float32 result. Times
+    per call, bf16 and the exact float32 product in turns, beside the
+    bf16 product's bound."""
+    from tramp_tpu_torch.channels import LinearChannel
+    g = torch.Generator(device="cuda").manual_seed(16)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    V = linear.V
+    Nz, k = V.shape
+    per_lane = torch.stack([V] + [randn(Nz, k) / math.sqrt(Nz)
+                                  for _ in range(MM_PER_LANE - 1)])
+    cases = []
+    for A, lane_shapes in ((V, [(), (MM_K,), ("B",), ("B", MM_K)]),
+                           (per_lane, [("P",), ("P", MM_K)])):
+        for transpose in (False, True):
+            n = Nz if transpose else k
+            for shape in lane_shapes:
+                lanes = bool(shape) and shape[0] in ("B", "P")
+                head = ({"B": (LANES,), "P": (MM_PER_LANE,)}[shape[0]]
+                        if lanes else ())
+                tail = tuple(d for d in shape if d not in ("B", "P"))
+                cases.append((A, randn(*(head + (n,) + tail)), lanes,
+                              transpose))
+    worst = 0.0
+    for A, x, lanes, transpose in cases:
+        kw = dict(lanes=lanes, transpose=transpose)
+        got = LinearChannel._mm(A, x, bf16=True, **kw)
+        A_b, x_b = A.bfloat16().float(), x.bfloat16().float()
+        plain = LinearChannel._mm(A_b, x_b, bf16=False, **kw)
+        bound = LinearChannel._mm(A_b.abs(), x_b.abs(), bf16=False, **kw)
+        err = float(((got - plain).abs() / bound).max())
+        what = (f"phase 16a bf16 product A {tuple(A.shape)}"
+                f"{'^T' if transpose else ''} x {tuple(x.shape)}")
+        check(got.dtype == torch.float32 and got.shape == plain.shape
+              and bool(torch.isfinite(got).all()) and err <= MM_TOL,
+              f"{what}: {got.dtype}, {tuple(got.shape)}, error {err:.3g} "
+              f"of |A| @ |x| (bound {MM_TOL})")
+        worst = max(worst, err)
+        # a float32 product of (B, n, K) takes over 100 ms: fewer calls
+        slow = per_call_ms(lambda: LinearChannel._mm(A, x, bf16=False, **kw),
+                           calls=1, reps=1) > 5.0
+        calls = dict(calls=2 if slow else 10, reps=3)
+        times = []
+        for bf16 in (False, True, True, False):
+            times.append(per_call_ms(lambda: LinearChannel._mm(
+                A, x, bf16=bf16, **kw), **calls))
+        bf16_ms = min(times[1:3])
+        f32_ms = min(times[0], times[3])
+        bound_ms_, by = product_bound_ms(A, x, lanes, transpose)
+        print(f"{what}: within {err:.3e} of |A| @ |x| (bound {MM_TOL}), "
+              f"float32 out; per call bf16 {times[1]:.4f} / {times[2]:.4f} "
+              f"ms, float32 {times[0]:.4f} / {times[3]:.4f} ms (in turns), "
+              f"bound {bound_ms_:.4f} ms by {by}, bf16 at "
+              f"{100 * bound_ms_ / bf16_ms:.1f}% of it, float32 / bf16 "
+              f"{f32_ms / bf16_ms:.2f}x [{card}]")
+    return worst
+
+
+def solve_readings(torch, pl, run, lanes, peak=True):
+    """One timed run of ``run()`` (a batched solver's ``_solve_batch``),
+    the kernels' counts set to 0 just before and read just after: (post,
+    n_iter, conv, wall s, peak bytes, launches)."""
+    torch.cuda.synchronize()
+    if peak:
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches(pl)
+    t0 = time.perf_counter()
+    post, _, n_iter, conv = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(pl)
+    check(n_iter.shape == (lanes,) and all(
+        bool(torch.isfinite(d["r"]).all()) for d in post.values()),
+        "a batched solve's results are not finite or have no lanes")
+    return post, n_iter, conv, wall, torch.cuda.max_memory_allocated(), \
+        launches
+
+
+def phase_16b_flagship(torch, tt, pl, student, linear, card):
+    """The flagship's LANES lanes through SpectralVAMPSolver.solve_batch and
+    EPSolver(stop_kind="v").solve_batch, MATVEC_BF16 off and on, in turns
+    (off, on, on, off) in this process. Returns (the stacked model, the
+    lanes' x, EP's f32 run)."""
+    from tramp_tpu_torch.parallel import (
+        EPSolver, SpectralVAMPSolver, with_buffers)
+    x, ys = batch_of_observations(torch, linear.W, LANES, False, seed=16)
+    stacked = with_buffers(student, {(2, "y"): ys})
+    solvers = {"SpectralVAMPSolver": (SpectralVAMPSolver, {}),
+               'EPSolver(stop_kind="v")': (EPSolver, GATED_SOLVE)}
+    ep_f32 = None
+    for name, (cls, kw) in solvers.items():
+        solver = cls(student, **kw)
+        windows, runs = {}, {False: [], True: []}
+        for on in (False, True):
+            windows[on] = switched("MATVEC_BF16", on, lambda: loop_window(
+                lambda k: cls(student, **dict(kw, max_iter=k, tol=0.0))
+                ._solve_batch(stacked)))
+            switched("MATVEC_BF16", on, lambda: solver._solve_batch(stacked))
+        for on in (False, True, True, False):
+            runs[on].append(switched("MATVEC_BF16", on, lambda: solve_readings(
+                torch, pl, lambda: solver._solve_batch(stacked), LANES)))
+        v = {}
+        for on in (False, True):
+            post, n_iter, conv, wall, peak, launches = runs[on][0]
+            check(not any(launches.values()), f"{name}: kernels {launches}")
+            its = int(n_iter.max())
+            dev = windows[on]["device_ms"]
+            walls = [r[3] for r in runs[on]]
+            v[on] = post["x"]["v"].double()
+            # the band over the batch: one lane's MSE at N = 10^4 scatters
+            # by several percent about its v, so the worst of LANES lanes
+            # is a reading
+            mse = ((post["x"]["r"].double() - x.double()) ** 2).mean(-1)
+            band = float((mse.mean() - v[on].mean()).abs() / v[on].mean())
+            lanes_band = (mse - v[on]).abs() / v[on]
+            check(band < FLAGSHIP_BAND, f"phase 16b {name} bf16={on}: "
+                  f"|mse - v| / v = {band:.3g} over the lanes (band "
+                  f"{FLAGSHIP_BAND})")
+            print(f"phase 16b flagship f32, {LANES} lanes, {name}, "
+                  f"MATVEC_BF16={on}: {int(conv.sum())} converged, "
+                  f"{its} iterations (per lane {int(n_iter.min())} to {its},"
+                  f" mean {float(n_iter.double().mean()):.2f}), "
+                  f"{walls[0]:.4f} / {walls[1]:.4f} s, wall "
+                  f"{1e3 * walls[0] / its:.4f} / {1e3 * walls[1] / its:.4f} "
+                  f"ms per iteration, device {dev:.4f} ms per iteration "
+                  f"({windows[on]['kernels']:.1f} kernels), busy "
+                  f"{100 * dev * its / (1e3 * walls[0]):.2f}% / "
+                  f"{100 * dev * its / (1e3 * walls[1]):.2f}%, peak "
+                  f"{peak} B, |mse - v| / v {band:.3e} over the lanes, "
+                  f"worst lane {float(lanes_band.max()):.3e}, "
+                  f"{int((lanes_band < FLAGSHIP_BAND).sum())} lanes inside "
+                  f"the band [{card}]")
+            for op, count, ms in windows[on]["top"][:3]:
+                print(f"    {ms:9.4f} ms in {count:5.1f} launches per "
+                      f"iteration: {op}")
+            if name.startswith("EPSolver") and not on:
+                ep_f32 = runs[on][0]
+        v_rel = float(((v[True] - v[False]).abs() / v[False]).max())
+        check(v_rel < V_MSE_BOUND, f"phase 16b {name}: a lane's mean v with "
+              f"bf16 products is {v_rel:.3g} off the f32 solve's (bound "
+              f"{V_MSE_BOUND})")
+        print(f"phase 16b {name}: bf16 against f32 products, worst lane's "
+              f"mean v {v_rel:.3e} (bound {V_MSE_BOUND}) [{card}]")
+    return stacked, x, ep_f32
+
+
+def gated_phases(torch, pl, solver, stacked, lanes, coarse):
+    """``solve_batch_gated_bf16``'s two phases one by one, each timed and
+    counted from 0: ((state1, n1, conv1, wall1, launches1), (post, n2,
+    conv2, wall2, launches2))."""
+    def phase(bf16, run):
+        return solver._stored_as(bf16, lambda: solve_readings(
+            torch, pl, run, lanes, peak=False))
+    p1 = {}
+
+    def first():
+        post, state, n_iter, conv = solver._solve_batch(stacked, tol=coarse)
+        p1["state"] = state
+        return post, state, n_iter, conv
+    _, n1, c1, w1, _, l1 = phase(True, first)
+    upcast = solver._upcast_state(p1["state"])
+    post, n2, c2, w2, _, l2 = phase(
+        False, lambda: solver._solve_batch(stacked, state=upcast))
+    return (p1["state"], n1, c1, w1, l1), (post, n2, c2, w2, l2)
+
+
+def gated_arms(torch, pl, solver, stacked, card, what):
+    """A (float32, one phase) against B (the two phases of
+    solve_batch_gated_bf16) on ``stacked``, in turns A, B, B, A, with
+    bench_gated's fields (bench.py:443-465). Checks that B's phases are
+    the public call's, that no kernel ran, that the coarse stop fired and
+    that B's polish converged every lane. Returns the fields."""
+    coarse = solver._coarse_default()
+    solver._stored_as(True, lambda: solver._solve_batch(stacked, tol=coarse))
+    A, B = [], []
+    for arm in "ABBA":
+        if arm == "A":
+            A.append(solve_readings(torch, pl,
+                                    lambda: solver._solve_batch(stacked),
+                                    LANES))
+        else:
+            B.append(gated_phases(torch, pl, solver, stacked, LANES, coarse))
+    post_f, n_f, conv_f, _, _, _ = A[0]
+    (_, n1, c1, _, l1), (post_g, n2, conv_g, _, l2) = B[0]
+    whole = solver.solve_batch_gated_bf16(stacked)
+    check(torch.equal(whole[1], n1 + n2) and torch.equal(
+        whole[0]["x"]["r"], post_g["x"]["r"]),
+        f"{what}: solve_batch_gated_bf16 differs from its two phases")
+    check(not any(l1.values()) and not any(l2.values()),
+          f"{what}: the flagship ran kernels {l1}, {l2}")
+    v_f = post_f["x"]["v"].double()
+    v_g = post_g["x"]["v"].double()
+    t_f32 = [a[3] for a in A]
+    t1 = [b[0][3] for b in B]
+    t2 = [b[1][3] for b in B]
+    info = {"stop_kind": solver.stop_kind, "tol": solver.tol,
+            "coarse_tol": coarse,
+            "t_f32_s": t_f32, "t_phase1_bf16_s": t1, "t_phase2_f32_s": t2,
+            "t_two_phase_bf16_s": [a + b for a, b in zip(t1, t2)],
+            "n_iter_f32_single_phase_mean": float(n_f.double().mean()),
+            "loop_iterations_f32": int(n_f.max()),
+            "n_iter_bf16_mean": float(n1.double().mean()),
+            "n_iter_f32_mean": float(n2.double().mean()),
+            "loop_iterations_bf16_f32": [int(n1.max()), int(n2.max())],
+            "coarse_fired_frac": float(c1.double().mean()),
+            "unconv_frac": float(1.0 - conv_g.double().mean()),
+            "unconv_frac_f32": float(1.0 - conv_f.double().mean()),
+            "v_rel_err_vs_f32": float((v_g - v_f).abs().max()
+                                      / v_f.abs().max())}
+    print(f"{what} [{card}]: {json.dumps(info)}")
+    check(bool(c1.all()) and bool(conv_g.all()),
+          f"{what}: the coarse stop fired on {int(c1.sum())} lanes, "
+          f"{int((~conv_g).sum())} lanes unconverged after B's polish")
+    return info
+
+
+def phase_16c_gated(torch, tt, pl, student, stacked, ep_f32, card):
+    """bench_gated's protocol (bench.py:336-467) on the card, the flagship's
+    LANES lanes: EPSolver(damping=0.1, max_iter=300, tol=1e-6,
+    stop_kind="v"), A against B (``gated_arms``), every field printed. With
+    stop kind "v" at 1e-6 the float32 one-phase solve A stops early on
+    some lanes (a sweep whose mean v barely moves; on the H100, lane 948
+    after 10 sweeps at 2.87e-2 of its converged v, B at 5.6e-3), so
+    v_rel_err_vs_f32 measures A's early stops, and the 1e-3 bound of
+    tests/test_parallel.py:305, a kind-"r" test, is held on a second run of
+    the protocol with stop kind "r" at phase 7's float32 batch tol 1e-5,
+    where both A and B reach their fixed point."""
+    from tramp_tpu_torch.parallel import EPSolver
+    check(bool(ep_f32[2].all()), f"phase 16c: A left "
+          f"{int((~ep_f32[2]).sum())} lanes unconverged at tol "
+          f"{GATED_SOLVE['tol']}")
+    info = {"v": gated_arms(
+        torch, pl, EPSolver(student, **GATED_SOLVE), stacked, card,
+        f"phase 16c bench_gated, flagship f32, {LANES} lanes, stop kind v")}
+    kind_r = dict(GATED_SOLVE, stop_kind="r", tol=BATCH_TOL)
+    info["r"] = gated_arms(
+        torch, pl, EPSolver(student, **kind_r), stacked, card,
+        f"phase 16c bench_gated, flagship f32, {LANES} lanes, stop kind r, "
+        f"tol {BATCH_TOL}")
+    v_rel = info["r"]["v_rel_err_vs_f32"]
+    check(v_rel < GATED_V_REL, f"phase 16c, stop kind r: v_rel_err_vs_f32 "
+          f"{v_rel:.3g} (bound {GATED_V_REL})")
+    return info
+
+
+def phase_16d_relu_net(torch, tt, pl, students, card):
+    """The relu net (N = 4096, LANES lanes, f32) through
+    EPSolver.solve_batch_gated_bf16 (tol BATCH_TOL) and one instance through
+    solve_gated_bf16: 1 + 1 message launches per loop iteration in both
+    phases, every lane converged, mean v within GATED_V_REL of the float32
+    solve. Returns launches by path."""
+    from tramp_tpu_torch.parallel import EPSolver, with_buffers
+    student, _, linear = students["float32"]
+    likelihood = len(student.factors) - 1
+    _, ys = batch_of_observations(torch, linear.W, LANES, True, seed=16)
+    stacked = with_buffers(student, {(likelihood, "y"): ys})
+    solver = EPSolver(student, **dict(SOLVE, tol=BATCH_TOL))
+    coarse = solver._coarse_default()
+    post_f, n_f, conv_f, wall_f, _, _ = solve_readings(
+        torch, pl, lambda: solver._solve_batch(stacked), LANES)
+    (_, n1, c1, w1, l1), (post, n2, conv, w2, l2) = gated_phases(
+        torch, pl, solver, stacked, LANES, coarse)
+    paths = {}
+    for phase, n, launches in (("bf16", n1, l1), ("f32", n2, l2)):
+        its = int(n.max())
+        check(launches["pl_forward_message"] == its
+              and launches["pl_backward_message"] == its
+              and launches["pl_posterior"] == 0,
+              f"phase 16d gated relu net, {phase} phase: launches "
+              f"{launches} for {its} loop iterations")
+        paths[f"gated_relu_net_batch_{phase}"] = launches
+    reset_launches(pl)
+    whole = solver.solve_batch_gated_bf16(stacked)
+    torch.cuda.synchronize()
+    total = read_launches(pl)
+    check(torch.equal(whole[1], n1 + n2)
+          and torch.equal(whole[0]["x"]["r"], post["x"]["r"])
+          and total["pl_forward_message"] == int(n1.max()) + int(n2.max()),
+          f"phase 16d: solve_batch_gated_bf16 differs from its phases "
+          f"(launches {total})")
+    check(bool(conv.all()), f"phase 16d: {int((~conv).sum())} lanes "
+          "unconverged")
+    v_rel = float(((post["x"]["v"].double() - post_f["x"]["v"].double())
+                   .abs() / post_f["x"]["v"].double()).max())
+    check(v_rel < GATED_V_REL, f"phase 16d: a lane's mean v {v_rel:.3g} off "
+          f"the f32 solve (bound {GATED_V_REL})")
+    print(f"phase 16d relu net f32, {LANES} lanes, solve_batch_gated_bf16 "
+          f"(tol {BATCH_TOL}): bf16 phase {int(n1.max())} iterations (mean "
+          f"{float(n1.double().mean()):.2f}, coarse stop on "
+          f"{int(c1.sum())} lanes) in {w1:.4f} s, f32 phase "
+          f"{int(n2.max())} iterations (mean "
+          f"{float(n2.double().mean()):.2f}) in {w2:.4f} s; float32 one "
+          f"phase {int(n_f.max())} iterations in {wall_f:.4f} s; every "
+          f"lane converged; worst lane's mean v {v_rel:.3e} off the f32 "
+          f"solve (bound {GATED_V_REL}); launches {l1} + {l2} [{card}]")
+    post_1, _, conv_1 = solver.solve_info(student)
+    reset_launches(pl)
+    post_g, n_total, conv_g, info = solver.solve_gated_bf16(student)
+    torch.cuda.synchronize()
+    one = read_launches(pl)
+    check(bool(conv_g) and one["pl_forward_message"] == n_total
+          and one["pl_backward_message"] == n_total
+          and one["pl_posterior"] == 0,
+          f"phase 16d one instance: conv {bool(conv_g)}, launches {one} for "
+          f"{n_total} sweeps ({info})")
+    v_1 = float(post_1["x"]["v"])
+    v_rel_1 = abs(float(post_g["x"]["v"]) - v_1) / v_1
+    check(v_rel_1 < GATED_V_REL, f"phase 16d one instance: mean v "
+          f"{v_rel_1:.3g} off the f32 solve")
+    print(f"phase 16d relu net f32, one instance, solve_gated_bf16: info "
+          f"{info}, mean v {v_rel_1:.3e} off the f32 solve, launches {one} "
+          f"[{card}]")
+    paths["gated_relu_net_one_instance"] = one
+    return paths
+
+
+def flagship_float64(torch, tt, student, linear):
+    """The flagship in float64: phase 5's W and y (float32 values) in a
+    float64 model, its SVD on the card."""
+    from tramp_tpu_torch.channels import GaussianChannel, LinearChannel
+    from tramp_tpu_torch.priors import GaussBernoulliPrior
+    W = linear.W.double()
+    kw = dict(device="cuda", dtype=torch.float64)
+    teacher = (GaussBernoulliPrior(size=W.shape[1], rho=RHO, **kw)
+               @ tt.V(id="x") @ LinearChannel(W, name="W", **kw)
+               @ tt.V(id="z") @ GaussianChannel(var=NOISE)
+               @ tt.O(id="y")).to_model()
+    return teacher.to_observed({"y": student.factors[-1].y.double()})
+
+
+def phase_16e_pinned(torch, tt, pl, student, linear, card):
+    """PIN_CONSTANT_MESSAGES on the flagship, one instance, through the
+    engine: the JAX package's pinned slots; the same fixed point: r against
+    the unpinned solve's at the JAX test's tolerance, in float64 and with
+    both solves run to tol 1e-10 (two stops at tol 1e-6 from other
+    transients lie about 1e-6 apart, and float32 rounding alone exceeds
+    atol 1e-9: the float32 pair at tol 1e-6 is a reading); float32 sweeps
+    in turns (unpinned, pinned, pinned, unpinned)."""
+    def pinned_engine(model):
+        return switched("PIN_CONSTANT_MESSAGES", True,
+                        lambda: tt.ExpectationPropagation(model))
+    t0 = time.perf_counter()
+    student64 = flagship_float64(torch, tt, student, linear)
+    reset_launches(pl)
+    plain64 = tt.ExpectationPropagation(student64).iterate(**PIN_SOLVE)
+    pinned64 = pinned_engine(student64).iterate(**PIN_SOLVE)
+    torch.cuda.synchronize()
+    launches = read_launches(pl)
+    r, r0 = (e.get_variable_data("x")["r"] for e in (pinned64, plain64))
+    worst = float(((r - r0).abs() / (PIN_ATOL + PIN_RTOL * r0.abs())).max())
+    check(worst <= 1.0 and not any(launches.values()),
+          f"phase 16e: float64 pinned r off the unpinned solve's by "
+          f"{worst:.3g} of rtol {PIN_RTOL}, atol {PIN_ATOL}; launches "
+          f"{launches}")
+    plain = tt.ExpectationPropagation(student).iterate(**SOLVE)
+    pinned = pinned_engine(student)
+    for ep in (pinned, pinned64):
+        check((ep.pinned_factor, ep.pinned_variable) == PINNED_FLAGSHIP
+              and ep.spectral_factors == () and not plain.pinned,
+              f"phase 16e: pinned {ep.pinned_factor}, "
+              f"{ep.pinned_variable}, carry {ep.spectral_factors}")
+    pinned.iterate(**SOLVE)
+    r32, r032 = (e.get_variable_data("x")["r"].double()
+                 for e in (pinned, plain))
+    print(f"phase 16e flagship, one instance, pinned: slots "
+          f"{pinned.pinned_factor}, cavities {pinned.pinned_variable}, no "
+          f"carried image; float64 {pinned64.n_iter} sweeps against "
+          f"{plain64.n_iter} unpinned, r within {worst:.3e} of rtol "
+          f"{PIN_RTOL}, atol {PIN_ATOL}; float32 {pinned.n_iter} against "
+          f"{plain.n_iter}, r within "
+          f"{float((r32 - r032).abs().max() / r032.abs().max()):.3e} of "
+          f"the largest |r| ({time.perf_counter() - t0:.1f} s with the "
+          f"float64 SVD) [{card}]")
+    for label, ep in (("unpinned", plain), ("pinned", pinned),
+                      ("pinned", pinned), ("unpinned", plain)):
+        kernels, device, wall_ms = sweep_window(ep)
+        print(f"phase 16e flagship f32, {label}, torch.profiler over 10 "
+              f"warm sweeps: {kernels:.1f} kernels, device {device:.4f} ms "
+              f"of {wall_ms:.4f} ms per sweep, busy "
+              f"{100 * device / wall_ms:.2f}% [{card}]")
+    return launches
+
+
+def phase_16(torch, tt, pl, students, flagship, card):
+    """Phase 16: the reduced-precision throughput mode on the card. Returns
+    launches by path."""
+    t0 = time.perf_counter()
+    student, linear = flagship
+    phase_16a_products(torch, linear, card)
+    stacked, _, ep_f32 = phase_16b_flagship(torch, tt, pl, student, linear,
+                                            card)
+    phase_16c_gated(torch, tt, pl, student, stacked, ep_f32, card)
+    del stacked, ep_f32
+    paths = phase_16d_relu_net(torch, tt, pl, students, card)
+    paths["pinned_flagship"] = phase_16e_pinned(torch, tt, pl, student,
+                                                linear, card)
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s [{card}]")
+    return paths
+
+
 def main():
     import torch
     # phase 1: the device
@@ -4827,6 +5301,9 @@ def main():
     extras_launches, adaptive = phase_14(torch, tt, pl, students, card)
     # phase 15: the mesh
     extras_launches.update(phase_15(torch, tt, pl, students,
+                                    (student, linear), card))
+    # phase 16: bf16 products and state, the gated solves, pinned messages
+    extras_launches.update(phase_16(torch, tt, pl, students,
                                     (student, linear), card))
 
     # phase 8: summary. A main path is a solve with the posterior readout

@@ -21,7 +21,7 @@ import tramp_tpu as jt
 import tramp_tpu_torch as tt
 
 from torch_parity import (
-    assert_states_close, glm_scenario, no_carry, port_model,
+    assert_states_close, glm_scenario, port_model,
 )
 
 RTOL = 1e-8
@@ -67,11 +67,12 @@ def test_adaptive_loop_without_callback_matches_the_callback_loop():
             assert torch.equal(m_f[k], m_p[k]), k
 
 
-def test_adaptive_with_and_without_the_carry():
+def test_adaptive_with_and_without_the_carry(monkeypatch):
     "tests/test_spectral_carry.py:122-127: the same bits either way."
     student = port_model(glm_scenario(N=40).student)
     on = tt.ExpectationPropagation(student)
-    off = no_carry(tt.ExpectationPropagation)(student)
+    monkeypatch.setattr(tt.config, "SPECTRAL_CARRY", False)
+    off = tt.ExpectationPropagation(student)
     assert on.spectral_factors and not off.spectral_factors
     for ep in (on, off):
         ep.iterate(max_iter=10, damping="adaptive", tol=0.0)

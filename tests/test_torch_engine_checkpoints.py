@@ -27,7 +27,7 @@ from tramp_tpu_torch.channels import (
 )
 from tramp_tpu_torch.priors import GaussBernoulliPrior
 
-from torch_parity import assert_close, glm_scenario, no_carry, port_model
+from torch_parity import assert_close, glm_scenario, port_model
 
 SOLVE = dict(damping=0.1, tol=0.0)
 
@@ -64,10 +64,12 @@ def test_save_load_resume_is_bit_identical(tmp_path):
     _assert_states_equal(ep2.state, ep1.state)
 
 
-def test_legacy_checkpoint_without_spectral_images(tmp_path):
+def test_legacy_checkpoint_without_spectral_images(tmp_path, monkeypatch):
     "tests/test_spectral_carry.py:166-180: rebuilt from the slots."
     _, student = _students()
-    off = no_carry(tt.ExpectationPropagation)(student)
+    with monkeypatch.context() as m:
+        m.setattr(tt.config, "SPECTRAL_CARRY", False)
+        off = tt.ExpectationPropagation(student)
     off.iterate(max_iter=12, damping=0.2, tol=0.0)
     path = str(tmp_path / "legacy.npz")
     off.save_state(path)

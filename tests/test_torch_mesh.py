@@ -258,6 +258,33 @@ def test_model_axis_products(run, world, shape):
         assert errs.max() < 1e-13, errs
 
 
+@pytest.mark.parametrize("world,shape", [(2, (1, 2)), (4, (2, 2)),
+                                         (4, (1, 4))])
+def test_model_axis_products_bf16(run, world, shape):
+    """The same products with bfloat16 operands (``config.MATVEC_BF16``):
+    float32 blocks summed over the model axis, each element within 1e-5 of
+    |A| @ |x| of the whole product (the blocks' float32 sums run in another
+    order)."""
+    key = "x".join(map(str, shape))
+    for rank in run[0][world]:
+        errs = rank[f"{key}/products_bf16"]
+        assert errs.shape == (12,)
+        assert errs.max() < 1e-5, errs
+
+
+def test_gated_bf16_on_the_data_axis_gives_the_unsharded_bits(run):
+    """``EPSolver.solve_batch_gated_bf16`` on the float32 GLMs sharded over
+    a gloo world of 2 on (2, 1): both phases run one loop over the ranks,
+    and every lane's r, v, n_iter and converged flag are those of the
+    unsharded gated solve."""
+    for rank in run[0][2]:
+        _assert_same_bits(_post(rank, "2x1/gated", "ep"),
+                          _post(rank, "none/gated", "ep"))
+        np.testing.assert_array_equal(rank["2x1/gated/conv"],
+                                      rank["none/gated/conv"])
+        assert rank["2x1/gated/conv"].all()
+
+
 @pytest.mark.parametrize("world", [2, 4])
 def test_shard_map_errors(run, world):
     """tramp_tpu/parallel/solver.py:388-395: a list of initializers names

@@ -117,6 +117,23 @@ MESSAGES = [
 ]
 
 
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("wrapper", [pl_fused.pl_posterior]
+                         + [fused for fused, _ in MESSAGES],
+                         ids=["posterior", "forward", "backward"])
+def test_wrappers_refuse_bfloat16(wrapper, device):
+    """A bfloat16 input raises (the engine upcasts its bfloat16 state
+    before any factor reads it; a wrapper never converts one), and counts
+    no launch."""
+    az, bz, ax, bx = _inputs(64, torch.float32, device=device)
+    before = wrapper.launches
+    for args in ((az, bz.bfloat16(), ax, bx), (az, bz, ax, bx.bfloat16()),
+                 (az.bfloat16(), bz, ax, bx)):
+        with pytest.raises(ValueError, match="bfloat16"):
+            wrapper(*args, ReluChannel().region_specs)
+    assert wrapper.launches == before
+
+
 @pytest.mark.parametrize("fused,plain", MESSAGES,
                          ids=["forward", "backward"])
 def test_message_wrapper_uses_plain_version_on_cpu(fused, plain):
@@ -415,6 +432,65 @@ def test_no_prior_or_likelihood_type_waits_for_item_3():
     stale = [str(p) for p in sorted((REPO / "tramp_tpu_torch").rglob("*.py"))
              if re.search(r"item (3|4c|6)\b", p.read_text())]
     assert not stale, stale
+
+
+def _jax_public_names(path):
+    """(module-level public names, {public class: its public methods}) of a
+    tramp_tpu source file, read with ``ast`` (no JAX import)."""
+    import ast
+    names, methods = [], {}
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.append(node.name)
+            if isinstance(node, ast.ClassDef):
+                methods[node.name] = [
+                    f.name for f in node.body
+                    if isinstance(f, ast.FunctionDef)
+                    and not f.name.startswith("_")]
+        elif isinstance(node, ast.Assign):
+            names += [t.id for t in node.targets if isinstance(t, ast.Name)]
+    return [n for n in names if not n.startswith("_")], methods
+
+
+def _not_to_port():
+    """The code ROADMAP.md's "Code not to port" list names: the
+    backquoted names and files of that paragraph."""
+    text = (REPO / "ROADMAP.md").read_text()
+    start = re.search(r"^Code not to port", text, re.M).start()
+    section = text[start:text.index("\n###", start)]
+    return set(re.findall(r"`([^`]+)`", section))
+
+
+def test_every_public_name_of_the_jax_package_has_a_counterpart():
+    """Every module-level public name of every ``tramp_tpu`` module, and
+    every public method of its public classes, exists at the same place in
+    ``tramp_tpu_torch`` (the same module path; a method may be inherited),
+    unless ROADMAP's "Code not to port" list names it or its file."""
+    import importlib
+    skipped = _not_to_port()
+    gaps = []
+    for path in sorted((REPO / "tramp_tpu").rglob("*.py")):
+        rel = path.relative_to(REPO / "tramp_tpu")
+        parts = list(rel.with_suffix("").parts)
+        if parts[-1] == "__init__":
+            parts.pop()
+        if any(str(rel).endswith(s) for s in skipped):
+            continue
+        module = importlib.import_module(".".join(["tramp_tpu_torch"]
+                                                  + parts))
+        names, methods = _jax_public_names(path)
+        for name in names:
+            if name in skipped:
+                continue
+            if not hasattr(module, name):
+                gaps.append(f"{module.__name__}.{name}")
+                continue
+            cls = getattr(module, name)
+            gaps += [f"{module.__name__}.{name}.{m}"
+                     for m in methods.get(name, ()) if not hasattr(cls, m)]
+    assert not gaps, gaps
+    # the list names only what the JAX package has
+    assert {"ops/dft.py", "USE_PALLAS", "kernel_mode"} <= skipped
 
 
 def test_structured_factors_need_a_card_or_an_explicit_cpu():

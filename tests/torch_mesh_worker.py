@@ -31,6 +31,8 @@ EP = dict(damping=0.1, max_iter=50, tol=1e-8)
 VAMP = dict(max_iter=300, tol=1e-10)
 MLVAMP = dict(damping=0.1, max_iter=200, tol=1e-8)
 EP_COMPLEX = dict(damping=0.1, max_iter=100, tol=1e-8)
+# the gated two-phase solve on the float32 GLMs: tests/test_parallel.py:297
+GATED = dict(damping=0.1, max_iter=500, tol=1e-6)
 MESHES = {2: [(2, 1), (1, 2)], 4: [(4, 1), (2, 2)]}
 GRID = {"alpha": [0.3, 0.6, 0.9], "prior_rho": [0.25, 0.5]}
 GRID_KW = dict(ids=("x",), a0=0.0, prior_type="gauss_bernoulli",
@@ -90,12 +92,13 @@ def results(out, world):
 
 
 # ---------------------------------------------------------------- worker
-def _models(torch, tt, data, name, relu=False):
-    "The port's students of the instances ``name`` in ``data``."
+def _models(torch, tt, data, name, relu=False, dtype=None):
+    """The port's students of the instances ``name`` in ``data`` (float64
+    unless ``dtype`` says otherwise)."""
     from tramp_tpu_torch.channels import (
         GaussianChannel, LinearChannel, ReluChannel)
     from tramp_tpu_torch.priors import GaussBernoulliPrior
-    kw = dict(device="cpu", dtype=torch.float64)
+    kw = dict(device="cpu", dtype=dtype or torch.float64)
     models = []
     for W, y, U, s, V in zip(*(data[f"{name}_{k}"]
                                for k in ("W", "y", "U", "s", "V"))):
@@ -156,13 +159,21 @@ def _products(torch, parallel, mesh, data, out, key):
         "per_lane": (A, x, xt, True),
         "per_lane_K": (A, x[..., None].repeat(1, 1, 3),
                        xt[..., None].repeat(1, 1, 3), True)}
-    errs = []
+    errs, errs_bf16 = [], []
     for name, (M, v, vt, lanes) in cases.items():
         for transpose, arg in ((False, v), (True, vt)):
             want = LinearChannel._mm(M, arg, lanes=lanes, transpose=transpose)
             got = LinearChannel._mm(local(M), arg, lanes=lanes,
                                     transpose=transpose)
             errs.append(float((got - want).abs().max() / want.abs().max()))
+            # bfloat16 operands (config.MATVEC_BF16): float32 blocks, each
+            # element against |A| @ |x| of the whole product
+            kw = dict(lanes=lanes, transpose=transpose, bf16=True)
+            want = LinearChannel._mm(M, arg, **kw)
+            got = LinearChannel._mm(local(M), arg, **kw)
+            bound = LinearChannel._mm(M.abs(), arg.abs(), **kw)
+            errs_bf16.append(float(((got - want).abs() / bound).max())
+                             if got.dtype == torch.float32 else np.inf)
     for M, v, vt, axis in ((C[0], z[0], zt[0], 0), (C[0], z, zt, 1),
                            (C, z, zt, 1)):
         for adjoint, arg in ((False, v), (True, vt)):
@@ -170,6 +181,7 @@ def _products(torch, parallel, mesh, data, out, key):
             got = pair_matmul(local(M), arg, adjoint=adjoint, axis=axis)
             errs.append(float((got - want).abs().max() / want.abs().max()))
     out[f"{key}/products"] = np.array(errs)
+    out[f"{key}/products_bf16"] = np.array(errs_bf16)
 
 
 def _operator_bytes(models, sharded, out, key):
@@ -203,6 +215,11 @@ def unsharded(torch, tt, parallel, data):
             parallel.stack_models(models))
         _save_post(out, f"none/{kind}/solve_batch", post, n_iter)
         out[f"none/{kind}/conv"] = conv.numpy()
+    glms = _models(torch, tt, data, "glm", dtype=torch.float32)
+    post, n_iter, conv = parallel.EPSolver(
+        glms[0], **GATED).solve_batch_gated_bf16(parallel.stack_models(glms))
+    _save_post(out, "none/gated", post, n_iter)
+    out["none/gated/conv"] = conv.numpy()
     return out
 
 
@@ -237,6 +254,14 @@ def solvers(torch, tt, parallel, world, data, out):
                     solver, stacked, mesh)
                 _save_post(out, f"{key}/{kind}/{call}", post, n_iter)
                 out[f"{key}/{kind}/{call}/n_conv"] = n_conv.numpy()
+        if shape == (2, 1):
+            glms32 = _models(torch, tt, data, "glm", dtype=torch.float32)
+            post, n_iter, conv = parallel.EPSolver(
+                glms32[0], **GATED).solve_batch_gated_bf16(
+                    parallel.shard_batched_model(
+                        parallel.stack_models(glms32), mesh))
+            _save_post(out, f"{key}/gated", post, n_iter)
+            out[f"{key}/gated/conv"] = conv.numpy()
         ep = solvers["ep"][1]
         from tramp_tpu_torch.algos import CustomInit
         out[f"{key}/error_list"] = np.array(_error(

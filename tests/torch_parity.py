@@ -142,10 +142,3 @@ def glm_scenario(N=200, prior_rho=0.25, key=3, seed=7, alpha=0.6):
     scenario.setup(seed=seed)
     return scenario
 
-
-def no_carry(engine_cls):
-    "A subclass of a port engine without the spectral-image carry."
-    class NoCarry(engine_cls):
-        def _init_spectral_factors(self):
-            return ()
-    return NoCarry

@@ -4,6 +4,7 @@ import math
 
 import torch
 
+from .. import config
 from ..base import Variable, compute_ab_new
 from ..channels import LinearChannel
 from .message_passing import MessagePassing, slot, FWD, BWD
@@ -33,18 +34,68 @@ class ExpectationPropagation(MessagePassing):
     def __init__(self, model):
         model.init_shapes()
         super().__init__(model, message_keys=["a", "b"])
+        # dense linear factors whose bx slot is pinned: the image U^T bx is
+        # a constant of the run (_pinned_image)
+        self._pinned_linear = frozenset(
+            i for i in self._dense_linear()
+            if self._bx_slot(i) in self.pinned)
 
-    # -- spectral-image carry ---------------------------------------------
+    def _dense_linear(self):
+        return [i for i, node in enumerate(self.nodes)
+                if type(node) is LinearChannel]
+
+    def _bx_slot(self, i):
+        "The slot of bx, the backward message into factor i's out edge."
+        return slot(self.model.out_edges[i][0], BWD)
+
+    def _prepare(self, model):
+        """With pinned slots, the dict in which the first sweep of a run
+        keeps their messages (``_pinned_slots``) and the images of pinned
+        bx slots (``_pinned_image``); else None."""
+        return {} if self.pinned else None
+
+    # -- pinned constant messages (config.PIN_CONSTANT_MESSAGES) ------------
+    # (tramp_tpu/algos/expectation_propagation.py:31-45): the Gaussian
+    # likelihood's backward message and the Gaussian prior's forward one are
+    # model constants.
+    def _constant_factor_message(self, node):
+        if node.n_next == 0:
+            fn = getattr(node, "constant_backward_message", None)
+            return fn is not None and fn() is not None
+        if node.n_prev == 0:
+            return getattr(node, "constant_forward_message", None) is not None
+        return False
+
+    def _factor_constant_message(self, model, i):
+        node = model.nodes[i]
+        if node.n_next == 0:
+            return node.constant_backward_message()
+        return node.constant_forward_message()
+
+    def _pinned_image(self, i, node, state, aux):
+        """U^T bx of a linear factor whose bx slot is pinned, computed at the
+        run's first sweep from the pinned slot and kept in ``aux``."""
+        images = aux.setdefault("images", {})
+        if i not in images:
+            msg = self._load_msg(state[self._bx_slot(i)])
+            images[i] = node.spectral_image(msg["b"], msg["a"])
+        return images[i]
+
+    # -- spectral-image carry (config.SPECTRAL_CARRY) ------------------------
     # Dense LinearChannels carry u = U^T bx across sweeps (the state's
     # trailing cache dict): the forward pass reads the image the previous
     # backward pass computed, since the forward pass writes only fwd slots
     # and bx (the bwd slot of the factor's out edge) cannot change in
     # between. This saves one thin (Nx, k) matvec per linear factor per
     # sweep; the math lives in LinearChannel.spectral_*_posterior, the same
-    # code as the uncached path.
+    # code as the uncached path. A factor whose bx slot is pinned carries
+    # nothing: its image is a constant of the run, so the state's layout
+    # (and a checkpoint's ``spec_*`` keys) is the JAX package's.
     def _init_spectral_factors(self):
-        return [i for i, node in enumerate(self.nodes)
-                if type(node) is LinearChannel]
+        if not config.spectral_carry():
+            return ()
+        return [i for i in self._dense_linear()
+                if self._bx_slot(i) not in self.pinned]
 
     # -- factor ops -------------------------------------------------------
     # A factor reads the messages on its in edges (forward slots) and out
@@ -58,9 +109,11 @@ class ExpectationPropagation(MessagePassing):
             a_new, b_new = node.compute_forward_message(ax, bx)
         else:
             az, bz = _unwrap(prev_msgs, node.n_prev)
-            if i in self._spectral:
-                # the carried u = U^T bx: no fresh U^T matvec
-                u = state[self.n_slots][str(i)]
+            if i in self._spectral or i in self._pinned_linear:
+                # the carried u = U^T bx, or the run's image of a pinned
+                # bx: no fresh U^T matvec
+                u = (state[self.n_slots][str(i)] if i in self._spectral
+                     else self._pinned_image(i, node, state, aux))
                 rx, vx = node.spectral_forward_posterior(az, bz, ax, u)
                 a_new, b_new = compute_ab_new(rx, vx, ax, bx)
             else:
@@ -85,7 +138,12 @@ class ExpectationPropagation(MessagePassing):
                 a_new, b_new = compute_ab_new(rz, vz, az, bz)
                 return {slot(in_edges[0], BWD): {"a": a_new, "b": b_new},
                         ("spec", str(i)): u}
-            a_new, b_new = node.compute_backward_message(az, bz, ax, bx)
+            if i in self._pinned_linear:
+                rz, vz, _ = node.spectral_backward_posterior(
+                    az, bz, ax, bx, self._pinned_image(i, node, state, aux))
+                a_new, b_new = compute_ab_new(rz, vz, az, bz)
+            else:
+                a_new, b_new = node.compute_backward_message(az, bz, ax, bx)
         if node.n_prev == 1:
             return {slot(in_edges[0], BWD): {"a": a_new, "b": b_new}}
         return {slot(e, BWD): {"a": a, "b": b}

@@ -24,6 +24,14 @@ tramp_tpu/algos/message_passing.py.
   number of sweeps on the device; ``save_state`` / ``load_state`` persist
   the state in the JAX package's ``.npz`` layout, so a checkpoint of either
   package resumes in the other.
+- ``config.STATE_BF16``: float32 ``b`` messages are stored as bfloat16
+  (``_store_msg``, after damping) and upcast at every read (``_load_msg``),
+  so all arithmetic stays float32 (tramp_tpu/algos/message_passing.py:278-300).
+- ``config.PIN_CONSTANT_MESSAGES``: the slots of factors whose message is a
+  model constant, and the variable cavities that sum only such slots, are
+  pinned (``pinned``): written with their constant at the top of every
+  sweep, never damped (tramp_tpu/algos/message_passing.py:81-160). Their
+  values are computed once per run (``_pinned_slots``).
 
 Slot layout: model edge e gets slots 2e (direction "fwd") and 2e+1 ("bwd").
 
@@ -37,6 +45,7 @@ shape ``(B,)``. ``iterate`` solves one instance; the batched loop is
 import numpy as np
 import torch
 
+from .. import config
 from ..base import Variable, Factor
 from ..lanes import lane_count, per_lane
 from ..models import Model
@@ -94,6 +103,20 @@ class MessagePassing:
         ]
         self.variable_indices = [
             i for i, n in enumerate(self.nodes) if isinstance(n, Variable)]
+        # pinned (constant) slots: slot -> factor node index, and slot ->
+        # the pinned factor slots its cavity sums
+        self.pinned_factor = {}
+        self.pinned_variable = {}
+        if config.pin_constant_messages():
+            self._init_pinned_slots()
+        self.pinned = (frozenset(self.pinned_factor)
+                       | frozenset(self.pinned_variable))
+        # the node updates of a sweep whose every message is pinned, (node
+        # index, direction): skipped, since their result would be dropped
+        self._pinned_updates = frozenset(
+            (i, d) for i in range(len(self.nodes)) for d in (FWD, BWD)
+            if self._emitted(i, d)
+            and all(s in self.pinned for s in self._emitted(i, d)))
         # factor node indices whose spectral image is carried in the state
         self.spectral_factors = tuple(self._init_spectral_factors())
         self._spectral = frozenset(self.spectral_factors)
@@ -102,9 +125,96 @@ class MessagePassing:
         "Engine hook: factor indices that carry a spectral image. Default: none."
         return ()
 
+    # -- pinned (constant) slots ------------------------------------------
+    def _init_pinned_slots(self):
+        """The slots of the factors whose emitted message is a model
+        constant (``_constant_factor_message``), and the variable cavities
+        whose contributors are all such slots."""
+        for i, node in enumerate(self.nodes):
+            if isinstance(node, Variable):
+                continue
+            if node.n_next == 0 and self._constant_factor_message(node):
+                for e in self.model.in_edges[i]:
+                    self.pinned_factor[slot(e, BWD)] = i
+            if node.n_prev == 0 and self._constant_factor_message(node):
+                for e in self.model.out_edges[i]:
+                    self.pinned_factor[slot(e, FWD)] = i
+        for i, node in enumerate(self.nodes):
+            if not isinstance(node, Variable):
+                continue
+            in_slots = self._in_slots(i)
+            targets = ([(slot(e, BWD), slot(e, FWD))
+                        for e in self.model.out_edges[i]]
+                       + [(slot(e, FWD), slot(e, BWD))
+                          for e in self.model.in_edges[i]])
+            for excluded, out_slot in targets:
+                contrib = [s for s in in_slots if s != excluded]
+                if contrib and all(s in self.pinned_factor
+                                   for s in contrib):
+                    self.pinned_variable[out_slot] = tuple(contrib)
+
+    def _constant_factor_message(self, node):
+        "Engine hook: True when ``node``'s emitted message is model-constant."
+        return False
+
+    def _emitted(self, i, direction):
+        "The slots node i writes in the pass of ``direction``."
+        if direction == FWD:
+            return [slot(e, FWD) for e in self.model.out_edges[i]]
+        return [slot(e, BWD) for e in self.model.in_edges[i]]
+
+    def _pinned_values(self, model):
+        """{slot: message} for every pinned slot, computed from ``model``:
+        the factors' constants, then the variable cavities that sum them."""
+        out = {}
+        for s, i in self.pinned_factor.items():
+            out[s] = self._factor_constant_message(model, i)
+        for s, contrib in self.pinned_variable.items():
+            out[s] = {key: sum(out[c][key] for c in contrib)
+                      for key in self.message_keys}
+        return out
+
+    def _pinned_slots(self, model, state, aux):
+        """The pinned slots' messages as the state holds them: each value
+        broadcast to its slot's shape and dtype and stored (``_store_msg``).
+        A run computes them once, at its first sweep, and keeps them in its
+        ``aux`` (the dict ``_prepare`` gives)."""
+        if "pinned" not in aux:
+            kept = {}
+            for s, msg in self._pinned_values(model).items():
+                old = self._load_msg(state[s])
+                kept[s] = self._store_msg({
+                    k: torch.broadcast_to(
+                        torch.as_tensor(v, dtype=old[k].dtype,
+                                        device=old[k].device),
+                        old[k].shape).contiguous()
+                    for k, v in msg.items()})
+            aux["pinned"] = kept
+        return aux["pinned"]
+
+    # -- bf16 state storage (config.STATE_BF16) ---------------------------
+    @staticmethod
+    def _store_msg(msg):
+        """``msg`` as the state stores it: with ``config.STATE_BF16`` a
+        float32 ``b`` becomes bfloat16; ``a`` and float64 stay."""
+        if not config.state_bf16():
+            return msg
+        return {k: v.to(torch.bfloat16)
+                if k == "b" and v.dtype == torch.float32 else v
+                for k, v in msg.items()}
+
+    @staticmethod
+    def _load_msg(msg):
+        "A stored message with every bfloat16 array upcast to float32."
+        if not any(v.dtype == torch.bfloat16 for v in msg.values()):
+            return msg
+        return {k: v.float() if v.dtype == torch.bfloat16 else v
+                for k, v in msg.items()}
+
     def _prepare(self, model):
         """Auxiliary data of a run that the sweeps share (the second moments
-        for SE), computed once per run from the model that is swept."""
+        for SE, the pinned messages for EP), computed once per run from the
+        model that is swept."""
         return None
 
     def device_dtype(self):
@@ -150,7 +260,7 @@ class MessagePassing:
         nodes = self.nodes if model is None else model.nodes
         cache = {}
         for i in self.spectral_factors:
-            msg = state[slot(self.model.out_edges[i][0], BWD)]
+            msg = self._load_msg(state[slot(self.model.out_edges[i][0], BWD)])
             cache[str(i)] = nodes[i].spectral_image(msg["b"], msg["a"])
         return tuple(state[:self.n_slots]) + (cache,)
 
@@ -219,22 +329,24 @@ class MessagePassing:
             targets = [(e, slot(e, BWD)) for e in self.model.out_edges[i]]
         else:
             targets = [(e, slot(e, FWD)) for e in self.model.in_edges[i]]
+        loaded = {s: self._load_msg(state[s]) for s in in_slots}
         return {
             slot(e, direction): {
-                key: sum(state[s][key] for s in in_slots if s != excluded)
+                key: sum(loaded[s][key] for s in in_slots if s != excluded)
                 for key in self.message_keys}
             for e, excluded in targets}
 
     def _gather(self, i, state):
         """The messages into factor i: (from its inputs, from its outputs),
         each a list in the model's edge order."""
-        return ([state[slot(e, FWD)] for e in self.model.in_edges[i]],
-                [state[slot(e, BWD)] for e in self.model.out_edges[i]])
+        return ([self._load_msg(state[slot(e, FWD)])
+                 for e in self.model.in_edges[i]],
+                [self._load_msg(state[slot(e, BWD)])
+                 for e in self.model.out_edges[i]])
 
     def _posterior(self, i, state):
-        in_slots = self._in_slots(i)
-        return {key: sum(state[s][key] for s in in_slots)
-                for key in self.message_keys}
+        loaded = [self._load_msg(state[s]) for s in self._in_slots(i)]
+        return {key: sum(m[key] for m in loaded) for key in self.message_keys}
 
     # -- adaptive damping and the local Bethe change --------------------------
     def _msg_target(self, s):
@@ -246,7 +358,8 @@ class MessagePassing:
     def _edge_objective(self, e, state, aux=None):
         "Edge term of the Bethe objective: variable objective of fwd+bwd."
         v_idx = self.edge_variable[e]
-        msgs = [state[slot(e, FWD)], state[slot(e, BWD)]]
+        msgs = [self._load_msg(state[slot(e, FWD)]),
+                self._load_msg(state[slot(e, BWD)])]
         post = {k: sum(m[k] for m in msgs) for k in self.message_keys}
         return self.variable_objective(self.nodes[v_idx], v_idx, post, aux)
 
@@ -267,7 +380,7 @@ class MessagePassing:
         message_passing.py:151-185). The first sweep is undamped."""
         if is_first:
             return new_msg
-        old = state[s]
+        old = self._load_msg(state[s])
         A_old = self._local_objective(state, s, old, aux)
         accepted = old
         # smallest beta first, so that the largest beta with dA >= 0 wins:
@@ -285,7 +398,8 @@ class MessagePassing:
         """Local Bethe objective change of writing new_msg into slot s
         (reference compute_dA, message_passing.py:129-149)."""
         return (self._local_objective(state, s, new_msg, aux)
-                - self._local_objective(state, s, state[s], aux))
+                - self._local_objective(state, s, self._load_msg(state[s]),
+                                        aux))
 
     def _sweep(self, model, state, damp, aux=None, adaptive=False,
                is_first=False, update_dA=False):
@@ -294,7 +408,8 @@ class MessagePassing:
         ``adaptive``: Bethe backtracking on every slot write in place of
         ``damp`` (undamped when ``is_first``). Returns the new state tuple,
         and with ``update_dA`` also ``{slot: local Bethe change}`` (0-d
-        tensors)."""
+        tensors). Pinned slots are written with their constants first and
+        then left alone; every write is stored through ``_store_msg``."""
         state = list(state)
         if self.spectral_factors:
             # local cache copy at index n_slots; spectral factor reads go
@@ -302,6 +417,11 @@ class MessagePassing:
             cache = dict(state[self.n_slots])
             state[self.n_slots] = cache
         dA = {}
+        if self.pinned:
+            if aux is None:
+                aux = self._prepare(model)
+            for s, msg in self._pinned_slots(model, state, aux).items():
+                state[s] = msg
 
         def write(updates):
             for s, msg in updates.items():
@@ -310,36 +430,47 @@ class MessagePassing:
                     # quantity, never damped, no part of the objective
                     cache[s[1]] = msg
                     continue
+                if s in self.pinned:
+                    # set at the top of the sweep, never damped; its local
+                    # Bethe change is 0
+                    if update_dA:
+                        dA[s] = state[s]["a"].new_zeros(())
+                    continue
                 if adaptive:
                     msg = self._adaptive_update(state, s, msg, is_first,
                                                 aux)
                 else:
                     d = damp[s]
                     if d:
-                        old = state[s]
+                        old = self._load_msg(state[s])
                         msg = {k: d * old[k] + (1.0 - d) * msg[k]
                                for k in self.message_keys}
                 if update_dA:
                     dA[s] = self._edge_dA(state, s, msg, aux)
-                state[s] = msg
+                state[s] = self._store_msg(msg)
+
+        def update(i, node, direction):
+            if (i, direction) in self._pinned_updates:
+                # every message it writes is pinned: its local Bethe
+                # change is 0
+                if update_dA:
+                    for s in self._emitted(i, direction):
+                        dA[s] = state[s]["a"].new_zeros(())
+            elif isinstance(node, Variable):
+                write(self._variable_out(i, state, direction))
+            elif direction == FWD:
+                write(self._factor_forward(i, node, state, aux))
+            else:
+                write(self._factor_backward(i, node, state, aux))
 
         # forward pass
         for i, node in enumerate(model.nodes):
-            if node.n_next == 0:
-                continue
-            if isinstance(node, Variable):
-                write(self._variable_out(i, state, FWD))
-            else:
-                write(self._factor_forward(i, node, state, aux))
+            if node.n_next:
+                update(i, node, FWD)
         # backward pass
         for i in reversed(range(len(model.nodes))):
-            node = model.nodes[i]
-            if node.n_prev == 0:
-                continue
-            if isinstance(node, Variable):
-                write(self._variable_out(i, state, BWD))
-            else:
-                write(self._factor_backward(i, node, state, aux))
+            if model.nodes[i].n_prev:
+                update(i, model.nodes[i], BWD)
         if update_dA:
             return tuple(state), dA
         return tuple(state)
@@ -412,7 +543,7 @@ class MessagePassing:
     # -- finite guard -----------------------------------------------------
     def _all_finite(self, state):
         "One flag; with lanes one per lane, shape ``(B,)``."
-        arrays = [msg[k]
+        arrays = [self._load_msg(msg)[k]
                   for msg in state[:self.n_slots] for k in self.message_keys]
         if self.spectral_factors:
             arrays += list(state[self.n_slots].values())
@@ -559,6 +690,13 @@ class MessagePassing:
         "Persist the message state and iteration counter to ``path`` (.npz)."
         if self.state is None:
             raise ValueError("message state was never initialized")
+        if any(v.dtype == torch.bfloat16
+               for msg in self.state[:self.n_slots] for v in msg.values()):
+            # the JAX package writes such a state as raw 2-byte records
+            # that its own load_state cannot read back
+            raise ValueError("save_state: the state holds bfloat16 messages "
+                             "(config.STATE_BF16), which the .npz layout "
+                             "does not round-trip; upcast them first")
         arrays = {"__n_iter__": np.asarray(self.n_iter)}
         for s, msg in enumerate(self.state[:self.n_slots]):
             for key in self.message_keys:
@@ -615,7 +753,7 @@ class MessagePassing:
             fac = (self.nodes[ui] if isinstance(self.nodes[ui], Factor)
                    else self.nodes[vi])
             for direction, dname in ((FWD, "fwd"), (BWD, "bwd")):
-                msg = self.state[slot(e, direction)]
+                msg = self._load_msg(self.state[slot(e, direction)])
                 record = dict(x_id=var.id, f_id=fac.id, direction=dname)
                 for key in keys:
                     if key in msg:
@@ -634,7 +772,8 @@ class MessagePassing:
         A_edges = 0.0
         for e in range(len(self.edges)):
             v_idx = self.edge_variable[e]
-            msgs = [self.state[slot(e, FWD)], self.state[slot(e, BWD)]]
+            msgs = [self._load_msg(self.state[slot(e, FWD)]),
+                    self._load_msg(self.state[slot(e, BWD)])]
             post = {k: sum(m[k] for m in msgs) for k in self.message_keys}
             A_edges = A_edges + self.variable_objective(
                 self.nodes[v_idx], v_idx, post)

@@ -81,6 +81,15 @@ class MarchenkoPasturChannel(AnalyticalLinearChannel):
         from ..ensembles import MarchenkoPasturEnsemble
         return MarchenkoPasturEnsemble(alpha=float(self.alpha))
 
+    def sample(self, generator, Z):
+        """F @ Z with F an (alpha N, N) Gaussian matrix of variance 1 / N
+        (reference l:83-87), drawn with ``generator`` on Z's device."""
+        N = Z.shape[0]
+        M = int(float(self.alpha) * N)
+        F = torch.randn((M, N), generator=generator, device=Z.device,
+                        dtype=Z.dtype) / math.sqrt(N)
+        return F @ Z
+
     def second_moment(self, tau_z):
         # int z dMP(z) = alpha exactly (bulk mean; the atom at 0 contributes
         # nothing), so mean_spectrum / alpha = 1

@@ -3,9 +3,10 @@ Counterpart of tramp_tpu/channels/linear_channel.py.
 
 EP messages are thin matvecs in the SVD basis against U (Nx, k) and
 V (Nz, k), k = min(Nx, Nz); the matvecs are exact in the working dtype
-(``torch.matmul``). Modes beyond k have resolvent 1/az, restored by the
-projector identity V_perp V_perp^T = I - V V^T
-(spectral_backward_posterior).
+(``torch.matmul``), or, with ``config.MATVEC_BF16``, take both operands
+rounded to bfloat16 and accumulate in float32 (``_mm``). Modes beyond k
+have resolvent 1/az, restored by the projector identity
+V_perp V_perp^T = I - V V^T (``_backward_mean``).
 
 A variable may carry a trailing K axis, ``(n, K)``, which the channel
 multiplies as ``W @ Z`` (the JAX package's ``s[:, None]``).
@@ -21,9 +22,62 @@ import math
 import torch
 
 from .base_channel import Channel
+from .. import config
 from ..config import as_tensor
 from ..lanes import last_axis, lane_count, per_lane
 from ..utils.misc import split_product
+
+
+def _bf16(A):
+    """The operator ``A`` rounded to bfloat16, made once and kept on the
+    tensor for as long as it is unchanged (its version counter), so that a
+    loop casts the loop-invariant U, V or W once, not at every product."""
+    if A.is_meta:
+        return A.to(torch.bfloat16)
+    kept = getattr(A, "_bf16_copy", None)
+    if kept is None or kept[0] != A._version:
+        kept = A._bf16_copy = (A._version, A.to(torch.bfloat16))
+    return kept[1]
+
+
+def _mm_f32(a, b):
+    """``a @ b`` of two bfloat16 matrices with float32 accumulation and a
+    float32 result: ``torch.mm(..., out_dtype=torch.float32)`` on the card;
+    elsewhere its plain form, the operands widened to float32 (each product
+    of two bfloat16 numbers is exact in float32)."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+def _bmm_f32(a, b):
+    "``_mm_f32`` for batches of matrices (``torch.bmm``)."
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def _product_bf16(A, x, lanes, transpose):
+    """``A @ x`` (``A.T @ x``) in every layout ``LinearChannel._mm`` takes,
+    ``A`` already bfloat16: float32 products of bfloat16 operands, as the
+    JAX package's ``dot_general(..., preferred_element_type=float32)``."""
+    x = x.to(torch.bfloat16)
+    if A.ndim == 3:
+        M = A.transpose(1, 2) if transpose else A
+        if x.ndim == 3:
+            return _bmm_f32(M, x)
+        return _bmm_f32(M, x.unsqueeze(2)).squeeze(2)
+    M = A.T if transpose else A
+    if not lanes:
+        if x.ndim == 1:
+            return _mm_f32(M, x.unsqueeze(1)).squeeze(1)
+        return _mm_f32(M, x)
+    if x.ndim == 2:
+        return _mm_f32(x, M.T)
+    # (B, n, K): one product of M with the lanes' K columns side by side
+    B, n, K = x.shape
+    out = _mm_f32(M, x.transpose(0, 1).reshape(n, B * K))
+    return out.reshape(-1, B, K).transpose(0, 1)
 
 
 def _per_lane(x, a):
@@ -82,7 +136,7 @@ class LinearChannel(Channel):
         return (self.Nx,) + tuple(shape[1:])
 
     def sample(self, generator, Z):
-        return self._mm(self.W, Z, lanes=False)
+        return self._mm(self.W, Z, lanes=False, bf16=False)
 
     def second_moment(self, tau_z):
         return tau_z * last_axis(self.spectrum, torch.sum) / self.Nx
@@ -95,7 +149,7 @@ class LinearChannel(Channel):
         return torch.where(ax == 0, 0.0, n_eff)
 
     @staticmethod
-    def _mm(A, x, *, lanes, transpose=False):
+    def _mm(A, x, *, lanes, transpose=False, bf16=None):
         """``A @ x`` (or ``A.T @ x``) for the operator and its SVD-basis
         factors, for every lane of ``x``: ``x`` is ``(n,)`` or ``(n, K)``,
         with ``lanes`` ``(B, n)`` or ``(B, n, K)``; ``A`` one matrix or one
@@ -103,20 +157,31 @@ class LinearChannel(Channel):
         precision (``lane_count``) or from its loop's lane count. Every
         product with a dense real operator goes through here, so an ``A``
         split over the model axis (``utils.misc.model_shard``) gives the
-        whole product on every rank."""
-        def product(A, x):
-            if not lanes:
-                return (A.T if transpose else A) @ x
-            if A.ndim == 3:
-                if x.ndim == 3:
-                    return torch.bmm(A.transpose(1, 2) if transpose else A,
-                                     x)
-                if transpose:
-                    return torch.bmm(x.unsqueeze(1), A).squeeze(1)
-                return torch.bmm(A, x.unsqueeze(2)).squeeze(2)
-            if x.ndim == 2:
-                return x @ (A if transpose else A.T)
-            return torch.matmul(A.T if transpose else A, x)
+        whole product on every rank.
+
+        With ``config.MATVEC_BF16`` (``bf16=None`` reads it; the log-partition
+        and ``sample`` pass False, as the JAX package's plain products there)
+        both operands are rounded to bfloat16 and the product accumulates in
+        float32: the result is float32 whatever the dtype of ``A`` and ``x``
+        (tramp_tpu/channels/linear_channel.py:67-84). ``A``'s bfloat16 copy
+        is made once per operator."""
+        if config.matvec_bf16() if bf16 is None else bf16:
+            def product(A, x):
+                return _product_bf16(_bf16(A), x, lanes, transpose)
+        else:
+            def product(A, x):
+                if not lanes:
+                    return (A.T if transpose else A) @ x
+                if A.ndim == 3:
+                    if x.ndim == 3:
+                        return torch.bmm(
+                            A.transpose(1, 2) if transpose else A, x)
+                    if transpose:
+                        return torch.bmm(x.unsqueeze(1), A).squeeze(1)
+                    return torch.bmm(A, x.unsqueeze(2)).squeeze(2)
+                if x.ndim == 2:
+                    return x @ (A if transpose else A.T)
+                return torch.matmul(A.T if transpose else A, x)
 
         return split_product(A, x, 1 if lanes else 0, transpose, product)
 
@@ -144,26 +209,39 @@ class LinearChannel(Channel):
         res = 1.0 / (az + ax * s**2)
         return res * (t + s * u), t, s, lanes
 
-    # The posteriors take u = U^T bx as an argument: the EP engine passes
-    # the image it carried from the previous backward pass, so the cached
-    # and uncached paths run the same code.
-    def spectral_forward_posterior(self, az, bz, ax, u):
-        "(rx, vx): rx = W rz = U (s * m), only the k signal modes contribute."
+    def _forward_mean(self, az, bz, ax, u):
+        "rx = W rz = U (s * m): only the k signal modes contribute."
         m, _, s, lanes = self._mean_svd(az, bz, ax, u)
-        rx = self._mm(self.U, s * m, lanes=lanes)
-        return rx, self.compute_forward_variance(az, ax)
+        return self._mm(self.U, s * m, lanes=lanes)
 
-    def spectral_backward_posterior(self, az, bz, ax, bx):
-        "(rz, vz, u): the fresh u = U^T bx becomes the carried image."
-        u = self.spectral_image(bx, ax)
+    def _backward_mean(self, az, bz, ax, u):
+        "rz = V m, with the complement modes (s = 0) at resolvent 1/az."
         m, t, _, lanes = self._mean_svd(az, bz, ax, u)
         if self.k == self.Nz:
-            rz = self._mm(self.V, m, lanes=lanes)
-        else:
-            # complement modes (s=0) have resolvent 1/az:
-            #   V_perp V_perp^T bz / az = (bz - V_k V_k^T bz) / az
-            rz = bz / az + self._mm(self.V, m - t / az, lanes=lanes)
-        return rz, self.compute_backward_variance(az, ax), u
+            return self._mm(self.V, m, lanes=lanes)
+        # V_perp V_perp^T bz / az = (bz - V_k V_k^T bz) / az
+        return bz / az + self._mm(self.V, m - t / az, lanes=lanes)
+
+    def compute_forward_mean(self, az, bz, ax, bx):
+        return self._forward_mean(az, bz, ax, self.spectral_image(bx, ax))
+
+    def compute_backward_mean(self, az, bz, ax, bx):
+        return self._backward_mean(az, bz, ax, self.spectral_image(bx, ax))
+
+    # The posteriors take u = U^T bx as an argument: the EP engine passes
+    # the image it carried from the previous backward pass (or, for a
+    # pinned bx, the image of the run), so all paths run the same code.
+    def spectral_forward_posterior(self, az, bz, ax, u):
+        "(rx, vx) from the image u = U^T bx."
+        return (self._forward_mean(az, bz, ax, u),
+                self.compute_forward_variance(az, ax))
+
+    def spectral_backward_posterior(self, az, bz, ax, bx, u=None):
+        """(rz, vz, u): the fresh u = U^T bx (or the given image) becomes
+        the carried image."""
+        u = self.spectral_image(bx, ax) if u is None else u
+        return (self._backward_mean(az, bz, ax, u),
+                self.compute_backward_variance(az, ax), u)
 
     def compute_backward_variance(self, az, ax):
         az = torch.clamp(az, min=1e-11)
@@ -194,7 +272,8 @@ class LinearChannel(Channel):
     def compute_log_partition(self, az, bz, ax, bx):
         rz = self.compute_backward_posterior(az, bz, ax, bx)[0]
         lanes = lane_count(az, bz) is not None
-        b = bz + self._mm(self.W, bx, transpose=True, lanes=lanes)
+        b = bz + self._mm(self.W, bx, transpose=True, lanes=lanes,
+                          bf16=False)
         # the log term sums over the Nz modes only, also with a trailing
         # K axis, as the JAX package's does
         if lanes:

@@ -57,6 +57,26 @@ class PiecewiseLinearChannel(Channel):
         return sum(region.proba_tau(tau_z) * region.second_moment(tau_z)
                    for region in self.regions)
 
+    @staticmethod
+    def _merge_elementwise(rs, vs, As):
+        """Softmax-weighted mixture of the regions' moments (lists, one
+        tensor per region), no isotropic mean."""
+        As, rs, vs = (torch.stack(list(t), 0) for t in (As, rs, vs))
+        ps = torch.softmax(As, dim=0)
+        r = torch.sum(ps * rs, 0)
+        # cross-region variance sum_{i<j} p_i p_j (r_i - r_j)^2
+        #   = E[r^2] - E[r]^2 over the region weights
+        v = torch.sum(ps * vs, 0) + torch.sum(ps * rs**2, 0) - r**2
+        return r, v
+
+    def merge_estimates(self, rs, vs, As):
+        """Merged posterior with isotropic variance (reference l:27-37):
+        the regions' means ``rs``, variances ``vs`` and log-partitions
+        ``As``, one tensor per region. The sweeps merge inside the kernels
+        (``ops.pl_fused``)."""
+        r, v = self._merge_elementwise(rs, vs, As)
+        return r, torch.mean(v)
+
     # elementwise SE integrands (see Channel.scalar_* in base_channel.py):
     # outputs of the five-output posterior, no isotropic mean
     def scalar_forward_variance(self, az, bz, ax, bx):

@@ -1,9 +1,30 @@
-"""Constants and the device/dtype policy of tramp_tpu_torch.
+"""Constants, the device/dtype policy and the switches of tramp_tpu_torch.
+Counterpart of tramp_tpu/config.py.
 
-Counterpart of tramp_tpu/config.py:10-16. The TPU switches of the JAX
-package (bf16 matvecs and state, pinned messages, the Pallas gate, the FFT
-mode) have no counterpart here; the spectral-image carry is the engine's
-only behaviour.
+Four switches follow the JAX package's names and resolution rules; each is
+None (automatic), True or False, and is read through its resolver:
+
+- ``MATVEC_BF16`` (``matvec_bf16()``): the dense products of
+  ``LinearChannel._mm`` round both operands to bfloat16 and accumulate in
+  float32, giving a float32 result whatever the input dtype. None resolves
+  to False here (the JAX package turns it on by itself only on a TPU). Read
+  at every product.
+- ``STATE_BF16`` (``state_bf16()``): the engine stores float32 ``b``
+  messages as bfloat16 and upcasts them at every read, so all arithmetic
+  stays float32 and only the stored state is rounded. None resolves to
+  False. Read at every store, so ``parallel``'s gated solves set it around
+  each of their two phases.
+- ``PIN_CONSTANT_MESSAGES`` (``pin_constant_messages()``): the messages of
+  factors that are model constants (a Gaussian likelihood's, a Gaussian
+  prior's) and the variable cavities that only sum them are written once per
+  run instead of being swept and damped. None resolves to False. Read when
+  an engine is built.
+- ``SPECTRAL_CARRY`` (``spectral_carry()``): the EP engine carries each dense
+  ``LinearChannel``'s image U^T bx across sweeps. None resolves to True.
+  Read when an engine is built.
+
+The JAX package's Pallas gate and FFT mode have no counterpart: the port
+launches its kernels on the card without a gate and uses ``torch.fft``.
 """
 import numpy as np
 import torch
@@ -18,6 +39,52 @@ VMIN = 1e-20
 
 #: Default floating dtype of tensors the port creates.
 DEFAULT_DTYPE = torch.float32
+
+#: Default number of Gauss-Hermite nodes (utils/integration.py's measures).
+GH_NODES = 127
+
+#: Default number of Gauss-Legendre nodes for truncated-interval measures.
+GL_NODES = 65
+
+#: bfloat16 operands with float32 accumulation in ``LinearChannel._mm``.
+MATVEC_BF16 = None
+
+
+def matvec_bf16():
+    "Resolve MATVEC_BF16 (None: False)."
+    return bool(MATVEC_BF16)
+
+
+#: bfloat16 storage of the engine's float32 ``b`` messages.
+STATE_BF16 = None
+
+
+def state_bf16():
+    "Resolve STATE_BF16 (None: False)."
+    return bool(STATE_BF16)
+
+
+#: Pinned model-constant messages in the EP engine.
+PIN_CONSTANT_MESSAGES = None
+
+
+def pin_constant_messages():
+    "Resolve PIN_CONSTANT_MESSAGES (None: False)."
+    return bool(PIN_CONSTANT_MESSAGES)
+
+
+#: The EP engine's spectral-image carry.
+SPECTRAL_CARRY = None
+
+
+def spectral_carry():
+    "Resolve SPECTRAL_CARRY (None: True)."
+    return True if SPECTRAL_CARRY is None else bool(SPECTRAL_CARRY)
+
+
+def default_dtype():
+    "The floating dtype of tensors the port creates unless told otherwise."
+    return DEFAULT_DTYPE
 
 
 def default_device():

@@ -12,6 +12,13 @@ class Likelihood(Factor):
     n_prev = 1
     isotropic = True
 
+    def get_size(self, y):
+        "The size of an observation: its length, or its shape if not 1-D."
+        if y is None:
+            return None
+        shape = tuple(y.shape) if hasattr(y, "shape") else ()
+        return shape[0] if len(shape) == 1 else shape
+
     def prior_log_partition_FG(self, tz_hat):
         return 0.5 * torch.log(2 * math.pi / tz_hat)
 

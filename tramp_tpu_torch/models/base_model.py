@@ -13,6 +13,13 @@ from ..config import default_device, DEFAULT_DTYPE
 from .dag_algebra import ModelDAG
 
 
+def to_list(X):
+    "``X`` as a list: a tuple's items, anything else alone."
+    if not isinstance(X, tuple):
+        X = (X,)
+    return list(X)
+
+
 class Model:
     def __init__(self, model_dag):
         if not isinstance(model_dag, ModelDAG):

@@ -46,6 +46,15 @@ class DiGraph:
     def out_degree(self, n):
         return len(self._succ[n])
 
+    def copy(self):
+        "A new graph with the same nodes and edges, in the same order."
+        g = DiGraph()
+        for n in self._succ:
+            g.add_node(n)
+        for u, v in self.edges:
+            g.add_edge(u, v)
+        return g
+
     def topological_sort(self):
         indeg = {n: len(self._pred[n]) for n in self._succ}
         ready = [n for n in self._succ if indeg[n] == 0]

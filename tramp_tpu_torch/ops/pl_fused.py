@@ -18,7 +18,10 @@ On CUDA tensors a wrapper launches its hand-written Hopper kernel or raises;
 on CPU tensors it runs its plain twin (``*_plain``), which is also the
 kernel's oracle; on meta tensors it returns empty outputs of the right
 shapes (the engine's shape sweep). Each wrapper counts the kernels it
-launches in a plain integer, ``<wrapper>.launches``.
+launches in a plain integer, ``<wrapper>.launches``. A bfloat16 input
+raises on every device: the engine's bfloat16 message state
+(``config.STATE_BF16``) is upcast before any factor reads it, and a
+wrapper never converts one.
 
 Lanes (tramp_tpu_torch/lanes.py). ``bz`` and ``bx`` may carry a first lane
 axis, ``(B, n)``, with a precision per lane, ``(B, 1)``: the JAX kernel gets
@@ -300,6 +303,14 @@ def _checked(what, az, bz, ax, bx, specs):
     return _precision(az, bz, "az"), _precision(ax, bz, "ax")
 
 
+def _refuse_bf16(what, *arrays):
+    "Raise where an input is bfloat16 (see the module docstring)."
+    if any(isinstance(a, torch.Tensor) and a.dtype == torch.bfloat16
+           for a in arrays):
+        raise ValueError(f"{what}: a bfloat16 input; the kernels and their "
+                         "plain versions take float32 or float64")
+
+
 def _lanes(az, bz, ax):
     "Lanes of a call: B when either precision is per lane of bz, else None."
     counts = [lane_count(a, bz) for a in (az, ax)]
@@ -336,6 +347,7 @@ def pl_posterior(az, bz, ax, bx, specs):
     one value per lane of ``bz`` (``(B, 1)`` with ``bz`` of ``(B, n)``), or
     arrays of ``bz``'s shape; ``bx`` has ``bz``'s shape. The five outputs are
     views of one allocation."""
+    _refuse_bf16("pl_posterior", az, bz, ax, bx)
     if bz.device.type == "cpu":
         return pl_posterior_plain(az, bz, ax, bx, specs)
     if bz.device.type == "meta":
@@ -376,6 +388,7 @@ def _a_new_shape(own, bz, lanes):
 
 
 def _message(wrapper, plain, side, az, bz, ax, bx, specs):
+    _refuse_bf16(wrapper.__name__, az, bz, ax, bx)
     if bz.device.type == "cpu":
         return plain(az, bz, ax, bx, specs)
     if bz.device.type == "meta":
@@ -443,6 +456,10 @@ def pl_backward_message(az, bz, ax, bx, specs):
 
 pl_forward_message.launches = 0
 pl_backward_message.launches = 0
+
+#: the JAX package's names for the five-output entry point and its twin
+fused_pl_posterior = pl_posterior
+pl_posterior_reference = pl_posterior_plain
 
 
 def launch_floor():

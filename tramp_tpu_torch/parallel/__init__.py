@@ -10,13 +10,13 @@ from ..lanes import stack_models, with_buffers
 from .checkpoint import save_checkpoint, restore_checkpoint
 from .mesh import make_mesh, shard_batched_model, shard_batched_state
 from .ml_vamp import MLVAMPSolver, dispatch_solver
-from .solver import EPSolver, SESolver, solve_batch_shard_map
+from .solver import (
+    EPSolver, SESolver, solve_batch_shard_map, stack_pytrees,
+)
 from .vamp_glm import SpectralVAMPSolver
 from .grid import (
     grid_combos, run_se_phase_grid, save_grid_csv, se_phase_grid_records,
 )
-
-stack_pytrees = stack_models
 
 __all__ = ["EPSolver", "SESolver", "SpectralVAMPSolver", "MLVAMPSolver",
            "dispatch_solver", "stack_models", "stack_pytrees",

@@ -23,14 +23,25 @@ axis alone, each lane has the bits of the unsharded solve (ranks whose
 products sum in the same order; done lanes are frozen); the model axis
 changes the order of summation of each product. ``solve_batch_shard_map``
 lets each rank stop when its own lanes are done.
+
+The convergence-gated throughput mode (``solve_gated_bf16``,
+``solve_batch_gated_bf16``) runs the loop twice: with the message state
+stored in bfloat16 (``config.STATE_BF16``) to a coarse tol, then from that
+state, upcast, in float32 to the solver's own tol.
 """
 import torch
 
+from .. import config
 from ..algos import ExpectationPropagation, StateEvolution
 from ..lanes import (
-    lane_precision, lane_values, model_lanes, select, to_lanes,
+    lane_precision, lane_values, model_lanes, select, stack_models, to_lanes,
 )
-from .mesh import all_done, shard_batched_model, stop_groups, whole_batch
+from .mesh import (
+    all_done, map_tree, shard_batched_model, stop_groups, whole_batch,
+)
+
+#: the JAX package's name for ``lanes.stack_models``
+stack_pytrees = stack_models
 
 
 class _Solver:
@@ -88,11 +99,13 @@ class _Solver:
                        for k, v in state[eng.n_slots].items()},)
         return slots
 
-    def _run(self, model, state, stop=None):
+    def _run(self, model, state, stop=None, tol=None):
         """The loop from ``state``; ``stop``: the process groups its stop
-        flag is reduced over (None: those of the model's mesh, if any).
-        Returns (post, state, n_iter, conv)."""
+        flag is reduced over (None: those of the model's mesh, if any);
+        ``tol``: None for the solver's own. Returns (post, state, n_iter,
+        conv)."""
         eng, kind = self.engine, self.stop_kind
+        tol = self.tol if tol is None else tol
         groups = stop_groups(model) if stop is None else stop
         B = eng._lanes(state)
         aux = eng._prepare(model)
@@ -119,7 +132,7 @@ class _Solver:
             swept = keep(ok, swept, state)
             new_m = eng._metric(swept, kind)
             delta, inc = eng._delta_increase(kind, new_m, old_m, lanes=B)
-            converged = (delta < self.tol) if i > 0 \
+            converged = (delta < tol) if i > 0 \
                 else torch.zeros_like(done)
             # divergence rollback (reference EarlyStopping semantics)
             rb = (inc > self.rollback_increase) if i > self.wait_increase \
@@ -179,9 +192,9 @@ class _Solver:
         return whole_batch((post, state, n_iter), stacked_model)
 
     def _solve_batch(self, stacked_model, initializer=None, state=None,
-                     stop=None):
+                     stop=None, tol=None):
         """The batched loop on this rank's lanes: (post, state, n_iter,
-        conv), not gathered; ``stop`` as in ``_run``."""
+        conv), not gathered; ``stop`` and ``tol`` as in ``_run``."""
         B = model_lanes(stacked_model, self.engine.model)
         if B is None:
             raise ValueError("solve_batch: no buffer of the model has lanes")
@@ -200,7 +213,69 @@ class _Solver:
             state = self._with_lanes(self.init_state(initializer), B)
         if where is not None:
             state = where.local(state)
-        return self._run(stacked_model, state, stop)
+        return self._run(stacked_model, state, stop, tol)
+
+    # -- convergence-gated throughput mode (bf16 state, then float32) -------
+    # (tramp_tpu/parallel/solver.py:183-318). bfloat16 storage floors the
+    # relative-r stop metric at bfloat16's resolution, so a tight tol never
+    # fires on the bf16 trajectory: phase 1 stops at a coarse tol above that
+    # floor, phase 2 upcasts the state once and polishes to ``self.tol``.
+    #: phase 1's tol for stop kind "r" (the JAX package's value)
+    BF16_COARSE_TOL = 5e-3
+    #: phase 1's tol for stop kind "v", whose mean over a variable cancels
+    #: much of the elementwise rounding (the JAX package's value)
+    BF16_COARSE_TOL_V = 1e-5
+
+    def _coarse_default(self):
+        return (self.BF16_COARSE_TOL_V if self.stop_kind == "v"
+                else self.BF16_COARSE_TOL)
+
+    @staticmethod
+    def _upcast_state(state):
+        "``state`` with every bfloat16 array made float32."
+        return map_tree(
+            lambda x: x.float() if x.dtype == torch.bfloat16 else x, state)
+
+    @staticmethod
+    def _stored_as(bf16, run):
+        """``run()`` with ``config.STATE_BF16`` set to ``bf16``, and set back
+        after, whatever the caller had: the engine reads it at every store."""
+        prev = config.STATE_BF16
+        config.STATE_BF16 = bf16
+        try:
+            return run()
+        finally:
+            config.STATE_BF16 = prev
+
+    def solve_gated_bf16(self, model, initializer=None, coarse_tol=None):
+        """One instance in two phases: sweeps with the state stored in
+        bfloat16 until the stop metric falls below ``coarse_tol`` (None:
+        ``BF16_COARSE_TOL``, or ``BF16_COARSE_TOL_V`` for stop kind "v"),
+        then float32 sweeps from that state, upcast, to ``self.tol``; the
+        second phase stores float32 also where ``config.STATE_BF16`` is on.
+        Returns (post, n_iter_total, conv, {"n_iter_bf16", "n_iter_f32",
+        "coarse_fired"}); ``conv`` is the second phase's."""
+        coarse = self._coarse_default() if coarse_tol is None else coarse_tol
+        _, state1, n1, conv1 = self._stored_as(True, lambda: self._run(
+            model, self.init_state(initializer), tol=coarse))
+        post, _, n2, conv2 = self._stored_as(False, lambda: self._run(
+            model, self._upcast_state(state1)))
+        return (post, int(n1) + int(n2), conv2,
+                dict(n_iter_bf16=int(n1), n_iter_f32=int(n2),
+                     coarse_fired=bool(conv1)))
+
+    def solve_batch_gated_bf16(self, stacked_model, initializer=None,
+                               coarse_tol=None):
+        """``solve_gated_bf16`` for a batch (a model whose buffers carry
+        lanes, as ``solve_batch`` takes it; sharded too, and then every rank
+        returns the whole batch). Returns (post, n_iter_total, conv), per
+        lane; ``conv`` is the float32 phase's."""
+        coarse = self._coarse_default() if coarse_tol is None else coarse_tol
+        _, state1, n1, _ = self._stored_as(True, lambda: self._solve_batch(
+            stacked_model, initializer, tol=coarse))
+        post, _, n2, conv = self._stored_as(False, lambda: self._solve_batch(
+            stacked_model, state=self._upcast_state(state1)))
+        return whole_batch((post, n1 + n2, conv), stacked_model)
 
 
 def solve_batch_shard_map(solver, stacked_model, mesh, data_axis="data",

@@ -34,9 +34,9 @@ from .special import norm_cdf
 #: integration range in standard deviations, matching the reference's
 #: quad(integrand, -10, 10) (tramp/utils/integration.py:27).
 QUAD_RANGE = 10.0
-#: default node counts (tramp_tpu/config.py)
-GH_NODES = 127
-GL_NODES = 65
+#: default node counts, defined in config as in the JAX package
+GH_NODES = config.GH_NODES
+GL_NODES = config.GL_NODES
 
 _INF = float("inf")
 
