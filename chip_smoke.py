@@ -327,6 +327,42 @@ line is printed):
       of the unpinned solve in float64 (both to tol 1e-10), and float32
       sweeps pinned against unpinned.
 
+17. (run before the summary) the gallery, tramp_tpu_torch/examples, through
+    the scripts' ``main()`` on the card (outputs under build/phase17/),
+    each path's launches counted from 0:
+   a. compressed_sensing and perceptron at their default sizes: every v_SE
+      against the JAX package's committed CSVs (examples/glm/output/, rtol
+      1e-8), the EP columns finite and printed; phase_diagram_sweep's 96
+      points on a one-rank nccl mesh against the committed
+      phase_diagram.csv; matrix_factorization's mse_x_se against its
+      committed CSV, and the committed and the card's mse_x_emp within 3.3
+      sd of 12 solves of the same instances with the input perturbed by
+      1e-13 (the solve is chaotic);
+   b. critical_alpha_door: both critical alphas within alpha_tol = 1e-3 of
+      0.46214599609375 and 2.24278564453125, and the batched line over
+      p_pos;
+   c. the JMLR protocols at full width (N = 2000, 25 seeds as the lanes of
+      one EPSolver.solve_batch per alpha; JMLR_EP_POINTS names the alphas):
+      each point's mean within 3.3 sd / sqrt(25) + 0.05 v_SE + 1e-6 of
+      v_SE (the seeds' standard error and the golden test's finite-N
+      allowance), except at sparse phase retrieval's alpha 0.81 and 1.2,
+      where SE lies below the symmetric point and EP, as in the JAX
+      protocol, stops near it: there at least 4 lanes in 5 hold mse >
+      mean(x**2) / 2 and three converged lanes are held against the CPU; the time of the 25 students (their
+      SVDs) beside the solve's; the SE and BO curves at the --big point
+      counts (readings), and at the default grid against the CPU (rtol
+      1e-8);
+   d. phase_diagram_sweep --big, 1000 points, its points/s;
+   e. fast_paths: the dispatched classes, one launch of each message kernel
+      per MLVAMPSolver iteration on the relu net, both message kernels
+      against their plain twins at its last iteration's inputs (rtol 1e-4,
+      float32), the gated solve converged with v_rel_err_vs_f32 < 1e-3;
+   f. the EP golden rows of tests/test_ep_golden.py (copied in
+      examples/glm/golden_rows.py): 8 seeds of N = 1000 per row as one
+      batched solve, v_EP and the mse within 3.3 sd of the CSV rows and
+      v_EP of v_SE;
+   g. every other script at its default size, its task-level numbers.
+
 The messages at a path's final state (11d-f) are held element by element
 within rtol (|a| + |a + a_new|) and rtol (|b| + |b + b_new|), the two terms
 each subtraction takes; their largest absolute errors go to the kernels
@@ -2157,16 +2193,17 @@ VAE_SOLVE = dict(damping=0.5, max_iter=300, tol=1e-6,
 VAE_NOISE = 0.01
 
 
-def on_card(torch, model):
-    """A copy of a model built on the CPU, on the card: the same arrays
-    (operators, their SVD factors, observations), moved, so that a solve
-    on the card and one on the CPU start from the same instance."""
+def on_card(torch, model, device="cuda"):
+    """A copy of a model built on the CPU, on the card (or of one on the
+    card, on ``device="cpu"``): the same arrays (operators, their SVD
+    factors, observations), moved, so that a solve on the card and one on
+    the CPU start from the same instance."""
     import copy
     model = copy.deepcopy(model)
     for f in model.factors:
-        f.to("cuda")
+        f.to(device)
         if getattr(f, "device", None) is not None:
-            f.device = torch.device("cuda")
+            f.device = torch.device(device)
     return model
 
 
@@ -5081,6 +5118,516 @@ def phase_16(torch, tt, pl, students, flagship, card):
     return paths
 
 
+# -- phase 17: the gallery -------------------------------------------------
+GALLERY_SE_RTOL = 1e-8   # card against the JAX package's committed outputs
+# the JMLR points' atol: in the deep-recovery branch SE stops (tol 1e-6,
+# max_iter 200) with v still falling geometrically toward the noise floor,
+# up to 3.5e-7 where EP's mse is 1e-10; both are perfect recovery on the
+# signal's scale (variance 0.5 and 0.6). tests/test_ep_golden.py:98-103
+# takes 1e-7 for a row whose v_SE is 5.6e-8.
+GALLERY_EP_ATOL = 1e-6
+# the JMLR points' finite-N allowance, relative to v_SE: the golden test's
+# v_EP-vs-SE allowance at N = 1000 (tests/test_ep_golden.py:114-115)
+GALLERY_EP_FINITE_N = 0.05
+# matrix_factorization's mse_x_emp: the VAMP solve amplifies rounding about
+# 1e9 (ROADMAP Queue 3), so the committed value is held in the band of an
+# ensemble of the same instances with the input perturbed by 1e-13 relative
+MF_CHAOS = dict(solves=12, eps=1e-13)
+# the EP alphas of the two JMLR protocols run at full width: indices into
+# their --big grids (sparse_regression: linspace(0.03, 0.99, 33);
+# sparse_phase_retrieval: linspace(0.03, 1.2, 40))
+JMLR_EP_POINTS = {"sparse_regression": (0, 8, 16, 24, 32),
+                  "sparse_phase_retrieval": (0, 13, 26, 39)}
+#: the JMLR points held outside the SE band: sparse phase retrieval at
+#: alpha 0.81 and 1.2 (indices 26, 39), where SE from a0 = 0.1 lies below
+#: the symmetric point (at 1.2 it recovers) but the JAX script's EP
+#: protocol stops near the symmetric fixed point on every seed at N = 1000
+#: (tests/test_torch_examples_spr.py, test_torch_examples_spr_n1000.py)
+JMLR_STALLED = {"sparse_phase_retrieval": (0.81, 1.2)}
+#: the least share of a stalled point's lanes whose mse lies above half
+#: their signal's power mean(x**2)
+JMLR_STALLED_SHARE = 0.8
+#: converged lanes of a stalled JMLR point re-solved on the CPU
+JMLR_CPU_LANES = 3
+COMMITTED = {
+    "compressed_sensing":
+        "examples/glm/output/compressed_sensing_ep_vs_se.csv",
+    "perceptron": "examples/glm/output/perceptron_ep_vs_se.csv",
+    "phase_diagram": "examples/figures/output/phase_diagram.csv",
+    "matrix_factorization":
+        "examples/low_rank/output/matrix_factorization_ep_vs_se.csv",
+}
+
+
+def gallery_dir(name):
+    "A scratch output directory of phase 17 inside the checkout (ignored)."
+    import os
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "phase17", name)
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def committed_columns(name):
+    """The columns of a CSV the JAX package committed under examples/, by
+    header name (pandas' header or np.savetxt's '# ...' line)."""
+    import os
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        COMMITTED[name])
+    with open(path) as f:
+        header = f.readline().lstrip("# ").strip().split(",")
+    data = np.loadtxt(path, delimiter=",", skiprows=1, ndmin=2)
+    return {h: data[:, i] for i, h in enumerate(header)}
+
+
+def hold_column(what, got, want, rtol, card,
+                against="the JAX package's committed outputs"):
+    "Each element of ``got`` within rtol of ``want`` (relative)."
+    got, want = np.asarray(got, float), np.asarray(want, float)
+    check(got.shape == want.shape and np.isfinite(got).all(),
+          f"{what}: {got.shape} against {want.shape}, or not finite")
+    rel = np.abs(got - want) / np.abs(want)
+    check(bool((rel <= rtol).all()),
+          f"{what}: {int((rel > rtol).sum())} of {rel.size} off {against} "
+          f"by more than rtol {rtol:g} (worst {rel.max():.3g})")
+    print(f"{what}: {rel.size} values within rtol {rtol:g} of {against} "
+          f"(worst {rel.max():.3e}) [{card}]")
+
+
+def gallery_path(torch, pl, paths, name, run):
+    """``run()`` as one path of the gallery: the kernels' counts set to 0
+    just before and read just after, into ``paths[name]``. Returns (its
+    result, seconds)."""
+    torch.cuda.synchronize()
+    reset_launches(pl)
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    paths[f"gallery_{name}"] = read_launches(pl)
+    return out, time.perf_counter() - t0
+
+
+def phase_17a_se_columns(torch, pl, paths, card):
+    """The scripts whose SE columns the JAX package committed, at their
+    default sizes on the card: every SE value against the committed file
+    (rtol GALLERY_SE_RTOL), the EP columns finite and printed."""
+    from tramp_tpu_torch.examples.glm import compressed_sensing, perceptron
+    from tramp_tpu_torch.examples.figures import phase_diagram_sweep
+    from tramp_tpu_torch.examples.low_rank import matrix_factorization
+    for name, module in (("compressed_sensing", compressed_sensing),
+                         ("perceptron", perceptron)):
+        df, s = gallery_path(torch, pl, paths, name, lambda: module.main(
+            ["--out", gallery_dir("glm")]))
+        want = committed_columns(name)
+        check(list(df.columns) == ["v_EP", "mse_EP", "v_SE", "alpha",
+                                   "seed"]
+              and np.array_equal(df["alpha"].to_numpy(), want["alpha"]),
+              f"{name}: columns {list(df.columns)}, alphas "
+              f"{df['alpha'].tolist()}")
+        check(np.isfinite(df[["v_EP", "mse_EP"]].to_numpy()).all(),
+              f"{name}: EP columns not finite")
+        hold_column(f"gallery {name} v_SE", df["v_SE"], want["v_SE"],
+                    GALLERY_SE_RTOL, card)
+        print(f"gallery {name} (N=250, {len(df)} alphas, {s:.2f} s): "
+              + "; ".join(f"alpha {a:g} v_EP {v:.4g} mse_EP {m:.4g} v_SE "
+                          f"{w:.4g}" for a, v, m, w in zip(
+                              df["alpha"], df["v_EP"], df["mse_EP"],
+                              df["v_SE"])) + f" [{card}]")
+    out, s = gallery_path(torch, pl, paths, "phase_diagram", lambda:
+                          phase_diagram_sweep.main(
+                              ["--out", gallery_dir("figures")]))
+    want = committed_columns("phase_diagram")
+    check(np.array_equal(np.asarray(out["points"]),
+                         np.stack([want["alpha"], want["rho"]], 1)),
+          "phase diagram: the grid differs from the committed one")
+    hold_column("gallery phase_diagram_sweep v_SE (96 points)", out["v"],
+                want["v_SE"], GALLERY_SE_RTOL, card)
+    print(f"gallery phase_diagram_sweep, 96 points on the one-rank nccl "
+          f"mesh: {out['seconds']:.4f} s, "
+          f"{len(out['points']) / out['seconds']:.1f} points/s [{card}]")
+    rows, s = gallery_path(torch, pl, paths, "matrix_factorization", lambda:
+                           matrix_factorization.main(
+                               ["--out", gallery_dir("low_rank")]))
+    rows = np.asarray(rows)
+    want = committed_columns("matrix_factorization")
+    check(np.array_equal(rows[:, 0], want["delta"]),
+          f"matrix factorization: Deltas {rows[:, 0]}")
+    hold_column("gallery matrix_factorization mse_x_se", rows[:, 2],
+                want["mse_x_se"], GALLERY_SE_RTOL, card)
+    spread = []
+    for Delta, emp, committed in zip(rows[:, 0], rows[:, 1],
+                                     want["mse_x_emp"]):
+        runs = chaos_ensemble(torch, Delta)
+        mean, sd = float(runs.mean()), float(runs.std(ddof=1))
+        spread.append(sd / mean)
+        for what, value in (("the committed", committed), ("the card's",
+                                                           emp)):
+            check(abs(value - mean) <= 3.3 * sd,
+                  f"matrix factorization Delta {Delta}: {what} mse_x_emp "
+                  f"{value:.6g} outside {mean:.6g} +- 3.3 x {sd:.3g}")
+    print(f"gallery matrix_factorization (M=N=128, 4 seeds as lanes, f64, "
+          f"{s:.2f} s): " + "; ".join(
+              f"Delta {d:g} mse_x {e:.5g} (committed {c:.5g}) SE {p:.5g} "
+              f"vz_u {v:.4g}" for (d, e, p, v), c in zip(
+                  rows, want["mse_x_emp"])) + "; the committed and the "
+          f"card's mse_x_emp within 3.3 sd of {MF_CHAOS['solves']} solves "
+          f"with the input perturbed by {MF_CHAOS['eps']:g}: relative sd "
+          + ", ".join(f"{x:.4g}" for x in spread) + f" [{card}]")
+
+
+def chaos_ensemble(torch, Delta, M=128, N=128, K=2, seeds=4):
+    """mse_x_emp of matrix_factorization's default instances at Delta
+    (RandomState(7)) over MF_CHAOS["solves"] solves, the first on the
+    exact input, each other with the input multiplied by 1 + eps g, g
+    standard normal from a generator seeded with the solve's index."""
+    from tramp_tpu_torch.channels.low_rank import vamp_matrix_factorization
+    from tramp_tpu_torch.examples.low_rank.matrix_factorization import (
+        planted_instance)
+    kw = dict(device="cuda", dtype=torch.float64)
+    rng = np.random.RandomState(7)
+    X0s, Ys = zip(*[planted_instance(M, N, K, Delta, rng)
+                    for _ in range(seeds)])
+    Y, X0 = torch.as_tensor(np.stack(Ys), **kw), torch.as_tensor(
+        np.stack(X0s), **kw)
+    out = []
+    for i in range(MF_CHAOS["solves"]):
+        g = torch.Generator(device="cuda").manual_seed(i)
+        noise = torch.randn(Y.shape, generator=g, **kw) if i else 0.0
+        ru, _, rv, _ = vamp_matrix_factorization(
+            au=1.0, av=1.0, bu=torch.zeros((M, K), **kw),
+            bv=torch.zeros((N, K), **kw), ax=1.0 / Delta,
+            bx=Y * (1 + MF_CHAOS["eps"] * noise) / Delta, model="UV")
+        Xh = torch.einsum("smk,snk->smn", ru, rv) / math.sqrt(N)
+        out.append(float(torch.mean((Xh - X0) ** 2)))
+    return np.array(out)
+
+
+def phase_17b_door(torch, pl, paths, card):
+    "The door's critical alphas and its batched line over p_pos."
+    from tramp_tpu_torch.examples.glm import critical_alpha_door as door
+    found, s = gallery_path(torch, pl, paths, "critical_alpha_door",
+                            lambda: door.main([]))
+    for criterion, ref in door.REFERENCE:
+        check(abs(found[criterion] - ref) <= ALPHA_TOL,
+              f"door {criterion}: alpha_c {found[criterion]} against {ref}")
+    check(abs(found["line"][0] - dict(door.REFERENCE)["perfect"])
+          <= ALPHA_TOL, f"door line at p_pos 0.51: {found['line'][0]}")
+    print(f"gallery critical_alpha_door: random {found['random']!r}, "
+          f"perfect {found['perfect']!r} (within {ALPHA_TOL:g} of "
+          f"{door.REFERENCE}); the batched line over p_pos "
+          f"{door.P_POS}: {found['line']}; {s:.2f} s [{card}]")
+
+
+def jmlr_protocol(torch, pl, paths, name, module, extra, card):
+    """One JMLR protocol at full width: N = 2000, 25 seeds as the lanes of
+    one EPSolver.solve_batch per alpha of JMLR_EP_POINTS, each point's
+    mean within 3.3 sd / sqrt(seeds) + GALLERY_EP_FINITE_N v_SE +
+    GALLERY_EP_ATOL of v_SE, except at the alphas JMLR_STALLED names:
+    there SE lies below the symmetric point (v_SE < the lanes' mean
+    mean(x**2)), at least JMLR_STALLED_SHARE of the lanes stop near it as
+    in the JAX protocol (mse > mean(x**2) / 2), and the first
+    JMLR_CPU_LANES converged lanes are held against the CPU;
+    the SE and BO curves at their --big point counts; at the default grid,
+    card against the port's own CPU run (rtol GALLERY_SE_RTOL)."""
+    N, n_seeds, alphas, se_alphas = module.grids(True)
+    alphas = alphas[list(JMLR_EP_POINTS[name])]
+    v_se = [r["v"] for r in module.run_se_curve(alphas, *extra, "SE",
+                                                "cuda")]
+    reset_launches(pl)
+    for alpha, v in zip(alphas, v_se):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        students, x_true = module.students(alpha, N, *extra, n_seeds,
+                                           torch.device("cuda"))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mses, post, n_iter = module.ep_batch(students, x_true)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        check(np.isfinite(mses).all(), f"{name} alpha {alpha:.4g}: mse "
+                                       "not finite")
+        mean, sd = float(mses.mean()), float(mses.std(ddof=1))
+        gap = abs(mean - v)
+        line = (f"gallery {name} EP alpha={alpha:.4g}, N={N}, {n_seeds} "
+                f"seeds as lanes: mse {mean:.6g} (sd {sd:.3g}) vs v_SE "
+                f"{v:.6g}, |gap| {gap:.3g}; n_iter "
+                f"{int(n_iter.min())}-{int(n_iter.max())}; {n_seeds} students "
+                f"(SVDs) {t1 - t0:.2f} s, the batched solve {t2 - t1:.2f} s")
+        if np.isclose(alpha, JMLR_STALLED.get(name, ()), rtol=0,
+                      atol=1e-12).any():
+            power = np.array([float((x.double() ** 2).mean())
+                              for x in x_true])
+            stalled = int((mses > power / 2).sum())
+            check(v < power.mean()
+                  and stalled >= JMLR_STALLED_SHARE * n_seeds,
+                  f"{line}: v_SE {v:.3g} (should lie below the symmetric "
+                  f"point, {power.mean():.3g}), {stalled} of {n_seeds} lanes "
+                  f"with mse > mean(x**2) / 2 (at least "
+                  f"{JMLR_STALLED_SHARE:g} of them should)")
+            lanes = jmlr_lanes_on_cpu(torch, students, x_true, post, n_iter,
+                                      module, line)
+            line += (f"; SE below the symmetric point and EP stopped near it"
+                     f" as in the JAX protocol: {stalled} of {n_seeds} lanes "
+                     f"with mse > mean(x**2) / 2 (mse / mean(x**2) "
+                     f"{(mses / power).min():.3g}-{(mses / power).max():.3g})"
+                     f", lanes {lanes} held against the CPU")
+        else:
+            band = (3.3 * sd / math.sqrt(n_seeds) + GALLERY_EP_FINITE_N * v
+                    + GALLERY_EP_ATOL)
+            check(gap <= band, f"{line} > 3.3 sd / sqrt({n_seeds}) + "
+                               f"{GALLERY_EP_FINITE_N:g} v_SE + "
+                               f"{GALLERY_EP_ATOL:g} = {band:.3g}")
+            line += (f" <= 3.3 sd / sqrt({n_seeds}) + {GALLERY_EP_FINITE_N:g}"
+                     f" v_SE + {GALLERY_EP_ATOL:g} = {band:.3g}")
+        print(line + f" [{card}]")
+        del students, post
+    paths[f"gallery_{name}_ep"] = read_launches(pl)
+    for source in ("SE", "BO"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        recs = module.run_se_curve(se_alphas, *extra, source, "cuda")
+        s = time.perf_counter() - t0
+        v = np.array([r["v"] for r in recs])
+        check(np.isfinite(v).all(), f"{name} {source}: not finite")
+        print(f"gallery {name} {source} curve, {len(v)} points (--big) in "
+              f"one SESolver.solve_batch: {s:.3f} s, "
+              f"{len(v) / s:.1f} points/s, v from {v.min():.4g} to "
+              f"{v.max():.4g} [{card}]")
+        small = module.grids(False)[3]
+        gpu = [r["v"] for r in module.run_se_curve(small, *extra, source,
+                                                   "cuda")]
+        cpu = [r["v"] for r in module.run_se_curve(
+            small, *extra, source, torch.device("cpu"))]
+        hold_column(f"gallery {name} {source} curve ({len(small)} points) "
+                    "on the card", gpu, cpu, GALLERY_SE_RTOL, card,
+                    against="the same grid on the CPU")
+
+
+def jmlr_lanes_on_cpu(torch, students, x_true, post, n_iter, module, what):
+    """The first JMLR_CPU_LANES converged lanes of a batched EP solve on the
+    card (n_iter below max_iter: a lane stopped by max_iter is at no fixed
+    point) against the same lanes solved as a batch on the CPU: n_iter
+    within 2 and r within R_TOL of the largest |r| (phase 7's batch rule;
+    done lanes are frozen, so a lane does not depend on the others).
+    Returns the lanes."""
+    done = (n_iter.cpu() < module.EP_SOLVE["max_iter"]).nonzero()
+    lanes = done.flatten()[:JMLR_CPU_LANES].tolist()
+    check(len(lanes) == JMLR_CPU_LANES,
+          f"{what}: {len(lanes)} converged lanes, {JMLR_CPU_LANES} needed")
+    _, cpu_post, cpu_n = module.ep_batch(
+        [on_card(torch, students[i], "cpu") for i in lanes],
+        [x_true[i].cpu() for i in lanes])
+    got = post["x"]["r"][lanes].double().cpu()
+    err = rel_to_largest(torch, got, cpu_post["x"]["r"].double())
+    dn = (n_iter[lanes].cpu() - cpu_n).abs().max()
+    check(err <= R_TOL and int(dn) <= 2,
+          f"{what}: lanes {lanes} against the CPU: r {err:.3g} of the "
+          f"largest |r|, n_iter off by {int(dn)}")
+    return lanes
+
+
+def phase_17c_jmlr(torch, pl, paths, card):
+    from tramp_tpu_torch.examples.figures import (
+        sparse_regression as sr, sparse_phase_retrieval as spr)
+    jmlr_protocol(torch, pl, paths, "sparse_regression", sr,
+                  (sr.RHO, sr.NOISE_VAR), card)
+    jmlr_protocol(torch, pl, paths, "sparse_phase_retrieval", spr,
+                  (spr.RHO,), card)
+
+
+def phase_17d_phase_diagram(torch, pl, paths, card):
+    "phase_diagram_sweep --big: 1000 points as one solve, its points/s."
+    from tramp_tpu_torch.examples.figures import phase_diagram_sweep
+    out, s = gallery_path(torch, pl, paths, "phase_diagram_big", lambda:
+                          phase_diagram_sweep.main(
+                              ["--big", "--out",
+                               gallery_dir("figures_big")]))
+    check(len(out["v"]) == 1000 and np.isfinite(out["v"]).all(),
+          "phase diagram --big: not 1000 finite values")
+    print(f"gallery phase_diagram_sweep --big: 1000 points in one "
+          f"SESolver.solve_batch on the one-rank nccl mesh, "
+          f"{out['seconds']:.4f} s, {1000 / out['seconds']:.1f} points/s "
+          f"(the script's whole run {s:.2f} s) [{card}]")
+
+
+def phase_17e_fast_paths(torch, pl, paths, card):
+    """fast_paths on the card: the dispatched classes, exactly one launch
+    of each message kernel per MLVAMPSolver iteration on the relu net, both
+    message kernels against their plain twins at the inputs of its last
+    iteration, and the gated solve's v within GATED_V_REL of float32."""
+    from tramp_tpu_torch.channels import ReluChannel
+    from tramp_tpu_torch.examples.glm import fast_paths
+    last = {}
+    originals = {m: getattr(ReluChannel, m) for m in (
+        "compute_forward_message", "compute_backward_message")}
+
+    def recording(method):
+        def call(self, az, bz, ax, bx):
+            last[method] = (az, bz, ax, bx, self.region_specs)
+            return originals[method](self, az, bz, ax, bx)
+        return call
+    for m in originals:
+        setattr(ReluChannel, m, recording(m))
+    try:
+        out, s = gallery_path(torch, pl, paths, "fast_paths",
+                              lambda: fast_paths.main([]))
+    finally:
+        for m, fn in originals.items():
+            setattr(ReluChannel, m, fn)
+    glm, relu, gated = out["glm"], out["relu"], out["gated"]
+    launches = paths["gallery_fast_paths"]
+    check(glm["solver"] == "SpectralVAMPSolver"
+          and relu["solver"] == "MLVAMPSolver",
+          f"fast paths: dispatched {glm['solver']}, {relu['solver']}")
+    check(launches["pl_forward_message"] == relu["n_iter"]
+          and launches["pl_backward_message"] == relu["n_iter"]
+          and launches["pl_posterior"] == 0,
+          f"fast paths: launches {launches} for {relu['n_iter']} "
+          "MLVAMPSolver iterations (want 1 + 1 per iteration)")
+    check(gated["conv"] and gated["v_rel_err_vs_f32"] < GATED_V_REL,
+          f"fast paths gated: conv {gated['conv']}, v_rel_err_vs_f32 "
+          f"{gated['v_rel_err_vs_f32']:.3g}")
+    err = {}
+    for method, name, plain in (
+            ("compute_forward_message", "pl_forward_message",
+             pl.pl_forward_message_plain),
+            ("compute_backward_message", "pl_backward_message",
+             pl.pl_backward_message_plain)):
+        az, bz, ax, bx, specs = last[method]
+        got = getattr(pl, name)(az, bz, ax, bx, specs)
+        want = plain(az, bz, ax, bx, specs)
+        a, b = (ax, bx) if name == "pl_forward_message" else (az, bz)
+        ratios = [hold_message(torch, f"fast paths {name} {k}", g, w, t,
+                               RTOL["float32"])
+                  for k, g, w, t in (("a_new", got[0], want[0], a),
+                                     ("b_new", got[1], want[1], b))]
+        err[name] = max(r[1] for r in ratios)
+    print(f"gallery fast_paths ({s:.2f} s): GLM -> {glm['solver']} "
+          f"n_iter {glm['n_iter']} mse {glm['mse']:.5g} (engine "
+          f"{glm['mse_engine']:.5g}); relu net -> {relu['solver']} n_iter "
+          f"{relu['n_iter']} mse {relu['mse']:.5g}, launches {launches} "
+          f"(1 + 1 per iteration); message kernels against their plain "
+          f"twins at the last iteration's inputs (rtol "
+          f"{RTOL['float32']:g}), max abs err {err}; gated: bf16 "
+          f"{gated['n_iter_bf16']} + f32 {gated['n_iter_f32']} sweeps, "
+          f"conv {gated['conv']}, v_rel_err_vs_f32 "
+          f"{gated['v_rel_err_vs_f32']:.3e} < {GATED_V_REL:g} [{card}]")
+    return err
+
+
+def phase_17f_golden_rows(torch, pl, paths, card):
+    "tests/test_ep_golden.py's rows: 8 seeds of N = 1000 per row as lanes."
+    from tramp_tpu_torch.examples.glm import golden_rows
+    records, s = gallery_path(torch, pl, paths, "ep_golden_rows",
+                              lambda: golden_rows.hold_rows(
+                                  torch.device("cuda")))
+    for rec in records:
+        line = (f"EP golden row {rec['family']} alpha={rec['alpha']:.6g}: "
+                f"v_EP {rec['v_ep']:.6g} mse {rec['mse']:.6g} n_iter <= "
+                f"{rec['n_iter']}; ")
+        line += ", ".join(f"{k} |gap| {gap:.3g} <= {band:.3g}"
+                          for k, (ok, gap, band) in rec["checks"].items())
+        check(all(ok for ok, _, _ in rec["checks"].values()),
+              line + " (outside its band)")
+        print(line + f" [{card}]")
+    print(f"EP golden rows: {len(records)} rows, one EPSolver.solve_batch "
+          f"of {golden_rows.N_SEEDS} lanes each, {s:.2f} s [{card}]")
+
+
+def phase_17g_rest(torch, pl, paths, card):
+    """Every other script at its default size on the card, its task-level
+    numbers printed."""
+    from tramp_tpu_torch.examples.glm import (
+        phase_retrieval, two_layer_phase_retrieval, cs_universality)
+    from tramp_tpu_torch.examples.figures import se_grid_scaling, benchmark
+    from tramp_tpu_torch.examples.sparse import (
+        sparse_gradient, sparse_fft, image_deconvolution, image_denoising)
+    from tramp_tpu_torch.examples.vae_prior import inpainting
+    glm, fig = ["--out", gallery_dir("glm")], ["--out", gallery_dir("figures")]
+    sparse = ["--out", gallery_dir("sparse")]
+    runs = [
+        ("phase_retrieval", lambda: phase_retrieval.main(glm)),
+        ("two_layer_phase_retrieval",
+         lambda: two_layer_phase_retrieval.main(glm)),
+        ("cs_universality", lambda: cs_universality.main(glm)),
+        ("se_grid_scaling", lambda: se_grid_scaling.main(fig)),
+        ("benchmark", lambda: benchmark.main(fig)),
+        ("sparse_gradient", lambda: sparse_gradient.main(sparse)),
+        ("sparse_fft", lambda: sparse_fft.main(sparse)),
+        ("image_deconvolution", lambda: image_deconvolution.main(sparse)),
+        ("image_denoising", lambda: image_denoising.main(sparse)),
+        ("image_denoising_tv", lambda: image_denoising.main(sparse
+                                                             + ["--tv"])),
+        ("inpainting", lambda: inpainting.main(
+            ["--out", gallery_dir("vae_prior")])),
+    ]
+    for name, run in runs:
+        out, s = gallery_path(torch, pl, paths, name, run)
+        print(f"gallery {name} at its default size: {s:.2f} s, launches "
+              f"{paths['gallery_' + name]}; {gallery_summary(name, out)} "
+              f"[{card}]")
+
+
+def gallery_summary(name, out):
+    """The task-level numbers of a script's result, checked finite: the
+    rows of a DataFrame, or the scalars of a dict."""
+    if name == "phase_retrieval":
+        vals = out[["mse_EP", "v_EP"]].to_numpy()
+        text = "; ".join(f"alpha {a:g} mse {m:.4g} v {v:.4g}" for a, m, v
+                         in zip(out["alpha"], vals[:, 0], vals[:, 1]))
+    elif name == "cs_universality":
+        vals = out["v"].to_numpy()
+        text = (f"{len(out)} rows; max |v_EP - v_SE| over the points "
+                + f"{_universality_gap(out):.4g}")
+    elif name == "se_grid_scaling":
+        report = out[0]
+        vals = np.array([report["flop_counter_flops_per_process"],
+                         report["se_points_per_s"]])
+        text = (f"FlopCounterMode (products only) "
+                f"{vals[0]:.6g} FLOPs per process, {vals[1]:.1f} SE "
+                "points/s")
+    elif name == "benchmark":
+        vals = out["ep_mse"].to_numpy()
+        text = "; ".join(f"alpha {a:g} seed {s} ep_mse {m:.4g} ep_time "
+                         f"{t:.4f} s lasso_mse {lm:.4g}" for a, s, m, t, lm
+                         in zip(out["alpha"], out["seed"], out["ep_mse"],
+                                out["ep_time"], out["lasso_mse"]))
+    else:
+        vals = np.array([v for v in out.values() if np.isscalar(v)],
+                        dtype=float)
+        text = ", ".join(f"{k} {v:.5g}" for k, v in out.items()
+                         if np.isscalar(v))
+    check(np.isfinite(vals).all(), f"gallery {name}: not finite ({text})")
+    return text
+
+
+def _universality_gap(df):
+    se = df[df.source == "SE"].set_index(["f", "prior_rho", "alpha"])["v"]
+    ep = df[df.source == "EP"].set_index(["f", "prior_rho", "alpha"])["v"]
+    return float((ep - se).abs().max())
+
+
+def phase_17(torch, pl, card):
+    """Phase 17: the gallery (tramp_tpu_torch/examples) on the card.
+    Returns (launches by path, the fast paths' message kernels' max abs
+    error against their plain twins)."""
+    t0 = time.perf_counter()
+    paths, times, out = {}, {}, {}
+    for part, run in (("17a", phase_17a_se_columns), ("17b", phase_17b_door),
+                      ("17c", phase_17c_jmlr),
+                      ("17d", phase_17d_phase_diagram),
+                      ("17e", phase_17e_fast_paths),
+                      ("17f", phase_17f_golden_rows),
+                      ("17g", phase_17g_rest)):
+        t1 = time.perf_counter()
+        out[part] = run(torch, pl, paths, card)
+        times[part] = time.perf_counter() - t1
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in times.items())
+          + f") [{card}]")
+    return paths, out["17e"]
+
+
 def main():
     import torch
     # phase 1: the device
@@ -5305,6 +5852,10 @@ def main():
     # phase 16: bf16 products and state, the gated solves, pinned messages
     extras_launches.update(phase_16(torch, tt, pl, students,
                                     (student, linear), card))
+    # phase 17: the gallery
+    gallery_launches, tree_err["gallery_fast_paths"] = phase_17(torch, pl,
+                                                                card)
+    extras_launches.update(gallery_launches)
 
     # phase 8: summary. A main path is a solve with the posterior readout
     # that follows it: the engine's float32 relu-net solve (phase 4) and the
@@ -5343,7 +5894,8 @@ def main():
                 **{k: path[name] for k, path in extras_launches.items()}),
             "max_abs_err": max_err[name],
             "final_state_max_abs_err": {
-                path: errs[name] for path, errs in tree_err.items()},
+                path: errs[name] for path, errs in tree_err.items()
+                if name in errs},
             "ms": row["per_call_ms"],
             "plain_ms": lanes_plain_ms[name], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,

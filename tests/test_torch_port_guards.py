@@ -781,3 +781,47 @@ def test_special_function_derivatives_on_card():
         for got, want, rtol in zip(out[1], out[0], (1e-12, 1e-5)):
             np.testing.assert_allclose(got, want, rtol=rtol, atol=1e-300,
                                        err_msg=name)
+
+
+# -- the gallery (tramp_tpu_torch/examples) --------------------------------
+JAX_EXAMPLES = sorted(p.relative_to(REPO / "examples")
+                      for p in (REPO / "examples").rglob("*.py"))
+GALLERY = [".".join(p.with_suffix("").parts) for p in JAX_EXAMPLES]
+
+
+def test_every_jax_example_has_a_counterpart():
+    """Each script of the JAX package's examples/ has one at the same path
+    under tramp_tpu_torch/examples/, and the package's __init__ imports
+    none of them."""
+    assert len(JAX_EXAMPLES) == 18
+    missing = [str(p) for p in JAX_EXAMPLES
+               if not (REPO / "tramp_tpu_torch" / "examples" / p).is_file()]
+    assert not missing, f"gallery scripts without a counterpart: {missing}"
+    init = (REPO / "tramp_tpu_torch" / "__init__.py").read_text()
+    assert "examples" not in init
+
+
+@pytest.mark.parametrize("name", GALLERY)
+def test_gallery_script_needs_a_card_unless_told_cpu(name, monkeypatch):
+    """``main([])`` raises where there is no card (config.default_device),
+    before it computes anything; ``--device cpu`` is the way to the CPU."""
+    import importlib
+    module = importlib.import_module(f"tramp_tpu_torch.examples.{name}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        module.main([])
+
+
+@pytest.mark.parametrize("name", GALLERY)
+def test_gallery_script_runs_as_a_module(name, monkeypatch, capsys):
+    "``python -m tramp_tpu_torch.examples.<name> --help`` reaches main."
+    import runpy
+    # a fresh import as __main__, not the module an earlier test imported
+    monkeypatch.delitem(sys.modules, f"tramp_tpu_torch.examples.{name}",
+                        raising=False)
+    monkeypatch.setattr(sys, "argv", [name, "--help"])
+    with pytest.raises(SystemExit) as done:
+        runpy.run_module(f"tramp_tpu_torch.examples.{name}",
+                         run_name="__main__")
+    assert done.value.code == 0
+    assert "--device" in capsys.readouterr().out

@@ -13,6 +13,15 @@ from ..algos import (
 
 logger = logging.getLogger(__name__)
 
+#: ``setup(seed)`` samples the teacher from a generator seeded with
+#: ``seed ^ SAMPLE_STREAM``, never with ``seed`` itself. The JAX package
+#: samples from the keys that ``Model.sample`` splits off ``PRNGKey(seed)``,
+#: a stream apart from ``PRNGKey(seed)``; a model whose operator was drawn
+#: from a generator seeded with ``seed`` likewise gets a sample independent
+#: of its operator. The constant's low 32 bits are not all zero, so the two
+#: seeds differ on the CPU generator too, which keeps 32 bits of its seed.
+SAMPLE_STREAM = 0x9E3779B97F4A7C15
+
 
 def _scalar(v):
     return float(torch.as_tensor(v).double().mean())
@@ -47,7 +56,8 @@ class TeacherStudentScenario:
         self._device = next(iter(sample.values())).device
 
     def setup(self, seed=0):
-        generator = torch.Generator(device=self._device).manual_seed(seed)
+        generator = torch.Generator(device=self._device).manual_seed(
+            int(seed) ^ SAMPLE_STREAM)
         sample = self.teacher.sample(generator)
         self.true_values = sample
         self.x_true = {x_id: sample[x_id] for x_id in self.x_ids}

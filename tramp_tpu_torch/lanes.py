@@ -162,7 +162,11 @@ def stack_models(models, device=None, dtype=None):
     ``var``, ``alpha``, ``p_pos``, ``gamma``) that differs between the
     models is one value per lane, a tensor ``(B, 1)`` (``(B, 1, ...)`` for a
     prior of a variable with more axes); a hyperparameter that is equal in all models stays the
-    Python number it was. The structural fields (region bounds, sizes,
+    Python number it was, unless nothing else would carry the lanes (models
+    without buffers whose hyperparameters are all equal, as a grid of one
+    point): then the first numeric hyperparameter is one value per lane, so
+    that the batch has its B lanes, as every leaf of the JAX package's
+    stacked pytree does. The structural fields (region bounds, sizes,
     names) are shared by the lanes and must be equal in all models; a
     difference raises. ``device`` and ``dtype`` are those of the
     hyperparameter tensors (None: those of the models' buffers, and for a
@@ -197,6 +201,14 @@ def stack_models(models, device=None, dtype=None):
             if buf is not None:
                 replace[i, name] = torch.stack(
                     [f._buffers[name] for f in others])
+    if not replace and not columns:
+        key = next(((i, field) for i, factor in enumerate(first.factors)
+                    for field in hyperparameters(factor)), None)
+        if key is not None:
+            i, field = key
+            size = getattr(first.factors[i], "size", None)
+            columns[key] = ([getattr(m.factors[i], field) for m in models],
+                            len(size) if isinstance(size, tuple) else 1)
     if columns:
         like = next(iter(replace.values()), None)
         if device is None:
