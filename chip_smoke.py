@@ -337,10 +337,11 @@ line is printed):
       phase_diagram.csv; matrix_factorization's mse_x_se against its
       committed CSV, and the committed and the card's mse_x_emp within 3.3
       sd of 12 solves of the same instances with the input perturbed by
-      1e-13 (the solve is chaotic);
+      1e-13 (the solve is chaotic; the 12 solves are the lanes of one
+      call of the solver);
    b. critical_alpha_door: both critical alphas within alpha_tol = 1e-3 of
-      0.46214599609375 and 2.24278564453125, and the batched line over
-      p_pos;
+      0.46214599609375 and 2.24278564453125, and the line over p_pos, the
+      script's three searches as the five lanes of one batched bisection;
    c. the JMLR protocols at full width (N = 2000, 25 seeds as the lanes of
       one EPSolver.solve_batch per alpha; JMLR_EP_POINTS names the alphas):
       each point's mean within 3.3 sd / sqrt(25) + 0.05 v_SE + 1e-6 of
@@ -362,6 +363,15 @@ line is printed):
       batched solve, v_EP and the mse within 3.3 sd of the CSV rows and
       v_EP of v_SE;
    g. every other script at its default size, its task-level numbers.
+
+18. (run before the summary) the root entry points,
+    tramp_tpu_torch/graft_entry.py (the counterpart of the JAX package's
+    __graft_entry__.py), neither of which reaches a kernel: ``entry()`` on
+    the card (the flagship at N = 1024, float32), its ``fn`` applied 10
+    times against ``iterate(max_iter=10, tol=0)`` of the same student, bit
+    for bit, with the kernels and device ms per sweep (loop_window); then
+    ``dryrun_multichip(1)`` on one nccl rank, its stage lines in the order
+    1, 2, 4, 3 and its seconds.
 
 The messages at a path's final state (11d-f) are held element by element
 within rtol (|a| + |a + a_new|) and rtol (|b| + |b + b_new|), the two terms
@@ -5279,7 +5289,9 @@ def chaos_ensemble(torch, Delta, M=128, N=128, K=2, seeds=4):
     """mse_x_emp of matrix_factorization's default instances at Delta
     (RandomState(7)) over MF_CHAOS["solves"] solves, the first on the
     exact input, each other with the input multiplied by 1 + eps g, g
-    standard normal from a generator seeded with the solve's index."""
+    standard normal from a generator seeded with the solve's index; the
+    solves' instances are the lanes of one call of the solver, which
+    freezes each lane where its own stop fires."""
     from tramp_tpu_torch.channels.low_rank import vamp_matrix_factorization
     from tramp_tpu_torch.examples.low_rank.matrix_factorization import (
         planted_instance)
@@ -5289,17 +5301,16 @@ def chaos_ensemble(torch, Delta, M=128, N=128, K=2, seeds=4):
                     for _ in range(seeds)])
     Y, X0 = torch.as_tensor(np.stack(Ys), **kw), torch.as_tensor(
         np.stack(X0s), **kw)
-    out = []
-    for i in range(MF_CHAOS["solves"]):
-        g = torch.Generator(device="cuda").manual_seed(i)
-        noise = torch.randn(Y.shape, generator=g, **kw) if i else 0.0
-        ru, _, rv, _ = vamp_matrix_factorization(
-            au=1.0, av=1.0, bu=torch.zeros((M, K), **kw),
-            bv=torch.zeros((N, K), **kw), ax=1.0 / Delta,
-            bx=Y * (1 + MF_CHAOS["eps"] * noise) / Delta, model="UV")
-        Xh = torch.einsum("smk,snk->smn", ru, rv) / math.sqrt(N)
-        out.append(float(torch.mean((Xh - X0) ** 2)))
-    return np.array(out)
+    solves = MF_CHAOS["solves"]
+    bx = torch.cat([Y * (1 + MF_CHAOS["eps"] * torch.randn(
+        Y.shape, generator=torch.Generator(device="cuda").manual_seed(i),
+        **kw)) if i else Y for i in range(solves)]) / Delta
+    ru, _, rv, _ = vamp_matrix_factorization(
+        au=1.0, av=1.0, bu=torch.zeros((M, K), **kw),
+        bv=torch.zeros((N, K), **kw), ax=1.0 / Delta, bx=bx, model="UV")
+    Xh = torch.einsum("smk,snk->smn", ru, rv) / math.sqrt(N)
+    err = (Xh.reshape(solves, seeds, M, N) - X0) ** 2
+    return err.mean(dim=(1, 2, 3)).cpu().numpy()
 
 
 def phase_17b_door(torch, pl, paths, card):
@@ -5628,6 +5639,84 @@ def phase_17(torch, pl, card):
     return paths, out["17e"]
 
 
+# -- phase 18: the root entry points (tramp_tpu_torch/graft_entry.py) -------
+ENTRY_SWEEPS = 10
+DRYRUN_STAGES = (1, 2, 4, 3)   # __graft_entry__.py:135-229's order
+
+
+def phase_18(torch, pl, card):
+    """Phase 18: ``graft_entry.entry()`` on the card, its ``fn`` applied
+    ENTRY_SWEEPS times against ``iterate(max_iter=ENTRY_SWEEPS, tol=0)`` of
+    the same student, bit for bit, with the kernels and device ms per sweep
+    (loop_window); then ``dryrun_multichip(1)`` on one nccl rank: its four
+    lines, in the JAX order, and its seconds. Returns the launches of the
+    two paths, each counted from 0 (the flagship runs no kernel)."""
+    import contextlib
+    import io
+    import torch.distributed as dist
+    from tramp_tpu_torch import graft_entry
+    from tramp_tpu_torch.algos import ExpectationPropagation
+    t0 = time.perf_counter()
+    fn, (student, state) = graft_entry.entry()
+    check(all(t.is_cuda and t.dtype == torch.float32
+              for msg in state for t in msg.values()),
+          "entry: the example state is not float32 on the card")
+
+    def sweeps(k):
+        out = state
+        for _ in range(k):
+            out = fn(student, out)
+        return out
+
+    def run(k):
+        "k sweeps and the finite check of their state as the readout"
+        return torch.stack([torch.isfinite(t).all() for msg in sweeps(k)
+                            for t in msg.values()]).all()
+
+    paths = {}
+    reset_launches(pl)
+    out = sweeps(ENTRY_SWEEPS)
+    torch.cuda.synchronize()
+    paths["graft_entry_fn"] = read_launches(pl)
+    ep = ExpectationPropagation(student).iterate(
+        max_iter=ENTRY_SWEEPS, tol=0.0, damping=0.1)
+    check(ep.n_iter == ENTRY_SWEEPS and same_state(torch, out, ep.state),
+          f"entry: {ENTRY_SWEEPS} calls of fn differ from the engine's "
+          f"{ep.n_iter} sweeps")
+    check(bool(run(ENTRY_SWEEPS)), "entry: not finite")
+    window = print_window(
+        "graft_entry.entry() fn (flagship N=1024 float32, one sweep)",
+        loop_window(run, ENTRY_SWEEPS), card)
+    print(f"entry: {ENTRY_SWEEPS} calls of fn equal to iterate("
+          f"max_iter={ENTRY_SWEEPS}, tol=0), bit for bit; "
+          f"{window['kernels']:.1f} kernels and {window['device_ms']:.4f} "
+          f"ms of device time per sweep [{card}]")
+
+    lines = io.StringIO()
+    reset_launches(pl)
+    t1 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(lines):
+            graft_entry.dryrun_multichip(1)
+        torch.cuda.synchronize()
+    finally:
+        print(lines.getvalue(), end="")
+    dry_s = time.perf_counter() - t1
+    paths["graft_dryrun_multichip"] = read_launches(pl)
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          f"dryrun: a {dist.get_backend()} world of "
+          f"{dist.get_world_size()}")
+    stages = [line.split(" OK:")[0] for line in lines.getvalue().splitlines()
+              if line.startswith("dryrun_multichip stage")]
+    check(stages == [f"dryrun_multichip stage{k}" for k in DRYRUN_STAGES],
+          f"dryrun: stages {stages}")
+    for path, launches in paths.items():
+        check(not any(launches.values()), f"{path} ran kernels: {launches}")
+    print(f"dryrun_multichip(1) on one nccl rank: {dry_s:.1f} s; phase 18 "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    return paths
+
+
 def main():
     import torch
     # phase 1: the device
@@ -5856,6 +5945,8 @@ def main():
     gallery_launches, tree_err["gallery_fast_paths"] = phase_17(torch, pl,
                                                                 card)
     extras_launches.update(gallery_launches)
+    # phase 18: the root entry points
+    extras_launches.update(phase_18(torch, pl, card))
 
     # phase 8: summary. A main path is a solve with the posterior readout
     # that follows it: the engine's float32 relu-net solve (phase 4) and the

@@ -81,29 +81,27 @@ def test_fast_paths_main(monkeypatch):
 
 
 def test_critical_alpha_door_main_plumbing(monkeypatch):
-    "main's searches get the JAX script's arguments; their results print."
+    """main's searches get the JAX script's arguments, as the lanes of one
+    batched search (lane 0 "random" at p_pos 0.51, then "perfect" over the
+    line's p_pos); their results print."""
     calls = []
-
-    def single(**kw):
-        calls.append(kw)
-        return dict(critical_alpha_door.REFERENCE)[kw["mse_criterion"]]
 
     def batched(**kw):
         calls.append(kw)
-        return torch.full((len(kw["grid_kwargs"]["prior_p_pos"]),), 2.0)
-    monkeypatch.setattr(critical_alpha_door, "find_critical_alpha", single)
+        return torch.arange(len(kw["grid_kwargs"]["prior_p_pos"]),
+                            dtype=torch.float64)
     monkeypatch.setattr(critical_alpha_door, "find_critical_alpha_batched",
                         batched)
     found = critical_alpha_door.main(CPU)
     common = dict(id="x", a0=0.1, alpha_min=0.1, alpha_max=3.0,
                   alpha_tol=1e-3, prior_type="binary", output_type="door",
                   output_width=1.5, device=torch.device("cpu"))
-    for kw, criterion in zip(calls, ("random", "perfect", "perfect")):
-        assert kw["mse_criterion"] == criterion
-        assert {k: kw[k] for k in common} == common
-    assert calls[0]["prior_p_pos"] == calls[1]["prior_p_pos"] == 0.51
-    assert calls[2]["grid_kwargs"] == {"prior_p_pos": [0.51, 0.6, 0.7, 0.8]}
-    assert found["line"] == [2.0] * 4
+    (kw,) = calls
+    assert {k: kw[k] for k in common} == common
+    assert kw["grid_kwargs"] == {"prior_p_pos": [0.51, 0.51, 0.6, 0.7, 0.8]}
+    assert kw["mse_criterion"] == ["random"] + ["perfect"] * 4
+    assert found == {"random": 0.0, "perfect": 1.0,
+                     "line": [1.0, 2.0, 3.0, 4.0]}
 
 
 def test_door_random_criterion_flips_at_its_critical_alpha():

@@ -56,7 +56,8 @@ def test_port_imports_no_jax():
 
 def test_port_sources_import_no_jax():
     pattern = re.compile(
-        r"^\s*(import|from)\s+(jax|jaxlib|tramp_tpu)(\.|\s|$)", re.M)
+        r"^\s*(import|from)\s+(jax|jaxlib|tramp_tpu|__graft_entry__)"
+        r"(\.|\s|$)", re.M)
     sources = sorted((REPO / "tramp_tpu_torch").rglob("*.py"))
     sources += [REPO / "chip_smoke.py", REPO / "chip_kernel_times.py",
                 REPO / "chip_stop_floor.py"]
@@ -491,6 +492,33 @@ def test_every_public_name_of_the_jax_package_has_a_counterpart():
     assert not gaps, gaps
     # the list names only what the JAX package has
     assert {"ops/dft.py", "USE_PALLAS", "kernel_mode"} <= skipped
+
+
+def _root_not_ported():
+    """The files ROADMAP.md's "Root modules not ported now" list names: the
+    backquoted name that opens each item of that paragraph (to its first
+    blank line)."""
+    text = (REPO / "ROADMAP.md").read_text()
+    start = re.search(r"^Root modules not ported now", text, re.M).start()
+    section = text[start:text.index("\n\n", start)]
+    return set(re.findall(r"^- `([^`]+)`", section, re.M))
+
+
+def test_every_root_module_of_the_jax_package_has_a_counterpart():
+    """Every ``*.py`` at the repo's root that imports the JAX package
+    (``tramp_tpu``, not ``tramp_tpu_torch``) has a counterpart in the port,
+    ``tramp_tpu_torch/<its name without the outer underscores>.py``, or is
+    named in ROADMAP's "Root modules not ported now" list."""
+    imports = re.compile(r"^\s*(import|from)\s+tramp_tpu(\.|\s|$)", re.M)
+    roots = [p for p in sorted(REPO.glob("*.py"))
+             if imports.search(p.read_text())]
+    skipped = _root_not_ported()
+    missing = [p.name for p in roots if p.name not in skipped
+               and not (REPO / "tramp_tpu_torch"
+                        / f"{p.stem.strip('_')}.py").is_file()]
+    assert not missing, f"root modules without a counterpart: {missing}"
+    assert "__graft_entry__.py" in {p.name for p in roots}
+    assert skipped == {"bench.py"}
 
 
 def test_structured_factors_need_a_card_or_an_explicit_cpu():

@@ -186,6 +186,24 @@ def test_critical_alpha_sequential_and_random_criterion():
             **dict(kw, alpha_max=0.1))
 
 
+def test_batched_criterion_per_line():
+    """A criterion name per line gives each line the alpha of a search with
+    that criterion alone; a list of the wrong length raises."""
+    kw = dict(id="x", a0=0, alpha_min=1e-5, alpha_max=2.0, alpha_tol=0.01,
+              model_builder=tt.glm_state_evolution, device="cpu",
+              grid_kwargs={"prior_rho": [0.25, 0.5]}, **CS)
+    mixed = experiments.find_critical_alpha_batched(
+        mse_criterion=["perfect", "random"], **kw)
+    alone = [experiments.find_critical_alpha_batched(mse_criterion=name,
+                                                     **kw)[line]
+             for line, name in enumerate(("perfect", "random"))]
+    assert mixed.tolist() == alone
+    assert mixed[1] < mixed[0]
+    with pytest.raises(ValueError, match="for 2 lines"):
+        experiments.find_critical_alpha_batched(mse_criterion=["perfect"],
+                                                **kw)
+
+
 def _generative(pkg, W):
     if pkg is tt:
         prior = GaussBernoulliPrior(size=W.shape[1], rho=0.3, device="cpu",

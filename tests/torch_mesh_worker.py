@@ -7,8 +7,11 @@ Usage: python torch_mesh_worker.py <scenario> <rank> <world> <port> <dir>
 ``dir`` holds ``inputs.npz``, the instances the parent made with numpy from
 a seed, and receives ``rank<r>_of_<world>.npz``, this rank's results, keyed
 ``<mesh>/<what>``. Scenarios: ``solvers`` (tests/test_torch_mesh.py),
-``complex`` (tests/test_torch_mesh_complex.py) and ``grid_checkpoint``
-(tests/test_torch_mesh_grid_checkpoint.py).
+``complex`` (tests/test_torch_mesh_complex.py), ``grid_checkpoint``
+(tests/test_torch_mesh_grid_checkpoint.py) and ``graft``
+(tests/test_torch_graft_entry.py; ``dir`` holds ``models.pkl`` and, for
+a world of 2, ``stage4.pkl``, the converter's descriptions of the JAX
+package's instances, in place of ``inputs.npz``).
 
 ``launch`` starts a world of these processes from a test and waits for it,
 killing every process at its time limit.
@@ -39,6 +42,9 @@ GRID_KW = dict(ids=("x",), a0=0.0, prior_type="gauss_bernoulli",
                output_type="gaussian", output_var=1e-2)
 # the elastic checkpoint of tests/test_parallel.py:320-370
 CUT, FULL = 7, 100
+# graft_entry's stage 4 below its N = 4096, whose host SVD takes seconds:
+# the finite-N band holds for the instance of this N
+STAGE4_N = 1536
 
 
 def free_port():
@@ -370,6 +376,66 @@ def grid_checkpoint(torch, tt, parallel, world, data, out, path):
                    *ep(FULL - CUT).solve_batch(sharded, state=state))
 
 
+def graft(torch, world, path, out):
+    """tramp_tpu_torch.graft_entry's stages in this world: stage 2 on the
+    (2, 2) mesh on the JAX package's instances (world 4), stage 4 at
+    ``STAGE4_N`` on (1, world), and on (1, 2) also on the JAX package's
+    stage-4 instance of that N (``stage4.pkl``: its description and the
+    teacher's x), stage 3 on (world,), and the error of
+    a dryrun for twice the world's size; in a world of one,
+    ``dryrun_multichip(1)`` whole with stage 4 at ``STAGE4_N``, its lines
+    kept."""
+    import contextlib
+    import functools
+    import io
+    import pickle
+    from tramp_tpu_torch import convert, graft_entry, parallel
+    cpu = torch.device("cpu")
+    if world == 1:
+        graft_entry._dryrun_model_parallel = functools.partial(
+            graft_entry._dryrun_model_parallel, N=STAGE4_N)
+        lines = io.StringIO()
+        with contextlib.redirect_stdout(lines):
+            graft_entry.dryrun_multichip(1, device="cpu")
+        out["dryrun/lines"] = np.array(lines.getvalue().splitlines())
+        return
+    if world == 4:
+        with open(os.path.join(path, "models.pkl"), "rb") as f:
+            models = [convert.model_from_description(d, device="cpu",
+                                                     dtype=torch.float64)
+                      for d in pickle.load(f)]
+        mesh = parallel.make_mesh((2, 2), device="cpu")
+        post, n_iter = graft_entry._stage2(models, mesh)
+        for k in ("r", "v"):
+            out[f"stage2/{k}"] = post["x"][k].numpy()
+        out["stage2/n_iter"] = n_iter.numpy()
+    out["error_world"] = np.array(_error(
+        lambda: graft_entry.dryrun_multichip(2 * world, device="cpu")))
+    readings = graft_entry._dryrun_model_parallel(world, N=STAGE4_N,
+                                                  device="cpu")
+    for k, v in readings.items():
+        if v is not None:
+            out[f"stage4/{k}"] = np.array(v)
+    if world == 2:
+        # stage 4's solve on the JAX package's own instance
+        with open(os.path.join(path, "stage4.pkl"), "rb") as f:
+            description, x = pickle.load(f)
+        student = convert.model_from_description(description, device="cpu",
+                                                 dtype=torch.float64)
+        readings, post = graft_entry._model_parallel(
+            student, torch.from_numpy(x), parallel.make_mesh((1, 2),
+                                                             device="cpu"),
+            alpha=0.5, rho=0.25, noise_var=1e-2)
+        for k in ("r", "v"):
+            out[f"stage4jax/{k}"] = post["x"][k][0].numpy()
+        for k in ("n_iter", "v", "mse", "v_se", "ratio"):
+            out[f"stage4jax/{k}"] = np.array(readings[k])
+    df, wrote = graft_entry._stage3(world, cpu)
+    for k in ("alpha", "prior_rho", "v"):
+        out[f"stage3/{k}"] = df[k].to_numpy()
+    out["stage3/wrote"] = np.array(wrote)
+
+
 def main():
     scenario, rank, world, port, path = sys.argv[1:6]
     rank, world = int(rank), int(world)
@@ -380,15 +446,18 @@ def main():
                             rank=rank, world_size=world)
     import tramp_tpu_torch as tt
     from tramp_tpu_torch import parallel
-    with np.load(os.path.join(path, "inputs.npz")) as f:
-        data = {k: f[k] for k in f.files}
     out = {}
-    if scenario == "solvers":
-        solvers(torch, tt, parallel, world, data, out)
-    elif scenario == "complex":
-        complex_solves(torch, tt, parallel, world, data, out)
+    if scenario == "graft":
+        graft(torch, world, path, out)
     else:
-        grid_checkpoint(torch, tt, parallel, world, data, out, path)
+        with np.load(os.path.join(path, "inputs.npz")) as f:
+            data = {k: f[k] for k in f.files}
+        if scenario == "solvers":
+            solvers(torch, tt, parallel, world, data, out)
+        elif scenario == "complex":
+            complex_solves(torch, tt, parallel, world, data, out)
+        else:
+            grid_checkpoint(torch, tt, parallel, world, data, out, path)
     np.savez(os.path.join(path, f"rank{rank}_of_{world}.npz"), **out)
     dist.barrier()
     dist.destroy_process_group()

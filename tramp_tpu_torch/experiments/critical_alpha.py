@@ -91,7 +91,8 @@ def find_critical_alpha_batched(id, a0, mse_criterion, alpha_min, alpha_max,
         a numeric hyperparameter of its factor, so the L models stack.
         Structural kwargs (e.g. ``output_width``) go in ``model_kwargs`` and
         are shared by all lines.
-    mse_criterion : "perfect" | "random" | callable v -> bool array.
+    mse_criterion : "perfect" | "random" | a sequence of L of these names,
+        one per line | callable v -> bool array.
 
     Returns an np.ndarray of L critical alphas, identical to running the
     sequential ``find_critical_alpha`` per line (same bisection schedule:
@@ -119,16 +120,18 @@ def find_critical_alpha_batched(id, a0, mse_criterion, alpha_min, alpha_max,
         return stack_models(models, device=solver.engine.device,
                             dtype=solver.engine.dtype)
 
-    if mse_criterion == "perfect":
-        def mse_criterion(v):
-            return np.abs(v) < vtol
-    elif mse_criterion == "random":
+    if not callable(mse_criterion):
+        names = ([mse_criterion] * L if isinstance(mse_criterion, str)
+                 else list(mse_criterion))
+        if len(names) != L or not set(names) <= {"perfect", "random"}:
+            raise ValueError(f"mse_criterion {mse_criterion!r} for {L} lines")
+        random = np.array([name == "random" for name in names])
         tau_x = np.array([
             _tau(model_builder(alpha=0.5, **kwargs_for(line)), id)
-            for line in range(L)])
+            if random[line] else 0.0 for line in range(L)])
 
         def mse_criterion(v):
-            return np.abs(v - tau_x) > vtol
+            return np.where(random, np.abs(v - tau_x) > vtol, np.abs(v) < vtol)
 
     def f(alphas):
         "One batched SE solve over all L lines; returns bool array (L,)."
