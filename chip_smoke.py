@@ -18,7 +18,11 @@ line is printed):
    rtol times the stream's largest magnitude: the five-output posterior
    kernel with CUDA-event times per call of both, and the forward and
    backward message kernels on a_new and b_new, also with per-element
-   precisions, with n = 1 and with an n that is no multiple of 4. Then, at
+   precisions, with n = 1 and with an n that is no multiple of 4; with
+   lanes, every layout of the message kernels (one block per lane up to
+   4096 elements, one cluster per lane, two launches) at 2, 3 and 257
+   lanes, for two and three regions and a channel of four, each lane
+   against its single launch (the same bits). Then, at
    the main path's case (relu, n = 2048, float32) and in turns (old, new,
    new, old), the composition the sweep ran before the fusion (five-output
    kernel, torch.mean, compute_ab_new) against the fused message: time per
@@ -650,20 +654,23 @@ def lane_inputs(torch, lanes, n, dtype, seed):
     return t(1.2 + rng.rand(lanes, 1)), bz, t(0.4 + rng.rand(lanes, 1)), bx
 
 
-def hold(torch, what, names, got, want, rtol, floor=0.0):
+def hold(torch, what, names, got, want, rtol, floor=0.0, slack=None):
     """Check every stream of ``got`` against ``want``, relative to each
     element with a floor of rtol times the larger of the stream's largest
-    magnitude and ``floor``; returns (worst error over tolerance, largest
-    absolute error)."""
+    magnitude and ``floor``, plus ``slack`` (a tensor per stream, added to
+    each element's bound) where given. Returns (worst error over
+    tolerance, largest absolute error)."""
     worst, max_err = 0.0, 0.0
     check(len(got) == len(want) == len(names), f"{what}: {len(got)} outputs")
-    for name, g, w in zip(names, got, want):
+    for k, (name, g, w) in enumerate(zip(names, got, want)):
         check(g.shape == w.shape and g.dtype == w.dtype,
               f"{what}: {name} is {tuple(g.shape)} {g.dtype}, plain "
               f"{tuple(w.shape)} {w.dtype}")
         check(bool(torch.isfinite(g).all()), f"{what}: {name} not finite")
         err = (g - w).abs()
         bound = rtol * (w.abs() + torch.clamp(w.abs().max(), min=floor))
+        if slack is not None:
+            bound = bound + slack[k]
         ratio = float((err / bound).max())
         check(ratio <= 1.0, f"{what}: {name} off its plain version by "
                             f"{ratio:.3g} x rtol {rtol:g}")
@@ -795,6 +802,138 @@ def compare_lanes(torch, pl, channels, lanes=3):
                 print(line + "; every lane bit-identical to its single "
                       "launch")
     return max_err
+
+
+def layout_inputs(torch, lanes, n, dtype, seed, per_element=None):
+    """Messages (lanes, n) with a precision per lane, (lanes, 1), or, for
+    ``per_element`` "az" or "ax", that side's precision per element."""
+    az, bz, ax, bx = lane_inputs(torch, lanes, n, dtype, seed)
+    rng = np.random.RandomState(seed + 1)
+    if per_element == "az":
+        az = az + torch.as_tensor(rng.rand(lanes, n), device="cuda",
+                                  dtype=dtype)
+    elif per_element == "ax":
+        ax = ax + torch.as_tensor(rng.rand(lanes, n), device="cuda",
+                                  dtype=dtype)
+    return az, bz, ax, bx
+
+
+ROUNDING_UNITS = 16    # see plain_rounding
+
+
+def plain_rounding(torch, pl, name, args, specs, want):
+    """What rounding alone may move each output ``want`` of the plain
+    version by, per element. In float32: twice its distance from the plain
+    version in float64 (each version rounds in its own order). In float64,
+    which has no wider type on the card: a lane's mean variance v is a
+    difference of terms as large as the lane's mean of r^2 + v, so rounding
+    moves it by ROUNDING_UNITS epsilons of that (sums of K products r_k^2
+    and the moments before them, each off by a few units, in each version),
+    and a_new = 1 / v - a and b_new = r (a + a_new) - b follow v's relative
+    error."""
+    from tramp_tpu_torch.lanes import lane_mean
+    plain = getattr(pl, f"{name}_plain")
+    if want[0].dtype == torch.float32:
+        wide = plain(*(a.double() for a in args), specs)
+        return [(2 * (w.double() - x).abs()).float()
+                for w, x in zip(want, wide)]
+    az, bz, ax, bx = args
+    rz, vz, rx, vx, _ = pl.pl_posterior_plain(*args, specs)
+    forward = name == "pl_forward_message"
+    r, v, a = (rx, vx, ax) if forward else (rz, vz, az)
+    cond = lane_mean(r * r + v, az, ax) / lane_mean(v, az, ax)
+    rel = ROUNDING_UNITS * torch.finfo(bz.dtype).eps * cond
+    inverse = (a + want[0]).abs()
+    return rel * inverse, rel * (r * inverse).abs()
+
+
+#: lanes and n of the message kernels' layouts with lanes (phase 3 and
+#: tests/test_torch_pl_message.py): one block per lane up to pl.LANE_MAX
+#: elements (several lanes per block up to 1024), one cluster per lane up to
+#: pl.CLUSTER_MAX, and the two launches above it
+LAYOUT_LANES = (2, 3, 257)
+LAYOUT_SIZES = (1, 31, 511, 512, 513, 2048, 2049, 4096, 4097)
+
+
+def stairs():
+    """A channel of four regions, more than any of the repo's: its kernels
+    are built with other launch bounds (kLaneMinBlocks in
+    csrc/pl_message.cu)."""
+    from tramp_tpu_torch.channels import PiecewiseLinearChannel
+    inf = math.inf
+    return PiecewiseLinearChannel("stairs", [
+        dict(zmin=1.0, zmax=inf, slope=0.0, x0=1.0),
+        dict(zmin=0.0, zmax=1.0, slope=1.0, x0=0.0),
+        dict(zmin=-1.0, zmax=0.0, slope=0.5, x0=0.0),
+        dict(zmin=-inf, zmax=-1.0, slope=0.0, x0=-0.5)])
+
+
+def compare_lane_layouts(torch, pl, channels, dtypes=None,
+                         per_elements=(None, "az", "ax")):
+    """Phase 3, the message kernels' layouts with lanes: LAYOUT_LANES lanes
+    of every n of LAYOUT_SIZES and pl.LANE_MAX (+ 1), a precision per lane
+    or per element of either side (``per_elements``): each against its
+    plain version, and every lane against the single launch on its data
+    (the same bits). An element may also differ by what rounding alone
+    moves it by (``plain_rounding``): with one element a lane the hard
+    tanh's x-side variance is a difference of nearly equal terms (r^2 / v
+    up to 1.3e7), where float32 rounding alone moves a_new by up to 60% and
+    float64 rounding by more than 1e-10."""
+    messages = {"pl_forward_message": (pl.pl_forward_message,
+                                       pl.pl_forward_message_plain),
+                "pl_backward_message": (pl.pl_backward_message,
+                                        pl.pl_backward_message_plain)}
+    sizes = tuple(sorted(set(LAYOUT_SIZES)
+                         | {pl.LANE_MAX, pl.LANE_MAX + 1}))
+    for dtype in dtypes or (torch.float64, torch.float32):
+        dname = dtype_name(dtype)
+        worst, largest = (dict.fromkeys(messages, 0.0) for _ in range(2))
+        for lanes in LAYOUT_LANES:
+            for n in sizes:
+                for channel in channels:
+                    for per_element in per_elements:
+                        args = layout_inputs(torch, lanes, n, dtype,
+                                             n + lanes, per_element)
+                        specs = channel.region_specs
+                        what = (f"{channel.name} {dname} {lanes} lanes of "
+                                f"n={n}, {per_element or 'a'} per "
+                                f"{'element' if per_element else 'lane'}")
+                        for name, (fused, plain) in messages.items():
+                            before = fused.launches
+                            got = fused(*args, specs)
+                            check(fused.launches - before == (
+                                      1 if n <= pl.CLUSTER_MAX else 2),
+                                  f"{name} {what}: "
+                                  f"{fused.launches - before} launches")
+                            want = plain(*args, specs)
+                            slack = plain_rounding(torch, pl, name, args,
+                                                   specs, want)
+                            torch.cuda.synchronize()
+                            ratio, err = hold(torch, f"{name} {what}",
+                                              ("a_new", "b_new"), got, want,
+                                              RTOL[dname], slack=slack)
+                            worst[name] = max(worst[name], ratio)
+                            largest[name] = max(largest[name], err)
+                            for i in range(lanes):
+                                single = fused(*(
+                                    a[i] if a.shape[1] == n else a[i, 0]
+                                    for a in args), specs)
+                                check(torch.equal(
+                                    got[0][i].reshape(single[0].shape),
+                                    single[0])
+                                    and torch.equal(got[1][i], single[1]),
+                                    f"{name} {what}: lane {i} differs from "
+                                    "its single launch")
+        print(f"lane layouts vs plain: {dname}, "
+              f"{', '.join(c.name for c in channels)}, "
+              f"{', '.join(map(str, LAYOUT_LANES))} lanes of n in {sizes}, "
+              f"a per lane or per element of either side: "
+              + ", ".join(f"{k[3:]} worst err/tol={v:.2e}"
+                          for k, v in worst.items())
+              + ", largest abs err " + ", ".join(
+                  f"{k[3:]} {v:.3g}" for k, v in largest.items())
+              + f" (rtol {RTOL[dname]:g}); every lane bit-identical to its "
+              "single launch")
 
 
 def hold_main_shape(torch, pl, channel):
@@ -5781,6 +5920,9 @@ def main():
     max_err.update(compare_messages(torch, pl, channels))
     for name, err in compare_lanes(torch, pl, (relu, tanh)).items():
         max_err[name] = max(max_err[name], err)
+    # (its largest absolute errors are printed, not merged: at one element
+    # a lane, a_new reaches 1e7 where the hard tanh's variance cancels)
+    compare_lane_layouts(torch, pl, (relu, tanh, stairs()))
     time_fusion(torch, pl, base, relu.region_specs)
     table = kernel_table(torch, pl, (relu, tanh), card)
     main_args = inputs(torch, 2048, torch.float32, 3)

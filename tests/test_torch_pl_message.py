@@ -20,14 +20,12 @@ floor of rtol times the array's largest finite magnitude):
   (``compute_*_posterior`` then ``compute_ab_new``, the base Channel's
   methods): bit-identical.
 """
-import jax.numpy as jnp
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
-
-from tramp_tpu import base as jbase
-from tramp_tpu import channels as jchannels
-from tramp_tpu.ops import fused_pl_posterior
 
 from tramp_tpu_torch import channels
 from tramp_tpu_torch.channels.base_channel import Channel
@@ -35,8 +33,11 @@ from tramp_tpu_torch.ops import (
     pl_forward_message, pl_backward_message,
     pl_forward_message_plain, pl_backward_message_plain,
 )
+from tramp_tpu_torch.ops import pl_fused
 
-from torch_parity import assert_close
+# chip_smoke.py, at the root: the layouts and the card's checks of them
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 
 F64 = torch.float64
 PL_CHANNELS = {
@@ -55,8 +56,21 @@ DIRECTIONS = {
 N = 203  # no multiple of 4 or 128
 
 
+def _jax():
+    """(jax.numpy, tramp_tpu.base, tramp_tpu.channels, the JAX kernel's
+    entry point, the parity check), imported at first use: the card-only
+    cases at the end of this file run where JAX is not installed."""
+    import jax.numpy as jnp
+    from tramp_tpu import base as jbase
+    from tramp_tpu import channels as jchannels
+    from tramp_tpu.ops import fused_pl_posterior
+    from torch_parity import assert_close
+    return jnp, jbase, jchannels, fused_pl_posterior, assert_close
+
+
 def _pair(name):
     cls, kw = PL_CHANNELS[name]
+    jchannels = _jax()[2]
     return getattr(channels, cls)(**kw), getattr(jchannels, cls)(**kw)
 
 
@@ -77,6 +91,7 @@ def _t(x):
 @pytest.mark.parametrize("direction", list(DIRECTIONS))
 @pytest.mark.parametrize("name", list(PL_CHANNELS))
 def test_message_matches_jax_channel(name, direction, precisions):
+    jnp, _, _, _, assert_close = _jax()
     port, ref = _pair(name)
     fused, _, method = DIRECTIONS[direction]
     args = _inputs(precisions == "per_element")
@@ -91,6 +106,7 @@ def test_message_matches_jax_channel(name, direction, precisions):
 @pytest.mark.parametrize("name", ["relu", "abs", "h-tanh"])
 def test_message_matches_pallas_interpret(name):
     "Half-infinite regions with and without slope, and a finite one."
+    jnp, jbase, _, fused_pl_posterior, assert_close = _jax()
     port, ref = _pair(name)
     az, bz, ax, bx = _inputs(False)
     rz, vz, rx, vx, _ = fused_pl_posterior(
@@ -158,6 +174,7 @@ def _lane_tensors(az, bz, ax, bx):
 def test_lane_message_matches_vmapped_jax_channel(name, direction):
     """Per-lane precisions against ``jax.vmap`` of the JAX channel's message
     (its jnp region path on the CPU): rtol 1e-10."""
+    jnp, _, _, _, assert_close = _jax()
     import jax
     port, ref = _pair(name)
     fused, plain, method = DIRECTIONS[direction]
@@ -173,6 +190,7 @@ def test_lane_message_matches_vmapped_jax_channel(name, direction):
 def test_lane_message_matches_vmapped_pallas_interpret():
     """The JAX kernel under ``jax.vmap`` in interpret mode, then the JAX
     ``compute_ab_new`` per lane: rtol 1e-10."""
+    jnp, jbase, _, fused_pl_posterior, assert_close = _jax()
     import jax
     port, ref = _pair("h-tanh")
     args = _lane_inputs()
@@ -200,6 +218,7 @@ def test_lane_of_a_batched_message_is_the_single_message(direction, other):
     """Lane i of a batched call against the single call on lane i's data
     (rtol 1e-13: a mean along an axis may sum in another order than a mean
     over everything), whatever the shape of the other side's precision."""
+    assert_close = _jax()[4]
     fused, _, _ = DIRECTIONS[direction]
     specs = channels.HardTanhChannel().region_specs
     az, bz, ax, bx = _lane_tensors(*_lane_inputs(seed=23))
@@ -232,3 +251,136 @@ def test_lane_message_keeps_a_nan_in_its_lane(direction):
     a_new, b_new = fused(az, bz, ax, bx, channels.ReluChannel().region_specs)
     assert torch.isnan(a_new).reshape(B).tolist() == [False, True, False]
     assert torch.isnan(b_new).all(1).tolist() == [False, True, False]
+
+
+# -- the laned layouts: shapes and scratch on meta tensors, kernels on a card
+
+#: n of every layout a message with lanes takes: one block per lane (up to
+#: pl_fused.LANE_MAX, several lanes per block up to 1024), one cluster per
+#: lane (up to CLUSTER_MAX) and two launches
+LAYOUT_N = tuple(sorted(set(chip_smoke.LAYOUT_SIZES)
+                        | {pl_fused.LANE_MAX, pl_fused.LANE_MAX + 1}))
+LAYOUT_LANES = chip_smoke.LAYOUT_LANES
+#: which precision is one per element; the other is one per lane
+PRECISIONS = {"per_lane": None, "az_per_element": 0, "ax_per_element": 2}
+
+
+def _layout_inputs(lanes, n, precisions, dtype=F64, device="cpu", seed=0):
+    """(az, bz, ax, bx): messages (lanes, n), precisions (lanes, 1) or
+    (lanes, n)."""
+    rng = np.random.RandomState(seed)
+    out = [1.2 + rng.rand(lanes, 1), 2 * rng.randn(lanes, n),
+           0.4 + rng.rand(lanes, 1), 2 * rng.randn(lanes, n)]
+    which = PRECISIONS[precisions]
+    if which is not None:
+        out[which] = out[which] + rng.rand(lanes, n)
+    return tuple(torch.as_tensor(x, dtype=dtype, device=device) for x in out)
+
+
+@pytest.mark.parametrize("precisions", list(PRECISIONS))
+@pytest.mark.parametrize("direction", list(DIRECTIONS))
+@pytest.mark.parametrize("lanes", LAYOUT_LANES)
+def test_lane_message_shapes_on_meta(lanes, direction, precisions):
+    """On meta tensors the outputs have the plain version's shapes and
+    dtype for every layout's n: a_new per element for a precision per
+    element of the message's own side, else one per lane."""
+    fused, plain, _ = DIRECTIONS[direction]
+    specs = channels.ReluChannel().region_specs
+    for n in LAYOUT_N + (pl_fused.CLUSTER_MAX, pl_fused.CLUSTER_MAX + 1):
+        args = _layout_inputs(lanes, n, precisions)
+        want = plain(*args, specs) if n < 600 else None
+        got = fused(*(t.to("meta") for t in args), specs)
+        own = args[2] if direction == "forward" else args[0]
+        shapes = (own.shape if own.shape[1] == n else (lanes, 1),
+                  (lanes, n))
+        for g, shape in zip(got, shapes):
+            assert g.device.type == "meta" and g.dtype == F64
+            assert g.shape == shape, (n, g.shape, shape)
+        if want is not None:
+            assert [w.shape for w in want] == [g.shape for g in got]
+
+
+@pytest.mark.parametrize("lanes", LAYOUT_LANES)
+def test_one_launch_with_lanes_allocates_no_partials(lanes, monkeypatch):
+    """The wrapper allocates the scratch row of block sums only where a
+    message is two launches (above CLUSTER_MAX elements per lane): none on
+    the one-block-per-lane or one-cluster-per-lane layouts, one row of
+    ceil(n / 512) doubles per lane above."""
+    seen = []
+    outputs = pl_fused._message_outputs
+
+    def spy(*args):
+        out = outputs(*args)
+        seen.append(out[2])
+        return out
+    monkeypatch.setattr(pl_fused, "_message_outputs", spy)
+    specs = channels.ReluChannel().region_specs
+    for n in LAYOUT_N + (pl_fused.CLUSTER_MAX, pl_fused.CLUSTER_MAX + 300):
+        for fused, _, _ in DIRECTIONS.values():
+            fused(*(t.to("meta") for t in _layout_inputs(lanes, n,
+                                                         "per_lane")),
+                  specs)
+            partials = seen.pop()
+            if n <= pl_fused.CLUSTER_MAX:
+                assert partials is None, n
+            else:
+                assert partials.shape == (lanes, -(-n // 512))
+                assert partials.dtype == F64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precisions", list(PRECISIONS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["float32", "float64"])
+@pytest.mark.parametrize("name", ["relu", "h-tanh", "stairs"])
+def test_lane_messages_on_card(name, dtype, precisions):
+    """Each layout with lanes against the plain version on the card, rtol
+    1e-4 in float32 and 1e-10 in float64, relative to each element with a
+    floor of rtol times the stream's largest magnitude, plus what rounding
+    alone moves an element by; one launch counted up to CLUSTER_MAX
+    elements per lane, two above; and every lane with the bits of the
+    single launch on its data. The checks are phase 3's own
+    (``chip_smoke.compare_lane_layouts``), here one channel, float type and
+    precision layout a case; "stairs" has four regions, more than any
+    channel of the repo."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    if name == "stairs":
+        channel = chip_smoke.stairs()
+    else:
+        cls, kw = PL_CHANNELS[name]
+        channel = getattr(channels, cls)(**kw)
+    chip_smoke.compare_lane_layouts(
+        torch, pl_fused, (channel,), dtypes=(dtype,),
+        per_elements=({"per_lane": None, "az_per_element": "az",
+                       "ax_per_element": "ax"}[precisions],))
+
+
+def test_message_kernels_build_without_contraction(monkeypatch, tmp_path):
+    """The message kernels are compiled with -fmad=false, and the posterior
+    kernel without it: lane i of a batched message has its single launch's
+    bits because nvcc fuses no product that csrc/pl_common.cuh does not
+    fuse itself. The commands are read from a build whose nvcc fails."""
+    commands = []
+
+    class Failing:
+        returncode = 1
+
+        def __init__(self, cmd, **kwargs):
+            commands.append(cmd)
+
+        def wait(self):
+            return 1
+    monkeypatch.setattr(pl_fused, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(pl_fused, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(pl_fused.subprocess, "Popen", Failing)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        pl_fused.build()
+    by_source = {}
+    for cmd in commands:
+        by_source.setdefault(Path(cmd[-1]).name, []).append(cmd)
+    assert sorted(by_source) == ["pl_message.cu", "pl_posterior.cu"]
+    for source, cmds in by_source.items():
+        assert len(cmds) == 2  # float32 and float64
+        for cmd in cmds:
+            assert ("-fmad=false" in cmd) == (source == "pl_message.cu")

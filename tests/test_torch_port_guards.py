@@ -494,6 +494,105 @@ def test_every_public_name_of_the_jax_package_has_a_counterpart():
     assert {"ops/dft.py", "USE_PALLAS", "kernel_mode"} <= skipped
 
 
+#: parameters the port renames on purpose: a JAX PRNG key is a
+#: ``torch.Generator`` there
+PORT_PARAMETER = {"key": "generator"}
+
+
+def _jax_parameter_names(path):
+    """{public function or ``Class.method``: its named parameters, without
+    ``self`` and ``cls``} of a tramp_tpu source file, read with ``ast``;
+    properties are left out."""
+    import ast
+
+    def named(f):
+        a = f.args
+        return [p.arg for p in a.posonlyargs + a.args + a.kwonlyargs
+                if p.arg not in ("self", "cls")]
+
+    def public(f):
+        return (isinstance(f, ast.FunctionDef) and not f.name.startswith("_")
+                and not any(isinstance(d, ast.Name) and d.id == "property"
+                            for d in f.decorator_list))
+    out = {}
+    for node in ast.parse(path.read_text()).body:
+        if public(node):
+            out[node.name] = named(node)
+        elif isinstance(node, ast.ClassDef) and not node.name.startswith("_"):
+            for f in node.body:
+                if public(f):
+                    out[f"{node.name}.{f.name}"] = named(f)
+    return out
+
+
+def test_every_public_callable_takes_the_jax_parameter_names():
+    """Every public function of ``tramp_tpu``, and every public method of
+    its public classes, has a counterpart in ``tramp_tpu_torch`` that takes
+    each of its named parameters by that name, unless the counterpart takes
+    ``**kwargs`` or ROADMAP's "Code not to port" list names the parameter
+    (as `function(parameter)` or `Class.method(parameter)`). A JAX PRNG
+    ``key`` is the port's ``generator`` (``PORT_PARAMETER``)."""
+    import importlib
+    import inspect
+    skipped = _not_to_port()
+    gaps = []
+    for path in sorted((REPO / "tramp_tpu").rglob("*.py")):
+        rel = path.relative_to(REPO / "tramp_tpu")
+        parts = list(rel.with_suffix("").parts)
+        if parts[-1] == "__init__":
+            parts.pop()
+        if any(str(rel).endswith(s) for s in skipped):
+            continue
+        module = importlib.import_module(".".join(["tramp_tpu_torch"]
+                                                  + parts))
+        for qualname, names in _jax_parameter_names(path).items():
+            if qualname.split(".")[0] in skipped:
+                continue
+            port = module
+            for attr in qualname.split("."):
+                port = getattr(port, attr)
+            try:
+                params = inspect.signature(port).parameters
+            except (TypeError, ValueError):
+                gaps.append(f"{module.__name__}.{qualname}: no signature")
+                continue
+            if any(p.kind == p.VAR_KEYWORD for p in params.values()):
+                continue
+            gaps += [f"{module.__name__}.{qualname}({name})"
+                     for name in names
+                     if PORT_PARAMETER.get(name, name) not in params
+                     and f"{qualname}({name})" not in skipped]
+    assert not gaps, gaps
+    # the list's parameter entries name what the JAX package has
+    assert "fused_pl_posterior(interpret)" in skipped
+
+
+def test_parameters_named_as_in_the_jax_package_are_taken():
+    """The three callables whose parameter names the guard above asks for:
+    ``n`` and ``n_nodes`` change nothing (the JAX package does not use them
+    either), and ``stack_pytrees(trees=...)`` is ``stack_models``."""
+    import math
+    import tramp_tpu_torch as tt
+    from tramp_tpu_torch.ensembles.marchenko_pastur_ensemble import (
+        MarchenkoPasturEnsemble)
+    from tramp_tpu_torch.parallel import stack_models, stack_pytrees
+    from tramp_tpu_torch.utils.integration import truncated_gaussian_measure
+    m, s = (torch.tensor(v, dtype=torch.float64) for v in (0.3, 1.2))
+    want = truncated_gaussian_measure(m, s, 0.0, math.inf, torch.cos)
+    got = truncated_gaussian_measure(m, s, 0.0, math.inf, torch.cos, n=7)
+    assert torch.equal(got, want)
+    ensemble = MarchenkoPasturEnsemble(alpha=0.5)
+    assert torch.equal(ensemble.measure(torch.sin, n_nodes=3),
+                       ensemble.measure(torch.sin))
+    models = [tt.glm_state_evolution(
+        alpha=alpha, prior_type="gauss_bernoulli", output_type="gaussian",
+        prior_rho=0.25, output_var=1e-2) for alpha in (0.5, 0.7)]
+    got = stack_pytrees(trees=models, device="cpu")
+    want = stack_models(models, device="cpu")
+    assert torch.equal(got.factors[1].alpha, want.factors[1].alpha)
+    assert got.factors[1].alpha.flatten().tolist() == [0.5, 0.7]
+
+
 def _root_not_ported():
     """The files ROADMAP.md's "Root modules not ported now" list names: the
     backquoted name that opens each item of that paragraph (to its first

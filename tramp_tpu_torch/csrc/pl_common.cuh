@@ -22,6 +22,13 @@
 // log-partition takes ONE logarithm, log(sqrt(2 pi v0) L). Each such step
 // differs from the plain version's by an ulp or two, far inside the stated
 // tolerances.
+//
+// Rounding is written out. Every product that feeds a sum in the hot path
+// is an explicit fused multiply-add (m_fma), and pl_message.cu is compiled
+// with -fmad=false, so that nvcc contracts nothing on its own there: each
+// operation rounds as the source says, and two kernels that compute an
+// element through these functions give it the same bits however they are
+// unrolled, inlined or scheduled.
 
 #pragma once
 
@@ -99,6 +106,13 @@ __device__ __forceinline__ float m_erf(float x) { return erff(x); }
 __device__ __forceinline__ double m_erf(double x) { return erf(x); }
 __device__ __forceinline__ float m_erfcx(float x) { return erfcxf(x); }
 __device__ __forceinline__ double m_erfcx(double x) { return erfcx(x); }
+// a * b + c rounded once
+__device__ __forceinline__ float m_fma(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double m_fma(double a, double b, double c) {
+  return fma(a, b, c);
+}
 
 // |u| beyond which erfc(u) / 2 is below half an ulp of 1: there
 // log Phi(u sqrt2) rounds to 0. erfc(6) = 2.2e-17, erfc(4) = 1.5e-8.
@@ -183,13 +197,13 @@ __device__ __forceinline__ void g_finite(T x, T y, T& L, T& add, T& g1,
     // the two one-sided regimes are mirror images: with s = +-1,
     // den = s (erfcx(s X) - D erfcx(s Y))
     const T s = pos ? T(1) : T(-1);
-    const T D = m_exp(X * X - Y * Y);
-    const T den = s * (m_erfcx(s * X) - D * m_erfcx(s * Y));
+    const T D = m_exp(m_fma(X, X, -(Y * Y)));
+    const T den = s * m_fma(-D, m_erfcx(s * Y), m_erfcx(s * X));
     const T inv_den = T(1) / den;
     L = T(0.5) * m_abs(den);
     add = -(X * X);
     f1 = (T(1) - D) * inv_den;
-    f2 = (X - D * Y) * inv_den;
+    f2 = m_fma(-D, Y, X) * inv_den;
   } else if (close) {
     const T e = Y - X;
     const T x2 = X * X;
@@ -213,13 +227,13 @@ __device__ __forceinline__ void g_finite(T x, T y, T& L, T& add, T& g1,
                        T(1.0 / 3.0) * X * e3 +
                        T(1.0 / 90.0) * (T(2) * x4 + T(3) * x2 - T(8)) * e4);
   } else {
-    const T D = m_exp(X * X - Y * Y);
+    const T D = m_exp(m_fma(X, X, -(Y * Y)));
     const T d = m_erf(Y) - m_erf(X);
     const T ex_d = m_exp(-(X * X)) / d;
     L = T(0.5) * m_abs(d);
     add = T(0);
     f1 = ex_d * (T(1) - D);
-    f2 = ex_d * (X - D * Y);
+    f2 = ex_d * m_fma(-D, Y, X);
   }
   g1 = T(kSqrt2OverPi) * f1;
   g2 = T(kTwoOverSqrtPi) * f2;
@@ -234,8 +248,8 @@ __device__ __forceinline__ void region_moments(const Regions<T>& rg, int k,
                                                T az, T bz, T ax, T bx,
                                                T& mean, T& var, T& A) {
   const T x0 = rg.x0[k];
-  const T a = az + rg.slope2[k] * ax;
-  const T b = bz + rg.slope[k] * (bx - ax * x0);
+  const T a = m_fma(rg.slope2[k], ax, az);
+  const T b = m_fma(rg.slope[k], m_fma(-ax, x0, bx), bz);
   const T s0 = m_rsqrt(a);      // sqrt(v0)
   const T v0 = s0 * s0;         // 1 / a
   const T inv_s0 = a * s0;      // 1 / sqrt(v0)
@@ -253,11 +267,11 @@ __device__ __forceinline__ void region_moments(const Regions<T>& rg, int k,
     g_finite((rg.zmin[k] - r0) * inv_s0, (rg.zmax[k] - r0) * inv_s0, L, add,
              g1, g2);
   }
-  mean = r0 + s0 * g1;
-  var = v0 * (T(1) + g2 - g1 * g1);
+  mean = m_fma(s0, g1, r0);
+  var = v0 * m_fma(-g1, g1, T(1) + g2);
   // log sqrt(2 pi v0) + r0^2 / (2 v0) + G0
-  const T logz = m_log(T(kSqrtTwoPi) * s0 * L) + T(0.5) * (r0 * b) + add;
-  A = logz - T(0.5) * ax * rg.x02[k] + bx * x0;
+  const T logz = m_fma(T(0.5), r0 * b, m_log(T(kSqrtTwoPi) * s0 * L)) + add;
+  A = m_fma(bx, x0, m_fma(T(-0.5) * ax, rg.x02[k], logz));
 }
 
 // Softmax weights over the K region weights A (tramp_tpu/ops/
@@ -288,12 +302,12 @@ __device__ __forceinline__ void merge(const T (&p)[K], const T (&r)[K],
   T m = T(0), m2 = T(0), w = T(0);
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    m += p[k] * r[k];
-    m2 += p[k] * (r[k] * r[k]);
-    w += p[k] * v[k];
+    m = m_fma(p[k], r[k], m);
+    m2 = m_fma(p[k], r[k] * r[k], m2);
+    w = m_fma(p[k], v[k], w);
   }
   r_out = m;
-  v_out = w + (m2 - m * m);
+  v_out = w + m_fma(-m, m, m2);
 }
 
 }  // namespace pl

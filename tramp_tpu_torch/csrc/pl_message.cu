@@ -25,9 +25,9 @@
 //
 // What the design does about it. The mean couples all elements, and blocks
 // run in no order, so:
-// - n <= 16384: ONE launch of one thread-block cluster (1, 2, 4 or 8 blocks
-//   of 512 threads, up to 4 elements a thread). Each thread keeps its
-//   elements' r and b in shared memory; the variances are summed in
+// - n <= 16384, one lane: ONE launch of one thread-block cluster (1, 2, 4
+//   or 8 blocks of 512 threads, up to 4 elements a thread). Each thread
+//   keeps its elements' r and b in shared memory; the variances are summed in
 //   double, per thread in element order, then by a shuffle tree per warp,
 //   then over the warps in order; after a cluster barrier warp 0 of every
 //   block fetches the blocks' sums through distributed shared memory, one
@@ -45,22 +45,49 @@
 //   loads and a store in each pass.
 // Lanes. The inputs may be `lanes` instances of n elements each, laid out
 // one after another, with a precision per lane (what jax.vmap gives the TPU
-// kernel); the mean, the update and the clamps are then per lane. Lanes lie
-// on the grid's y axis: one cluster per lane in the one-launch path
-// (clusterDim = (blocks, 1, 1), so the grid's x is one cluster wide), and
-// one row of `blocks` block sums per lane in the two-launch path. A lane's
-// blocks, threads and sums are laid out by n alone, exactly as in a launch
-// without lanes, so lane i of a batched launch gives the bits of the single
-// launch on lane i's data. Beyond gridDim.y's limit of 65535 a cluster
-// takes several lanes in turn. A precision is read as
-// a[lane * lane_stride + e * element_stride]: strides (0, 0) for one number,
-// (0, 1) for one per lane, (1, n) for one per element; a_new is written per
-// lane or, for a precision per element, per element. The kernel is
-// instantiated twice: with LANED = true as described, and with LANED = false
-// for a single instance (lanes == 1), where the lane loop and the lane
-// offsets fold away at compile time (one instantiation for both cost a
-// single instance 5-8% of its time in float32, PERF.md). Both split a lane
-// into the same blocks and run the same arithmetic per element.
+// kernel); the mean, the update and the clamps are then per lane. A lane
+// is summed term by term as the single launch on its data sums it (one
+// launch, or the first of two, without lanes; LANED = false below), and
+// every element goes through the same device functions, whose rounding is
+// written out (explicit fused multiply-adds; this file is built with
+// -fmad=false, so nvcc fuses nothing else): lane i of a batched launch
+// gives the bits of the single launch on lane i's data by construction,
+// whatever each kernel's unrolling and scheduling. A precision is read as
+// a[lane * lane_stride + e *
+// element_stride]: strides (0, 0) for one number, (0, 1) for one per lane,
+// (1, n) for one per element; a_new is written per lane or, for a
+// precision per element, per element. Three layouts:
+// - lanes > 1, n <= 4096 (the EP engine's batched sweeps: 2048 lanes of
+//   2048 on the relu net): pl_message_lanes_kernel, the laned form of the
+//   Pallas kernel under jax.vmap. What bounds it is the bytes, as above
+//   (12 B/element in float32, 24 in float64, at 3.35 TB/s;
+//   chip_smoke.py's bound_ms takes the larger of that and the operations
+//   at the card's peak rate). The layout of the single launch run once per
+//   lane (a cluster of up to 8 blocks of 512 threads, one element a
+//   thread, two cluster barriers and a DSMEM exchange) left each wave of
+//   clusters one element's dependent chain of erfcx, log, rsqrt and
+//   division plus the barriers, with nothing to hide them: 156.06 us in
+//   float32 and 379.66 in float64 at 2048 x 2048 on an NVIDIA H100 80GB
+//   HBM3 at 700 W, 9.63% and 7.92% of the bound (PERF.md). So here a lane
+//   is one block, or a part of one where n is small, with no cluster and
+//   no DSMEM and one block barrier; a thread takes up to 16 elements one
+//   after another and keeps their r, b and v in shared memory, and as
+//   many warps as the registers allow share an SM to hide the chain's
+//   latency (the launch bounds); the grid is one block per group of
+//   lanes, which the card hands to its SMs as they free up. Measured on
+//   the same card (chip_kernel_times.py against the parent in one call,
+//   relu, 2048 x 2048): 69.34 / 68.95 us forward / backward in float32,
+//   21.7% / 21.8% of the bound, and 154.19 / 152.89 us in float64, 19.5% /
+//   19.7% (pl_posterior: 78.55 / 238.58 us); what is left is the
+//   element's own latency-bound arithmetic (PERF.md).
+// - lanes > 1, 4096 < n <= 16384: pl_message_kernel<.., true>, one
+//   cluster per lane on the grid's y axis (clusterDim = (blocks, 1, 1)), a
+//   cluster taking several lanes in turn beyond gridDim.y's limit of 65535.
+// - n > 16384: the two launches, one row of `blocks` block sums per lane.
+// The kernel without lanes, LANED = false, keeps a single instance at its
+// time: the lane loop and the lane offsets fold away at compile time (one
+// instantiation for both cost a single instance 5-8% of its time in
+// float32, PERF.md).
 // Every sum has a fixed order for a given n: there are no floating-point
 // atomics, so two runs give the same bits. The clamps and the softmax
 // maximum are comparisons that let a NaN through (pl_common.cuh), as
@@ -89,6 +116,25 @@ constexpr int kMaxCluster = 8;     // the portable cluster size
 constexpr int64_t kClusterMax = 16384;  // CLUSTER_MAX of the wrapper
 // elements a thread holds in the cluster
 constexpr int kHeld = kClusterMax / (kMaxCluster * kThreads);
+// The laned launch up to kLaneMax elements a lane (LANE_MAX of the
+// wrapper): blocks of kLaneThreads threads, a lane on up to all of a
+// block's warps, up to kLaneHeld elements a thread.
+constexpr int64_t kLaneMax = 4096;
+constexpr int kLaneThreads = 256;
+constexpr int kLaneWarps = kLaneThreads / 32;
+constexpr int kLaneHeld = kLaneMax / kLaneThreads;
+// most lanes it takes: its lane index is 32 bits wide, and its blocks fit
+// gridDim.x (2^31 - 1)
+constexpr int64_t kLaneLanesMax = (int64_t)1 << 30;
+// up to kLaneMax a single launch gives every virtual thread (below) one
+// element at most
+static_assert(kLaneMax <= kMaxCluster * kThreads, "one element a thread");
+// blocks of kLaneThreads threads an SM holds, which bounds the registers:
+// the most for which ptxas spills nothing at up to three regions (with one
+// element at a time the time is set by how many warps an SM holds)
+template <typename T, int K>
+constexpr int kLaneMinBlocks =
+    sizeof(T) == 4 ? (K <= 3 ? 5 : 4) : (K <= 2 ? 3 : 2);
 
 template <typename T>
 constexpr int kMinBlocks = sizeof(T) == 4 ? 2 : 1;
@@ -136,6 +182,12 @@ template <typename T>
 __device__ __forceinline__ T a_update(T v, T a, T vmin, T amin, T amax) {
   const T v_safe = v < vmin ? vmin : v;  // NaN stays NaN
   return clamp_range(T(1) / v_safe - a, amin, amax);
+}
+
+// b_new = r (a + a_new) - b of one element, rounded once after the sum
+template <typename T>
+__device__ __forceinline__ T b_update(T r, T a, T an, T b) {
+  return m_fma(r, a + an, -b);
 }
 
 // clustered != 0: the grid's x is one cluster and every thread has at most
@@ -235,7 +287,7 @@ pl_message_kernel(const T* __restrict__ az, int64_t az_stride,
       const T a = a_stride ? a_own[i] : a_first;
       const T b = b_held[e * kThreads + threadIdx.x];
       const T an = a_update(v_mean, a, vmin, amin, amax);
-      b_new_l[i] = r_held[e * kThreads + threadIdx.x] * (a + an) - b;
+      b_new_l[i] = b_update(r_held[e * kThreads + threadIdx.x], a, an, b);
       if (a_new_per_element) a_new_l[i] = an;
     }
     if (!a_new_per_element && first == 0) {
@@ -245,6 +297,178 @@ pl_message_kernel(const T* __restrict__ az, int64_t az_stride,
     // reads its block_total
     cluster.sync();
   }
+}
+
+// The shuffle trees of eight virtual warps at once. Thread j holds element
+// j of each, x[k] for virtual warp k. The tree of one virtual warp adds
+// element p + d to element p for d = 16, 8, 4, 2, 1 (p < d), as a
+// __shfl_down_sync tree does for lane 0. Here the first three levels also
+// halve the values a thread holds: at d = 16 the threads with j & 16 keep
+// the odd virtual warps' pairs and the others the even ones', each pair
+// one exchange (__shfl_xor_sync by d); d = 8 and d = 4 do the same on what
+// is left; d = 2 and 1 are plain shuffles. Every addition is one of
+// the single tree's, on the same two terms. Thread 4 a ends with the sum
+// of virtual warp bit-reverse(a) (three bits): 9 exchanges for 8 trees,
+// not 40.
+__device__ __forceinline__ double tree8(const double (&x)[8]) {
+  const unsigned all = 0xffffffffu;
+  const int j = threadIdx.x & 31;
+  double y[4], z[2];
+  const bool b16 = j & 16, b8 = j & 8, b4 = j & 4;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const double other = __shfl_xor_sync(all, b16 ? x[2 * q] : x[2 * q + 1],
+                                         16);
+    y[q] = b16 ? other + x[2 * q + 1] : x[2 * q] + other;
+  }
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const double other = __shfl_xor_sync(all, b8 ? y[2 * q] : y[2 * q + 1],
+                                         8);
+    z[q] = b8 ? other + y[2 * q + 1] : y[2 * q] + other;
+  }
+  const double other = __shfl_xor_sync(all, b4 ? z[0] : z[1], 4);
+  double u = b4 ? other + z[1] : z[0] + other;
+  u += __shfl_down_sync(all, u, 2);
+  u += __shfl_down_sync(all, u, 1);
+  return u;
+}
+
+// The laned launch with n <= kLaneMax: one lane on `lane_warps` warps of a
+// block (a block holds kLaneWarps / lane_warps lanes), a thread with up to
+// 8 elements, or up to kLaneHeld where a lane has all the block's warps;
+// one block for each group of lanes, handed to the SMs as they free up.
+//
+// The sums are those of the single launch (pl_message_kernel<.., false>),
+// term by term. There, for n <= kLaneMax, element i is the one element of
+// thread i % 512 of block i / 512 (the grid stride, blocks x 512, is at
+// least n); a block adds its threads by a shuffle tree per warp of 32
+// consecutive elements, then its 16 warps in order; the cluster adds its
+// `blocks` block sums in rank order. Here the lane's elements form
+// ceil(n / 32) virtual warps, virtual warp w being elements 32 w to 32 w +
+// 31. Real warp g of the lane's warps takes virtual warps g, g +
+// lane_warps, ..., its thread j element 32 w + j of each, and runs the
+// same shuffle tree on each (eight at once, tree8); the tree's sum goes to
+// shared memory. After one block barrier every warp adds, in lane b <
+// blocks, the 16 sums of virtual block b in warp order (0 for a warp past
+// the last element, as a warp without elements gives), and then the
+// `blocks` block sums in rank order by shuffles. An element and its update
+// go through the single launch's own functions (message_element, a_update,
+// b_update), whose rounding is written out (pl_common.cuh): lane i has the
+// bits of its single launch by construction.
+//
+// A thread computes its elements one after another and keeps their r, b
+// and v in shared memory. Held in registers instead (8 elements unrolled,
+// so that independent elements could hide each other's latency), the
+// kernel took 107 us, not 81, on the same grid at 2048 lanes of 2048 in
+// float32, and 241, not 183, in float64, which spilled (an NVIDIA H100
+// 80GB HBM3 at 700 W, PERF.md): the registers cost more warps an SM than
+// the unrolled elements gained.
+template <typename T, int K, int SIDE>
+__global__ void __launch_bounds__(kLaneThreads, kLaneMinBlocks<T, K>)
+pl_message_lanes_kernel(const T* __restrict__ az, int64_t az_stride,
+                        int64_t az_lane, const T* __restrict__ bz,
+                        const T* __restrict__ ax, int64_t ax_stride,
+                        int64_t ax_lane, const T* __restrict__ bx,
+                        T* __restrict__ a_new, int a_new_per_element,
+                        T* __restrict__ b_new, int64_t n, int64_t lanes,
+                        int lane_warps, int held, T vmin, T amin, T amax,
+                        const Regions<T> rg) {
+  // per lane of the block: the virtual warps' sums, virtual warp 16 b + w
+  // at w * blocks + b, so that lane b of a warp reads consecutive words
+  __shared__ double sums[kWarps * kMaxCluster];
+  // rows of kLaneThreads: a thread's e-th element has r, b and v in rows
+  // 3 e, 3 e + 1 and 3 e + 2, at its threadIdx.x (constant offsets: fewer
+  // registers a thread)
+  extern __shared__ __align__(16) unsigned char held_bytes[];
+  T* const r_held = reinterpret_cast<T*>(held_bytes) + threadIdx.x;
+  constexpr int b_row = kLaneThreads, v_row = 2 * kLaneThreads;
+  constexpr int e_rows = 3 * kLaneThreads;
+  const int warp = threadIdx.x >> 5, j = threadIdx.x & 31;
+  const int g = warp % lane_warps, group = warp / lane_warps;
+  const int groups = kLaneWarps / lane_warps;
+  // 32-bit element and lane indices (n <= kLaneMax, lanes <=
+  // kLaneLanesMax): fewer registers a thread
+  const int m = (int)n, first = 32 * g + j, step = 32 * lane_warps;
+  const int az_s = (int)az_stride, ax_s = (int)ax_stride;
+
+  const int lane = blockIdx.x * groups + group;
+  // a group past the last lane computes nothing and meets the barrier
+  const int lane_m = lane < (int)lanes ? m : 0;
+  // offsets from the arguments' own pointers, not pointers of the lane:
+  // fewer registers a thread
+  const int64_t b_off = (int64_t)lane * m;
+  const int64_t az_off = lane * az_lane, ax_off = lane * ax_lane;
+
+  T* slot = r_held;
+  for (int i = first; i < lane_m; i += step, slot += e_rows) {
+    const T bz_i = bz[b_off + i], bx_i = bx[b_off + i];
+    T r, v;
+    message_element<T, K, SIDE>(rg, az[az_off + i * az_s], bz_i,
+                                ax[ax_off + i * ax_s], bx_i, r, v);
+    slot[0] = r;
+    slot[b_row] = SIDE == kForward ? bx_i : bz_i;
+    slot[v_row] = v;
+  }
+  // the single launch's blocks: the least power of two that covers n
+  int blocks = 1;
+  while (blocks * kThreads < m) blocks *= 2;
+  const int virtual_warps = (m + 31) >> 5;
+  double* lane_sums = sums + group * kWarps * blocks;
+  if (lane_m) {
+    // eight virtual warps at a time: their trees in one (see tree8)
+    for (int k0 = 0; k0 < held && g + k0 * lane_warps < virtual_warps;
+         k0 += 8) {
+      double x[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        x[k] = 0.0;
+        if (first + (k0 + k) * step < m) {
+          x[k] += (double)r_held[(k0 + k) * e_rows + v_row];
+        }
+      }
+      const double sum = tree8(x);
+      // lane 4 a holds the sum of virtual warp k0 + bit-reverse(a)
+      const int a = j >> 2;
+      const int k = k0 + ((a & 1) << 2 | (a & 2) | a >> 2);
+      const int w = g + k * lane_warps;
+      if ((j & 3) == 0 && w < virtual_warps) {
+        lane_sums[(w % kWarps) * blocks + w / kWarps] = sum;
+      }
+    }
+  }
+  __syncthreads();
+  if (!lane_m) return;
+
+  double s = 0.0;
+  if (j < blocks) {
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      s += j * kWarps + w < virtual_warps ? lane_sums[w * blocks + j] : 0.0;
+    }
+  }
+  double t = 0.0;
+  for (int rank = 0; rank < blocks; ++rank) {
+    t += __shfl_sync(0xffffffffu, s, rank);
+  }
+  const T v_mean = (T)(t / (double)n);
+
+  const T* a_own = SIDE == kForward ? ax + ax_off : az + az_off;
+  const int a_stride = SIDE == kForward ? ax_s : az_s;
+  const T a_first = a_own[0];
+  // one precision for the lane: one update for all its elements
+  const T an_first = a_update(v_mean, a_first, vmin, amin, amax);
+  T* b_new_l = b_new + b_off;
+  T* a_new_l = a_new + (a_new_per_element ? b_off : lane);
+  slot = r_held;
+  for (int i = first; i < m; i += step, slot += e_rows) {
+    const T a = a_stride ? a_own[i] : a_first;
+    const T an = a_stride ? a_update(v_mean, a, vmin, amin, amax)
+                          : an_first;
+    b_new_l[i] = b_update(slot[0], a, an, slot[b_row]);
+    if (a_new_per_element) a_new_l[i] = an;
+  }
+  if (!a_new_per_element && first == 0) a_new_l[0] = an_first;
 }
 
 // Second pass for n > kClusterMax: b_new holds r; every block of a lane adds
@@ -277,7 +501,7 @@ pl_message_finish_kernel(const T* __restrict__ a_own, int64_t a_stride,
     for (int64_t i = first; i < n; i += step) {
       const T a = a_l[i * a_stride];
       const T an = a_update(v_mean, a, vmin, amin, amax);
-      b_new_l[i] = b_new_l[i] * (a + an) - b_l[i];
+      b_new_l[i] = b_update(b_new_l[i], a, an, b_l[i]);
       if (a_new_per_element) a_new_l[i] = an;
     }
     if (!a_new_per_element && first == 0) {
@@ -294,6 +518,34 @@ int launch_ks(const T* az, int64_t az_stride, int64_t az_lane, const T* bz,
               T* a_new, int a_new_per_element, T* b_new, double* partials,
               int64_t partials_len, int64_t n, int64_t lanes, T vmin, T amin,
               T amax, const Regions<T>& rg, cudaStream_t s) {
+  if (lanes > 1 && lanes <= kLaneLanesMax && n <= kLaneMax) {
+    // a lane's warps: a power of two, so that a block's lanes tile it, and
+    // enough for 8 elements a thread; then up to kLaneHeld on all warps
+    int lane_warps = 1;
+    while (lane_warps < kLaneWarps && lane_warps * 32 * 8 < n) {
+      lane_warps *= 2;
+    }
+    const int held = (int)((n + 32 * lane_warps - 1) / (32 * lane_warps));
+    const int rows = held <= kLaneHeld / 2 ? kLaneHeld / 2 : kLaneHeld;
+    auto lanes_kernel = pl_message_lanes_kernel<T, K, SIDE>;
+    // r, b, v of kLaneHeld elements a thread
+    const size_t most = 3 * kLaneHeld * kLaneThreads * sizeof(T);
+    // more than 48 KB of shared memory is a block's only when asked for
+    static const cudaError_t opt_in = cudaFuncSetAttribute(
+        lanes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)most);
+    if (opt_in != cudaSuccess) return (int)opt_in;
+    // one block per group of lanes: a grid of the blocks the card holds at
+    // once, each taking groups in turn, left the last round of 2048 lanes
+    // (68 of 660 blocks in float32) to a few SMs
+    const int64_t groups = kLaneWarps / lane_warps;
+    lanes_kernel<<<(unsigned)((lanes + groups - 1) / groups), kLaneThreads,
+                   most / kLaneHeld * rows, s>>>(
+        az, az_stride, az_lane, bz, ax, ax_stride, ax_lane, bx, a_new,
+        a_new_per_element, b_new, n, lanes, lane_warps, rows, vmin, amin,
+        amax, rg);
+    return (int)cudaGetLastError();
+  }
   auto kernel = lanes == 1 ? pl_message_kernel<T, K, SIDE, false>
                            : pl_message_kernel<T, K, SIDE, true>;
   const unsigned rows = (unsigned)(lanes < kMaxGridY ? lanes : kMaxGridY);

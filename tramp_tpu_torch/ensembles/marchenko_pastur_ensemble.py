@@ -30,9 +30,12 @@ class MarchenkoPasturEnsemble:
         return (torch.sqrt((z - self.z_min) * (self.z_max - z))
                 / (2 * math.pi * z))
 
-    def measure(self, f):
+    def measure(self, f, n_nodes=400):
         """Atomic part + bulk integral (composite Gauss-Legendre over the
-        bulk), in float64 on the CPU: a constant of the ensemble."""
+        bulk), in float64 on the CPU: a constant of the ensemble.
+        ``n_nodes`` is taken and not used, as in the JAX package
+        (tramp_tpu/ensembles/marchenko_pastur_ensemble.py:27-36): the rule
+        is always 20 panels of 20 nodes."""
         zero = torch.zeros((), dtype=torch.float64)
         atomic = max(0.0, 1.0 - self.alpha) * f(zero)
         x, w = (torch.as_tensor(a) for a in composite_gauss_legendre(

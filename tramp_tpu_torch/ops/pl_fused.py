@@ -31,7 +31,10 @@ its update and its clamps per lane: ``a_new`` is ``(B, 1)``. There are
 lanes when either precision is one value per lane; the other may be one
 number for all lanes or one per element. On the card lane i of a batched
 message is bit-identical to the single call on lane i's data (a lane's sums
-are laid out by n alone); on the CPU the plain versions agree to rtol 1e-13
+are those of the single launch, term by term, whether the lanes run one
+block each, up to LANE_MAX elements, or one cluster each, and an element
+is computed by the same code with its rounding written out); on the CPU the
+plain versions agree to rtol 1e-13
 (``torch.mean`` along an axis may sum in another order than over a whole
 array). The launch count does not depend on B.
 
@@ -64,6 +67,10 @@ CSRC = _PACKAGE / "csrc"
 HEADER = CSRC / "pl_common.cuh"
 SOURCES = {"pl_posterior": CSRC / "pl_posterior.cu",
            "pl_message": CSRC / "pl_message.cu"}
+#: nvcc flags of one source: the message kernels contract no product into a
+#: fused multiply-add on their own (csrc/pl_common.cuh writes out the ones
+#: it takes), so that every layout gives an element the same bits
+_FLAGS = {"pl_posterior": [], "pl_message": ["-fmad=false"]}
 BUILD_DIR = _PACKAGE.parent / "build" / "tramp_tpu_torch"
 MAX_REGIONS = 8
 #: most elements the message kernel takes in one launch (kClusterMax in
@@ -72,6 +79,10 @@ MAX_REGIONS = 8
 #: of the first launch (the card holds fewer blocks than that at once)
 CLUSTER_MAX = 16384
 MAX_PARTIALS = 2048
+#: most elements a lane has where a message with lanes is one block per lane
+#: (kLaneMax in csrc/pl_message.cu); above it, up to CLUSTER_MAX, it is one
+#: cluster per lane
+LANE_MAX = 4096
 #: threads of a block of the message kernel (kThreads in csrc/pl_message.cu)
 _BLOCK = 512
 
@@ -167,7 +178,8 @@ def build():
     header = HEADER.read_bytes()
     jobs = []
     for name, source in SOURCES.items():
-        tag = hashlib.sha256(header + source.read_bytes()).hexdigest()[:16]
+        tag = hashlib.sha256(header + source.read_bytes() + " ".join(
+            _FLAGS[name]).encode()).hexdigest()[:16]
         for dtype, (suffix, _) in _C_TYPES.items():
             jobs.append((name, dtype, suffix, source,
                          BUILD_DIR / f"lib{name}_{suffix}_{tag}.so"))
@@ -179,7 +191,7 @@ def build():
         tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
         cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", f"-DPL_{suffix.upper()}_ONLY",
+               "-Xptxas", "-v", f"-DPL_{suffix.upper()}_ONLY", *_FLAGS[name],
                "-o", str(tmp), str(source)]
         # diagnostics to a file: a pipe could fill while another job is
         # waited for
@@ -387,41 +399,49 @@ def _a_new_shape(own, bz, lanes):
     return own.shape if isinstance(own, torch.Tensor) else ()
 
 
+def _message_outputs(side, az, bz, ax):
+    """(a_new, b_new, partials) of a message call on bz's device: the two
+    outputs, and the scratch array of block sums of the two-launch path,
+    one row per lane (None where the call is one launch: up to CLUSTER_MAX
+    elements per lane)."""
+    lanes = _lanes(az, bz, ax)
+    own = ax if side == _FORWARD else az
+    a_new = torch.empty(_a_new_shape(own, bz, lanes), dtype=bz.dtype,
+                        device=bz.device)
+    b_new = torch.empty_like(bz)
+    n = bz.numel() // (lanes or 1)
+    if n <= CLUSTER_MAX:
+        return a_new, b_new, None
+    # the row's length bounds the first launch's blocks per lane, as it
+    # does without lanes
+    partials = torch.empty((lanes or 1, min(-(-n // _BLOCK), MAX_PARTIALS)),
+                           dtype=torch.float64, device=bz.device)
+    return a_new, b_new, partials
+
+
 def _message(wrapper, plain, side, az, bz, ax, bx, specs):
     _refuse_bf16(wrapper.__name__, az, bz, ax, bx)
     if bz.device.type == "cpu":
         return plain(az, bz, ax, bx, specs)
     if bz.device.type == "meta":
-        own = ax if side == _FORWARD else az
-        shape = _a_new_shape(own, bz, _lanes(az, bz, ax))
-        return (torch.empty(shape, dtype=bz.dtype, device="meta"),
-                torch.empty_like(bz))
+        return _message_outputs(side, az, bz, ax)[:2]
     what = wrapper.__name__
     az, ax = _checked(what, az, bz, ax, bx, specs)
-    lanes = _lanes(az, bz, ax)
     if bz.numel() == 0:
         raise ValueError(f"{what}: the mean of no element is undefined")
-    n = bz.numel() // (lanes or 1)
+    lanes = _lanes(az, bz, ax)
     if not _fns:
         build()
-    own = ax if side == _FORWARD else az
-    a_new = torch.empty(_a_new_shape(own, bz, lanes), dtype=bz.dtype,
-                        device=bz.device)
-    b_new = torch.empty_like(bz)
-    partials, row = None, 0
-    if n > CLUSTER_MAX:
-        # one row of block sums per lane; the row's length bounds the first
-        # launch's blocks per lane, as it does without lanes
-        row = min(-(-n // _BLOCK), MAX_PARTIALS)
-        partials = torch.empty((lanes or 1, row), dtype=torch.float64,
-                               device=bz.device)
+    a_new, b_new, partials = _message_outputs(side, az, bz, ax)
     err = _fns["pl_message", bz.dtype](
         side, az.data_ptr(), *_strides(az, bz, lanes), bz.data_ptr(),
         ax.data_ptr(), *_strides(ax, bz, lanes), bx.data_ptr(),
         a_new.data_ptr(), int(a_new.shape == bz.shape),
         b_new.data_ptr(), None if partials is None else partials.data_ptr(),
-        row, n, lanes or 1, _spec_array(specs, bz.dtype), len(specs),
-        config.VMIN, config.AMIN, config.AMAX, _stream(bz.device))
+        0 if partials is None else partials.shape[1],
+        bz.numel() // (lanes or 1), lanes or 1,
+        _spec_array(specs, bz.dtype), len(specs), config.VMIN, config.AMIN,
+        config.AMAX, _stream(bz.device))
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
     wrapper.launches += 1 if partials is None else 2

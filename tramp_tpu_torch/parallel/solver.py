@@ -40,8 +40,10 @@ from .mesh import (
     all_done, map_tree, shard_batched_model, stop_groups, whole_batch,
 )
 
-#: the JAX package's name for ``lanes.stack_models``
-stack_pytrees = stack_models
+def stack_pytrees(trees, device=None, dtype=None):
+    """The JAX package's name for ``lanes.stack_models``, with its parameter
+    name: ``trees`` are same-structure models."""
+    return stack_models(trees, device=device, dtype=dtype)
 
 
 class _Solver:

@@ -179,12 +179,14 @@ def _cdf_bounds(m, s, zmin, zmax):
     return lo, hi
 
 
-def truncated_gaussian_measure(m, s, zmin, zmax, f):
+def truncated_gaussian_measure(m, s, zmin, zmax, f, n=GL_NODES):
     """integral of N(z | m, s^2) f(z) over the interval [zmin, zmax].
 
     Probit change of variables z = m + s * Phi^{-1}(Phi(a) + u (Phi(b)-Phi(a)))
     makes the integrand smooth in u and represents the interval indicator
-    exactly. zmin/zmax are Python floats (possibly +-inf)."""
+    exactly. zmin/zmax are Python floats (possibly +-inf). ``n`` is taken
+    and not used, as in the JAX package (tramp_tpu/utils/integration.py
+    :111-128): the rule is always 12 panels of 12 Gauss-Legendre nodes."""
     device, dtype, lanes = _like(m, s)
     m, s = (torch.as_tensor(v, device=device, dtype=dtype) for v in (m, s))
     lo, hi = _cdf_bounds(m, s, zmin, zmax)
