@@ -22,7 +22,7 @@ import math
 import torch
 
 from .base_channel import Channel
-from .. import config
+from .. import config, trace
 from ..config import as_tensor
 from ..lanes import last_axis, lane_count, per_lane
 from ..utils.misc import split_product
@@ -115,7 +115,8 @@ class LinearChannel(Channel):
         if svd is not None:
             U, s, Vt = (as_tensor(t, W.device, W.dtype) for t in svd)
         else:
-            U, s, Vt = torch.linalg.svd(W, full_matrices=False)
+            with trace.span("svd"):
+                U, s, Vt = torch.linalg.svd(W, full_matrices=False)
         self.register_buffer("W", W)
         self.register_buffer("U", U[:, :k].contiguous())    # (Nx, k)
         self.register_buffer("V", Vt[:k].T.contiguous())    # (Nz, k)

@@ -23,6 +23,13 @@ None (automatic), True or False, and is read through its resolver:
   ``LinearChannel``'s image U^T bx across sweeps. None resolves to True.
   Read when an engine is built.
 
+One switch is the port's own, resolved the same way:
+
+- ``TRACE`` (``trace()``): when ``trace.span`` records the port's spans.
+  None records while a ``torch.profiler`` records, on the host's clock
+  alone; True records always and opens a ``record_function`` range per
+  span; False never records. Read at every span.
+
 The JAX package's Pallas gate and FFT mode have no counterpart: the port
 launches its kernels on the card without a gate and uses ``torch.fft``.
 """
@@ -80,6 +87,17 @@ SPECTRAL_CARRY = None
 def spectral_carry():
     "Resolve SPECTRAL_CARRY (None: True)."
     return True if SPECTRAL_CARRY is None else bool(SPECTRAL_CARRY)
+
+
+#: When the port's spans record (``trace.span``).
+TRACE = None
+
+
+def trace():
+    "Resolve TRACE (None: while a torch.profiler records)."
+    if TRACE is None:
+        return torch.autograd._profiler_enabled()
+    return bool(TRACE)
 
 
 def default_dtype():

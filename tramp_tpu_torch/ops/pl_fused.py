@@ -55,7 +55,7 @@ from pathlib import Path
 
 import torch
 
-from .. import config
+from .. import config, trace
 from ..base import compute_ab_new
 from ..lanes import lane_count, lane_mean
 from ..utils.truncated_normal import (
@@ -174,7 +174,13 @@ def build():
     sources; the missing libraries are all compiled at the same time) and
     load them. Returns (paths of the shared libraries, nvcc's diagnostics,
     which hold ptxas's register and spill report; empty for a library that
-    was already built)."""
+    was already built). The span ``kernels.build`` holds a
+    ``kernels.compile`` per library built and ``kernels.load``."""
+    with trace.span("kernels.build"):
+        return _build()
+
+
+def _build():
     header = HEADER.read_bytes()
     jobs = []
     for name, source in SOURCES.items():
@@ -201,7 +207,8 @@ def build():
     log = ""
     failures = []
     for lib_path, tmp, proc in running:
-        proc.wait()
+        with trace.span("kernels.compile"):
+            proc.wait()
         stderr = Path(f"{tmp}.log").read_text()
         os.remove(f"{tmp}.log")
         if proc.returncode != 0:
@@ -213,27 +220,33 @@ def build():
     if failures:
         raise RuntimeError("\n".join(failures))
     if not _fns:
-        ptr, i64, dbl = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
-        fns = {}
-        for name, dtype, suffix, _, lib_path in jobs:
-            lib = ctypes.CDLL(str(lib_path))
-            fn = getattr(lib, f"{name}_{suffix}")
-            if name == "pl_posterior":
-                fn.argtypes = ([ptr, i64, i64, ptr, ptr, i64, i64, ptr]
-                               + [ptr] * 5
-                               + [i64, i64, ptr, ctypes.c_int, ptr])
-                lib.pl_launch_floor.argtypes = [ptr]
-                lib.pl_launch_floor.restype = ctypes.c_int
-                fns["pl_launch_floor"] = lib.pl_launch_floor
-            else:
-                fn.argtypes = ([ctypes.c_int, ptr, i64, i64, ptr, ptr, i64,
-                                i64, ptr]
-                               + [ptr, ctypes.c_int, ptr, ptr, i64, i64, i64,
-                                  ptr, ctypes.c_int, dbl, dbl, dbl, ptr])
-            fn.restype = ctypes.c_int
-            fns[name, dtype] = fn
-        _fns.update(fns)
+        with trace.span("kernels.load"):
+            _fns.update(_load(jobs))
     return [job[-1] for job in jobs], log
+
+
+def _load(jobs):
+    "The C functions of the built libraries, by (name, dtype)."
+    ptr, i64, dbl = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
+    fns = {}
+    for name, dtype, suffix, _, lib_path in jobs:
+        lib = ctypes.CDLL(str(lib_path))
+        fn = getattr(lib, f"{name}_{suffix}")
+        if name == "pl_posterior":
+            fn.argtypes = ([ptr, i64, i64, ptr, ptr, i64, i64, ptr]
+                           + [ptr] * 5
+                           + [i64, i64, ptr, ctypes.c_int, ptr])
+            lib.pl_launch_floor.argtypes = [ptr]
+            lib.pl_launch_floor.restype = ctypes.c_int
+            fns["pl_launch_floor"] = lib.pl_launch_floor
+        else:
+            fn.argtypes = ([ctypes.c_int, ptr, i64, i64, ptr, ptr, i64,
+                            i64, ptr]
+                           + [ptr, ctypes.c_int, ptr, ptr, i64, i64, i64,
+                              ptr, ctypes.c_int, dbl, dbl, dbl, ptr])
+        fn.restype = ctypes.c_int
+        fns[name, dtype] = fn
+    return fns
 
 
 def ptxas_report(log):

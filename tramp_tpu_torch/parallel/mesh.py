@@ -30,6 +30,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
+from .. import trace
 from ..lanes import hyperparameters, model_lanes, with_buffers
 from ..utils.misc import ModelShard
 
@@ -166,13 +167,15 @@ def stop_groups(model):
 
 def all_done(done, groups):
     """``done.all()`` over this rank's lanes and those of the ``groups``:
-    the loop's one host read, after one ``all_reduce(MIN)`` per group."""
-    if not groups:
-        return bool(done.all())
-    flag = done.all().to(torch.int32).reshape(1)
-    for group in groups:
-        dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=group)
-    return bool(flag)
+    the loop's one host read, after one ``all_reduce(MIN)`` per group
+    (the span ``stop_read``)."""
+    with trace.span("stop_read"):
+        if not groups:
+            return bool(done.all())
+        flag = done.all().to(torch.int32).reshape(1)
+        for group in groups:
+            dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=group)
+        return bool(flag)
 
 
 def whole_batch(tree, model):

@@ -42,6 +42,7 @@ frozen.
 """
 import torch
 
+from .. import trace
 from ..base import compute_ab_new
 from ..channels import LinearChannel
 from ..lanes import lane_count, lane_values, model_lanes, per_lane, select
@@ -333,51 +334,56 @@ class MLVAMPSolver:
         process groups its stop flag is reduced over (None: those of the
         model's mesh, if any). Returns the posteriors, n_iter, the converged
         flags and the final carry."""
-        groups = stop_groups(model) if stop is None else stop
-        B = model_lanes(model, self.template)
-        inv = self._invariants(model, B)
-        if carry is None:
-            carry = self._init(model, B)
-        old_r = self._posterior_r(carry, inv)
-        device = old_r[0].device
-        flags = () if B is None else (B,)
-        n_iter = torch.zeros(flags, dtype=torch.int64, device=device)
-        done = torch.zeros(flags, dtype=torch.bool, device=device)
-        conv = torch.zeros(flags, dtype=torch.bool, device=device)
+        with trace.span("solve"):
+            groups = stop_groups(model) if stop is None else stop
+            B = model_lanes(model, self.template)
+            inv = self._invariants(model, B)
+            if carry is None:
+                carry = self._init(model, B)
+            old_r = self._posterior_r(carry, inv)
+            device = old_r[0].device
+            flags = () if B is None else (B,)
+            n_iter = torch.zeros(flags, dtype=torch.int64, device=device)
+            done = torch.zeros(flags, dtype=torch.bool, device=device)
+            conv = torch.zeros(flags, dtype=torch.bool, device=device)
 
-        def norm(x):
-            return torch.sqrt(per_lane(x**2, B).mean(-1))
+            def norm(x):
+                return torch.sqrt(per_lane(x**2, B).mean(-1))
 
-        for i in range(self.max_iter):
-            new_carry = self._step(model, carry, inv)
-            ok = torch.stack(
-                [torch.isfinite(per_lane(x, B)).all(-1)
-                 for x in self._leaves(new_carry)]).all(0)
-            new_carry = self._map(lambda n, o: select(ok, n, o),
-                                  new_carry, carry)
-            new_r = self._posterior_r(new_carry, inv)
-            delta = torch.stack([
-                norm(n - o) / torch.clamp(norm(n),
-                                          min=torch.finfo(n.dtype).tiny)
-                for n, o in zip(new_r, old_r)]).amax(0)
-            converged = (delta < self.tol) if i > 0 \
-                else torch.zeros_like(done)
-            # a lane that is done is frozen; without lanes the loop ends
-            # with it
-            active = ~done
-            if B is not None:
-                new_carry = self._map(lambda n, o: select(active, n, o),
-                                      new_carry, carry)
-                new_r = tuple(select(active, n, o)
-                              for n, o in zip(new_r, old_r))
-            carry, old_r = new_carry, new_r
-            n_iter = torch.where(active, i + 1, n_iter)
-            conv = conv | (active & converged)
-            done = done | converged | ~ok
-            # the one host read of the iteration
-            if all_done(done, groups):
-                break
-        return self._readout(model, carry, inv, B), n_iter, conv, carry
+            for i in range(self.max_iter):
+                with trace.span("sweep"):
+                    new_carry = self._step(model, carry, inv)
+                    ok = torch.stack(
+                        [torch.isfinite(per_lane(x, B)).all(-1)
+                         for x in self._leaves(new_carry)]).all(0)
+                    new_carry = self._map(lambda n, o: select(ok, n, o),
+                                          new_carry, carry)
+                    new_r = self._posterior_r(new_carry, inv)
+                    delta = torch.stack([
+                        norm(n - o) / torch.clamp(
+                            norm(n), min=torch.finfo(n.dtype).tiny)
+                        for n, o in zip(new_r, old_r)]).amax(0)
+                    converged = (delta < self.tol) if i > 0 \
+                        else torch.zeros_like(done)
+                    # a lane that is done is frozen; without lanes the loop
+                    # ends with it
+                    active = ~done
+                    if B is not None:
+                        new_carry = self._map(
+                            lambda n, o: select(active, n, o), new_carry,
+                            carry)
+                        new_r = tuple(select(active, n, o)
+                                      for n, o in zip(new_r, old_r))
+                    carry, old_r = new_carry, new_r
+                    n_iter = torch.where(active, i + 1, n_iter)
+                    conv = conv | (active & converged)
+                    done = done | converged | ~ok
+                # the one host read of the iteration
+                if all_done(done, groups):
+                    break
+            with trace.span("readout"):
+                post = self._readout(model, carry, inv, B)
+            return post, n_iter, conv, carry
 
     def _readout(self, model, carry, inv=None, B=None):
         "Posterior {id: {r, v}} at every interface from the final state."

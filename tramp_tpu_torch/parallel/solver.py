@@ -31,7 +31,7 @@ state, upcast, in float32 to the solver's own tol.
 """
 import torch
 
-from .. import config
+from .. import config, trace
 from ..algos import ExpectationPropagation, StateEvolution
 from ..lanes import (
     lane_precision, lane_values, model_lanes, select, stack_models, to_lanes,
@@ -106,59 +106,66 @@ class _Solver:
         flag is reduced over (None: those of the model's mesh, if any);
         ``tol``: None for the solver's own. Returns (post, state, n_iter,
         conv)."""
-        eng, kind = self.engine, self.stop_kind
-        tol = self.tol if tol is None else tol
-        groups = stop_groups(model) if stop is None else stop
-        B = eng._lanes(state)
-        aux = eng._prepare(model)
-        if eng.spectral_factors:
-            # the carried spectral images are derived from this model's
-            # operators, lane by lane (the same matvec the first uncached
-            # forward pass does)
-            state = eng._refresh_spectral_cache(state, model)
-        old_m = eng._metric(state, kind)
-        device = state[0]["a"].device
-        flags = () if B is None else (B,)
-        n_iter = torch.zeros(flags, dtype=torch.int64, device=device)
-        done = torch.zeros(flags, dtype=torch.bool, device=device)
-        conv = torch.zeros(flags, dtype=torch.bool, device=device)
+        with trace.span("solve"):
+            eng, kind = self.engine, self.stop_kind
+            tol = self.tol if tol is None else tol
+            groups = stop_groups(model) if stop is None else stop
+            B = eng._lanes(state)
+            aux = eng._prepare(model)
+            if eng.spectral_factors:
+                # the carried spectral images are derived from this
+                # model's operators, lane by lane (the same matvec the
+                # first uncached forward pass does)
+                state = eng._refresh_spectral_cache(state, model)
+            old_m = eng._metric(state, kind)
+            device = state[0]["a"].device
+            flags = () if B is None else (B,)
+            n_iter = torch.zeros(flags, dtype=torch.int64, device=device)
+            done = torch.zeros(flags, dtype=torch.bool, device=device)
+            conv = torch.zeros(flags, dtype=torch.bool, device=device)
 
-        def keep(flag, kept, other):
-            "``kept`` where flag, else ``other``, over a whole state."
-            return tuple({k: select(flag, a[k], b[k]) for k in a}
-                         for a, b in zip(kept, other))
+            def keep(flag, kept, other):
+                "``kept`` where flag, else ``other``, over a whole state."
+                return tuple({k: select(flag, a[k], b[k]) for k in a}
+                             for a, b in zip(kept, other))
 
-        for i in range(self.max_iter):
-            swept = eng._sweep(model, state, self.damp, aux)
-            ok = eng._all_finite(swept)
-            swept = keep(ok, swept, state)
-            new_m = eng._metric(swept, kind)
-            delta, inc = eng._delta_increase(kind, new_m, old_m, lanes=B)
-            converged = (delta < tol) if i > 0 \
-                else torch.zeros_like(done)
-            # divergence rollback (reference EarlyStopping semantics)
-            rb = (inc > self.rollback_increase) if i > self.wait_increase \
-                else torch.zeros_like(done)
-            swept = keep(rb, state, swept)
-            # a lane that is done is frozen: its fixed point, its metric and
-            # its n_iter stay while the slower lanes go on. Without lanes the
-            # loop ends with it.
-            active = ~done
-            if B is not None:
-                swept = keep(active, swept, state)
-                new_m = [select(active, n, o) for n, o in zip(new_m, old_m)]
-            state, old_m = swept, new_m
-            n_iter = torch.where(active, i + 1, n_iter)
-            # conv records actual convergence (delta < tol), distinct from
-            # done, which also latches on rollback and non-finite sweeps
-            conv = conv | (active & converged)
-            done = done | converged | rb | ~ok
-            # the one host read of the iteration
-            if all_done(done, groups):
-                break
-        post = {eng.nodes[vi].id: self._post(vi, state, B)
-                for vi in eng.variable_indices}
-        return post, state, n_iter, conv
+            for i in range(self.max_iter):
+                with trace.span("sweep"):
+                    swept = eng._sweep(model, state, self.damp, aux)
+                    ok = eng._all_finite(swept)
+                    swept = keep(ok, swept, state)
+                    new_m = eng._metric(swept, kind)
+                    delta, inc = eng._delta_increase(kind, new_m, old_m,
+                                                     lanes=B)
+                    converged = (delta < tol) if i > 0 \
+                        else torch.zeros_like(done)
+                    # divergence rollback (reference EarlyStopping
+                    # semantics)
+                    rb = (inc > self.rollback_increase) \
+                        if i > self.wait_increase else torch.zeros_like(done)
+                    swept = keep(rb, state, swept)
+                    # a lane that is done is frozen: its fixed point, its
+                    # metric and its n_iter stay while the slower lanes go
+                    # on. Without lanes the loop ends with it.
+                    active = ~done
+                    if B is not None:
+                        swept = keep(active, swept, state)
+                        new_m = [select(active, n, o)
+                                 for n, o in zip(new_m, old_m)]
+                    state, old_m = swept, new_m
+                    n_iter = torch.where(active, i + 1, n_iter)
+                    # conv records actual convergence (delta < tol),
+                    # distinct from done, which also latches on rollback
+                    # and non-finite sweeps
+                    conv = conv | (active & converged)
+                    done = done | converged | rb | ~ok
+                # the one host read of the iteration
+                if all_done(done, groups):
+                    break
+            with trace.span("readout"):
+                post = {eng.nodes[vi].id: self._post(vi, state, B)
+                        for vi in eng.variable_indices}
+            return post, state, n_iter, conv
 
     def solve(self, model, initializer=None):
         "Solve one instance; returns dict id -> posterior data, and n_iter."

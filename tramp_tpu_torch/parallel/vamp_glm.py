@@ -33,7 +33,7 @@ follows the single solve on that lane's data.
 """
 import torch
 
-from .. import config
+from .. import config, trace
 from ..channels import LinearChannel
 from ..lanes import (
     last_axis, lane_count, lane_mean, lane_values, model_lanes, per_lane,
@@ -143,55 +143,59 @@ class SpectralVAMPSolver:
     def _run(self, model, stop=None):
         """The loop; ``stop``: the process groups its stop flag is reduced
         over (None: those of the model's mesh, if any)."""
-        groups = stop_groups(model) if stop is None else stop
-        B = model_lanes(model, self.template)
-        spectral = self._spectral(model)
-        prior, lin, p, s2d = spectral
-        carry = self._init(model, spectral)
-        flags = () if B is None else (B,)
-        kw = dict(device=p.device)
-        old_v = torch.full(flags, float("inf"), dtype=p.dtype, **kw)
-        n_iter = torch.zeros(flags, dtype=torch.int64, **kw)
-        done = torch.zeros(flags, dtype=torch.bool, **kw)
-        conv = torch.zeros(flags, dtype=torch.bool, **kw)
-        for i in range(self.max_iter):
-            new_carry, (_, v1) = self._step(model, carry, spectral)
-            ok = (torch.isfinite(per_lane(new_carry[0], B)).all(-1)
-                  & torch.isfinite(new_carry[1]).reshape(flags))
-            new_carry = tuple(select(ok, n, o)
-                              for n, o in zip(new_carry, carry))
-            v1 = v1.reshape(flags)
-            converged = (torch.abs(v1 - old_v) < self.tol) if i > 0 \
-                else torch.zeros_like(done)
-            # a lane that is done is frozen; without lanes the loop ends
-            # with it, so nothing is left to freeze
-            active = ~done
-            if B is not None:
-                new_carry = tuple(select(active, n, o)
-                                  for n, o in zip(new_carry, carry))
-                v1 = torch.where(active, v1, old_v)
-            carry, old_v = new_carry, v1
-            n_iter = torch.where(active, i + 1, n_iter)
-            conv = conv | (active & converged)
-            done = done | converged | ~ok
-            # the one host read of the iteration
-            if all_done(done, groups):
-                break
-        # final posteriors from the converged cavity (keys: the model's
-        # variable ids, as EPSolver returns them)
-        r1, gamma1 = carry
-        x1, v1, r2, gamma2 = self._lmmse_input(prior, r1, gamma1)
-        # z = W x posterior: one readout LMMSE pass (not per iteration)
-        lanes = B is not None
-        t = lin._mm(lin.V, r2, transpose=True, lanes=lanes)    # (k,)
-        den = s2d + gamma2
-        d = (gamma2 * t + p) / den
-        # z = W x: only the k signal modes contribute (s=0 beyond k)
-        z_hat = lin._mm(lin.U, lin.s * d, lanes=lanes)
-        v_z = last_axis(lin.s**2 / den, torch.sum) / lin.Nx
-        post = {self.x_id: {"r": x1, "v": lane_values(v1, B)},
-                self.z_id: {"r": z_hat, "v": lane_values(v_z, B)}}
-        return post, n_iter, conv
+        with trace.span("solve"):
+            groups = stop_groups(model) if stop is None else stop
+            B = model_lanes(model, self.template)
+            spectral = self._spectral(model)
+            prior, lin, p, s2d = spectral
+            carry = self._init(model, spectral)
+            flags = () if B is None else (B,)
+            kw = dict(device=p.device)
+            old_v = torch.full(flags, float("inf"), dtype=p.dtype, **kw)
+            n_iter = torch.zeros(flags, dtype=torch.int64, **kw)
+            done = torch.zeros(flags, dtype=torch.bool, **kw)
+            conv = torch.zeros(flags, dtype=torch.bool, **kw)
+            for i in range(self.max_iter):
+                with trace.span("sweep"):
+                    new_carry, (_, v1) = self._step(model, carry, spectral)
+                    ok = (torch.isfinite(per_lane(new_carry[0], B)).all(-1)
+                          & torch.isfinite(new_carry[1]).reshape(flags))
+                    new_carry = tuple(select(ok, n, o)
+                                      for n, o in zip(new_carry, carry))
+                    v1 = v1.reshape(flags)
+                    converged = (torch.abs(v1 - old_v) < self.tol) if i > 0 \
+                        else torch.zeros_like(done)
+                    # a lane that is done is frozen; without lanes the loop
+                    # ends with it, so nothing is left to freeze
+                    active = ~done
+                    if B is not None:
+                        new_carry = tuple(select(active, n, o)
+                                          for n, o in zip(new_carry, carry))
+                        v1 = torch.where(active, v1, old_v)
+                    carry, old_v = new_carry, v1
+                    n_iter = torch.where(active, i + 1, n_iter)
+                    conv = conv | (active & converged)
+                    done = done | converged | ~ok
+                # the one host read of the iteration
+                if all_done(done, groups):
+                    break
+            # final posteriors from the converged cavity (keys: the model's
+            # variable ids, as EPSolver returns them)
+            with trace.span("readout"):
+                r1, gamma1 = carry
+                x1, v1, r2, gamma2 = self._lmmse_input(prior, r1, gamma1)
+                # z = W x posterior: one readout LMMSE pass (not per
+                # iteration)
+                lanes = B is not None
+                t = lin._mm(lin.V, r2, transpose=True, lanes=lanes)    # (k,)
+                den = s2d + gamma2
+                d = (gamma2 * t + p) / den
+                # z = W x: only the k signal modes contribute (s=0 beyond k)
+                z_hat = lin._mm(lin.U, lin.s * d, lanes=lanes)
+                v_z = last_axis(lin.s**2 / den, torch.sum) / lin.Nx
+                post = {self.x_id: {"r": x1, "v": lane_values(v1, B)},
+                        self.z_id: {"r": z_hat, "v": lane_values(v_z, B)}}
+            return post, n_iter, conv
 
     def solve(self, model):
         "One instance: ({id: {r, v}}, n_iter)."
