@@ -7,6 +7,10 @@ solver loops of ``parallel`` open these spans:
   ``SpectralVAMPSolver._run``, ``MLVAMPSolver._run``), the SE grid's too;
 - ``sweep``: one iteration, the step and the masks, everything before the
   stop test: the host's time to enqueue it;
+- ``replay``: inside ``sweep``, the launch of a captured CUDA graph that
+  holds the whole iteration (``MLVAMPSolver`` on the card), where there is
+  one; ``capture``, inside the first ``sweep`` of a new graph, that
+  iteration run eagerly and the capture;
 - ``stop_read``: the loop's one host read (``parallel.mesh.all_done``, with
   its ``all_reduce`` on a mesh): how long the loop waits on the device;
 - ``readout``: the posteriors after the loop.
@@ -59,6 +63,9 @@ MAX_RECORDS = 50_000
 #: prefix of the ``record_function`` ranges opened with ``config.TRACE`` True
 RANGE_PREFIX = "tramp_tpu_torch."
 
+#: the names of the spans the port opens
+NAMES = ("solve", "sweep", "replay", "capture", "stop_read", "readout", "svd",
+         "kernels.build", "kernels.compile", "kernels.load")
 #: one recorded span; ``solve`` is None outside any solve
 Record = collections.namedtuple("Record",
                                 "name parent solve start_ns end_ns")
