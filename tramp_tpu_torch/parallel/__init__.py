@@ -15,12 +15,14 @@ from .solver import (
 )
 from .vamp_glm import SpectralVAMPSolver
 from .grid import (
-    grid_combos, run_se_phase_grid, save_grid_csv, se_phase_grid_records,
+    SEGrid, build_se_grid, grid_combos, run_se_phase_grid, save_grid_csv,
+    se_grid_records, se_phase_grid_records, solve_se_grid,
 )
 
 __all__ = ["EPSolver", "SESolver", "SpectralVAMPSolver", "MLVAMPSolver",
            "dispatch_solver", "stack_models", "stack_pytrees",
            "with_buffers", "grid_combos", "run_se_phase_grid",
-           "se_phase_grid_records", "save_grid_csv", "save_checkpoint",
+           "se_phase_grid_records", "build_se_grid", "solve_se_grid",
+           "se_grid_records", "SEGrid", "save_grid_csv", "save_checkpoint",
            "restore_checkpoint", "make_mesh", "shard_batched_model",
            "shard_batched_state", "solve_batch_shard_map"]

@@ -15,6 +15,10 @@ solver loops of ``parallel`` open these spans:
   its ``all_reduce`` on a mesh): how long the loop waits on the device;
 - ``readout``: the posteriors after the loop.
 
+The SE phase grids (``parallel/grid.py``) open ``grid.build`` (the points'
+models built and stacked, the solver made) and ``grid.records`` (the
+answers read back and made records) around their solve.
+
 Set-up opens ``svd`` (``LinearChannel`` taking W's SVD itself) and
 ``kernels.build`` (``ops.pl_fused.build``), whose children are
 ``kernels.compile`` (the wait on nvcc, one per library built) and
@@ -64,8 +68,9 @@ MAX_RECORDS = 50_000
 RANGE_PREFIX = "tramp_tpu_torch."
 
 #: the names of the spans the port opens
-NAMES = ("solve", "sweep", "replay", "capture", "stop_read", "readout", "svd",
-         "kernels.build", "kernels.compile", "kernels.load")
+NAMES = ("solve", "sweep", "replay", "capture", "stop_read", "readout",
+         "grid.build", "grid.records", "svd", "kernels.build",
+         "kernels.compile", "kernels.load")
 #: one recorded span; ``solve`` is None outside any solve
 Record = collections.namedtuple("Record",
                                 "name parent solve start_ns end_ns")

@@ -22,6 +22,11 @@ rule hands ``f`` its n x n grid flattened to n * n nodes (``grid_2d``,
 the same way. A nested rule (an inner rule at every node of an outer one,
 as the likelihoods' measures have) hands ``f`` its outer and inner nodes
 flattened into one node axis too (``flat_call``, ``inner_gaussian_measure``).
+
+**Count.** ``nodes_evaluated`` adds up the integrand's evaluations of every
+measure's sum, lanes x nodes a call (an inner rule's nodes counted at every
+outer node), from the tensors' shapes on the host: it reads nothing from
+the device. Read it before and after a solve.
 """
 from functools import lru_cache
 
@@ -39,6 +44,15 @@ GH_NODES = config.GH_NODES
 GL_NODES = config.GL_NODES
 
 _INF = float("inf")
+
+#: integrand evaluations of the measures' sums since the module was loaded
+nodes_evaluated = 0
+
+
+def _count(values):
+    "Add the evaluations ``values`` holds to ``nodes_evaluated``."
+    global nodes_evaluated
+    nodes_evaluated += values.numel()
 
 
 @lru_cache(maxsize=None)
@@ -120,6 +134,7 @@ def _like(*params):
 
 def _total(weighted, lanes):
     "Sum over the node axis: 0-d without lanes, ``(B, 1)`` with them."
+    _count(weighted)
     return weighted.sum(-1, keepdim=True) if lanes else weighted.sum()
 
 
@@ -262,6 +277,7 @@ def inner_gaussian_measure(center, spread, g, *extra):
     xi, w = rule_on(center, std_normal_nodes)
     b = center[..., None] + inner_axis(spread) * xi
     vals = flat_call(g, b, *(e[..., None] for e in extra))
+    _count(vals)
     return torch.sum(w * vals, -1)
 
 
