@@ -81,6 +81,18 @@ class ExpectationPropagation(MessagePassing):
             images[i] = node.spectral_image(msg["b"], msg["a"])
         return images[i]
 
+    def _fill_aux(self, model, state, aux):
+        """The pinned slots' messages and the images of pinned bx slots,
+        as the first sweep from ``state`` computes them."""
+        aux = super()._fill_aux(model, state, aux)
+        if self._pinned_linear:
+            swept = list(state)
+            for s, msg in aux["pinned"].items():
+                swept[s] = msg
+            for i in self._pinned_linear:
+                self._pinned_image(i, model.nodes[i], swept, aux)
+        return aux
+
     # -- spectral-image carry (config.SPECTRAL_CARRY) ------------------------
     # Dense LinearChannels carry u = U^T bx across sweeps (the state's
     # trailing cache dict): the forward pass reads the image the previous

@@ -217,6 +217,16 @@ class MessagePassing:
         model that is swept."""
         return None
 
+    def _fill_aux(self, model, state, aux):
+        """``aux`` (``_prepare(model)``) with what the first sweep of a run
+        from ``state`` would add to it computed now: the pinned slots'
+        messages. The batched loop fills it before its first iteration, so
+        that an iteration only reads it (a captured iteration cannot add
+        to it). Returns ``aux``."""
+        if self.pinned:
+            self._pinned_slots(model, state, aux)
+        return aux
+
     def device_dtype(self):
         "Device and dtype of the message state."
         return self.model.device_dtype()

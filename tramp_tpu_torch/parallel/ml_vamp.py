@@ -58,7 +58,7 @@ from ..lanes import (
     lane_count, lane_values, model_lanes, per_lane, with_buffers,
 )
 from ..likelihoods import GaussianLikelihood
-from ..ops import pl_fused
+from . import graphs
 from .mesh import all_done, map_tree, stop_groups, whole_batch
 
 
@@ -592,8 +592,8 @@ class _Plan:
     capture), then captures the next one. A capture that raises (a factor
     whose message reads the device from the host) leaves ``failed`` set,
     and the steps of that solve run eagerly on the buffers. Capture
-    launches nothing: the launches counted during it are taken back out of
-    the kernels' ``.launches`` counters and added on each replay."""
+    launches nothing: what it added to the host's counters is taken back
+    out and added on each replay (``graphs``)."""
 
     def __init__(self, solver, model, B, inv, signature):
         self.signature = signature
@@ -617,7 +617,7 @@ class _Plan:
         lik = model.factors[-1]
         for name, v in self.terminal.items():
             v.copy_(getattr(lik, name))
-        for mine, theirs in zip(_tree_leaves(self.inv), _tree_leaves(inv)):
+        for mine, theirs in zip(graphs.leaves(self.inv), graphs.leaves(inv)):
             mine.copy_(theirs)
         own, r, flags = self.state
         if carry is None:
@@ -635,10 +635,7 @@ class _Plan:
         before the graph, the capture; after a capture that raised, the
         eager iteration."""
         if self.graph is not None:
-            with trace.span("replay"):
-                self.graph.replay()
-            for f, n in self.launches:
-                f.launches += n
+            graphs.replay(self.graph, self.launches)
         elif self.failed:
             self._iterate(solver)
         else:
@@ -650,53 +647,10 @@ class _Plan:
 
     def _capture(self, solver):
         "This iteration eagerly on a side stream, then the capture."
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            self._iterate(solver)
-        torch.cuda.current_stream().wait_stream(side)
-        counters = _counters()
-        before = [f.launches for f in counters]
-        graph = torch.cuda.CUDAGraph()
-        # cuBLAS keeps a workspace per stream: the capture's is made in the
-        # graph's own memory pool, and none outlives the capture in the
-        # memory counted as allocated (the graph's stays in its pool; the
-        # current stream makes its own again at its next product)
-        _clear_cublas_workspaces()
-        try:
-            with torch.cuda.graph(graph):
-                self._iterate(solver)
-        except RuntimeError:
-            self.failed = True
-            return
-        finally:
-            _clear_cublas_workspaces()
-            counted = [f.launches - n for f, n in zip(counters, before)]
-            for f, n in zip(counters, before):
-                f.launches = n
-        self.launches = [(f, n) for f, n in zip(counters, counted) if n]
-        self.graph = graph
-
-
-def _clear_cublas_workspaces():
-    "Free cuBLAS's workspaces, one per stream; the next product makes one."
-    torch.cuda.synchronize()
-    torch._C._cuda_clearCublasWorkspaces()
-
-
-def _counters():
-    "The kernel wrappers that count their launches (``ops.pl_fused``)."
-    return [pl_fused.pl_forward_message, pl_fused.pl_backward_message,
-            pl_fused.pl_posterior]
-
-
-def _tree_leaves(tree):
-    "The tensors of a tree of dicts, in order; a None branch has none."
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    if isinstance(tree, dict):
-        return [v for k in tree for v in _tree_leaves(tree[k])]
-    return []
+        graphs.warm(lambda: self._iterate(solver))
+        self.graph, self.launches = graphs.capture(
+            lambda: self._iterate(solver))
+        self.failed = self.graph is None
 
 
 def dispatch_solver(model, damping=None, tol=1e-6, max_iter=200, **kw):

@@ -9,6 +9,10 @@ Counterpart of tramp_tpu/utils/integration.py.
 
 Nodes and weights are numpy constants (``numpy.polynomial``), moved once per
 (device, dtype). Every integrand ``f`` maps tensors to tensors elementwise.
+After that first move a measure copies nothing from the host: a parameter
+or a segment edge given as a number is filled in on the device
+(``_on_device``, ``_edges``), so that a sweep of the batched solvers can be
+captured as one CUDA graph (``parallel.solver``).
 
 **Lanes** (tramp_tpu_torch/lanes.py). A parameter of a measure (``m``,
 ``s``, a covariance entry, a breakpoint) is one number, a Python float or a
@@ -115,10 +119,19 @@ def rule_on(like, rule, *args):
     return _on(like.device, like.dtype, rule, *args)
 
 
+def _on_device(x, device, dtype):
+    """A measure parameter (a number or a tensor) as a tensor on ``device``
+    in ``dtype``: a number is filled in there (``torch.full``), so that no
+    parameter is copied from the host and a captured sweep can hold it."""
+    if isinstance(x, (int, float)):
+        return torch.full((), x, device=device, dtype=dtype)
+    return torch.as_tensor(x, device=device, dtype=dtype)
+
+
 def sqrt_like(x, like):
     """The square root of a measure parameter (a number or a tensor) as a
     tensor on ``like``'s device and dtype."""
-    return torch.sqrt(torch.as_tensor(x, dtype=like.dtype, device=like.device))
+    return torch.sqrt(_on_device(x, like.device, like.dtype))
 
 
 def _like(*params):
@@ -169,7 +182,7 @@ def grid_2d_full(mean, cov, n_panels=10, order=10):
     entry by entry, so that each entry may be one value per lane."""
     (c00, _), (c10, c11) = cov
     device, dtype, _ = _like(c00, c10, c11, mean[0], mean[1])
-    L00 = torch.sqrt(torch.as_tensor(c00, device=device, dtype=dtype))
+    L00 = torch.sqrt(_on_device(c00, device, dtype))
     L10 = c10 / L00
     L11 = torch.sqrt(c11 - L10 * L10)
     u1, u2, w = _on(device, dtype, _std_normal_grid, n_panels, order)
@@ -203,7 +216,7 @@ def truncated_gaussian_measure(m, s, zmin, zmax, f, n=GL_NODES):
     and not used, as in the JAX package (tramp_tpu/utils/integration.py
     :111-128): the rule is always 12 panels of 12 Gauss-Legendre nodes."""
     device, dtype, lanes = _like(m, s)
-    m, s = (torch.as_tensor(v, device=device, dtype=dtype) for v in (m, s))
+    m, s = (_on_device(v, device, dtype) for v in (m, s))
     lo, hi = _cdf_bounds(m, s, zmin, zmax)
     mass = hi - lo
     u, w = _on(device, dtype, composite_gauss_legendre, 0.0, 1.0, 12, 12)
@@ -214,10 +227,16 @@ def truncated_gaussian_measure(m, s, zmin, zmax, f, n=GL_NODES):
 
 
 def _edges(lo, inner, hi):
-    "Sorted segment edges along the last axis: lo, the inner points, hi."
+    """Sorted segment edges along the last axis: lo, the inner points, hi.
+    A bound that is a number is filled in on the device (``new_full``), so
+    that no edge is copied from the host and a captured sweep can hold
+    it."""
+    shape = inner.shape[:-1] + (1,)
+
     def column(v):
-        v = torch.as_tensor(v, device=inner.device, dtype=inner.dtype)
-        return v.expand(inner.shape[:-1] + (1,))
+        if isinstance(v, torch.Tensor):
+            return v.expand(shape)
+        return inner.new_full(shape, v)
     return torch.sort(torch.cat([column(lo), inner, column(hi)], -1), -1)[0]
 
 
@@ -242,8 +261,7 @@ def truncated_gaussian_measure_boundary(m, s, zmin, zmax, points, f,
     into [zmin, zmax] (see gaussian_measure_boundary)."""
     lo, hi = _cdf_bounds(m, s, zmin, zmax)
     c = norm_cdf((points - m) / s)
-    lo, hi = (torch.as_tensor(v, device=c.device, dtype=c.dtype)
-              for v in (lo, hi))
+    lo, hi = (_on_device(v, c.device, c.dtype) for v in (lo, hi))
     c = torch.clamp(c, min=lo, max=hi)
     return _probit_segments(m, s, _edges(lo, c, hi), f, order, panels)
 
