@@ -1254,7 +1254,7 @@ def stop_metric_floor(torch, solver, model, lanes, sweeps=60):
     from tramp_tpu_torch.lanes import per_lane
     inv = solver._invariants(model, lanes)
     carry = solver._init(model, lanes)
-    old = solver._posterior_r(carry, inv)
+    old = solver._metric(carry, inv)
 
     def norm(x):
         return torch.sqrt(per_lane(x**2, lanes).mean(-1))
@@ -1262,7 +1262,7 @@ def stop_metric_floor(torch, solver, model, lanes, sweeps=60):
     history = []
     for _ in range(sweeps):
         carry = solver._step(model, carry, inv)
-        new = solver._posterior_r(carry, inv)
+        new = solver._metric(carry, inv)
         history.append(torch.stack(
             [norm(n - o) / norm(n)
              for n, o in zip(new, old)]).amax(0).reshape(-1))

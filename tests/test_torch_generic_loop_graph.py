@@ -1,5 +1,6 @@
 """The generic loop of ``parallel.EPSolver`` and ``parallel.SESolver`` as one
-in-place iteration, and its replay as a captured CUDA graph.
+in-place iteration, and its replay as a captured CUDA graph
+(``parallel.loop``).
 
 On the CPU (float64):
 
@@ -19,7 +20,8 @@ On the CPU (float64):
   number of a factor, and not fresh values of the tensors copied in;
 - an iteration of the SE grid and of the EP tree copies nothing from the
   host and reads nothing of the device (what no capture can hold);
-- a model on the CPU or on a mesh runs eagerly, with no plan.
+- (the eager loop on the CPU and on a mesh, and a moved tensor, are
+  tests/test_torch_solver_loop.py's, for ML-VAMP too).
 
 On the card (``-m cuda``; this file imports no JAX, so it runs there with
 ``--noconftest``): the graph against the eager loop, bit for bit, on a
@@ -28,8 +30,6 @@ after the other capture once and a grid of another lane count captures its
 own plan; a prior that reads the device from the host falls back to the
 eager loop; a replay adds the eager loop's node count.
 """
-import types
-
 import numpy as np
 import pytest
 import torch
@@ -40,12 +40,13 @@ from tramp_tpu_torch import config, trace
 from tramp_tpu_torch.channels import GaussianChannel, LinearChannel
 from tramp_tpu_torch.lanes import select, stack_models, with_buffers
 from tramp_tpu_torch.parallel import (
-    EPSolver, SESolver, build_se_grid, graphs, solve_se_grid,
-    solver as generic,
+    EPSolver, SESolver, build_se_grid, loop, solve_se_grid,
 )
 from tramp_tpu_torch.parallel.mesh import all_done
 from tramp_tpu_torch.priors import GaussBernoulliPrior
 from tramp_tpu_torch.utils import integration
+
+from torch_stand_in_graph import stand_in_graphs  # noqa: F401
 
 F64 = torch.float64
 
@@ -233,30 +234,13 @@ def test_the_eager_loop_leaves_the_initial_state():
         assert torch.equal(m["a"], a)
 
 
-# -- the choice of the eager loop and the signature ------------------------
-
-def test_a_model_on_the_cpu_runs_eagerly():
-    solver, model, state = _se_grid()
-    assert solver._why_eager(model, state, []) == \
-        "the state is not on a CUDA device"
-    solver._run(model, state)
-    assert SESolver._plans == {}
-
-
-def test_a_model_on_a_mesh_runs_eagerly():
-    solver, model, state = _se_grid()
-    on_mesh = "the model is on a mesh"
-    assert solver._why_eager(model, state, [object()]) == on_mesh
-    split = with_buffers(model, {})
-    split.mesh_lanes = types.SimpleNamespace()
-    assert solver._why_eager(split, state, []) == on_mesh
-
+# -- the signature ---------------------------------------------------------
 
 def _signature(solver, model, state, tol=None):
     eng = solver.engine
     aux = eng._fill_aux(model, state, eng._prepare(model))
-    return solver._signature(model, aux, state, eng._lanes(state),
-                             solver.tol if tol is None else tol)
+    return loop.signature(solver, model, aux, state, eng._lanes(state),
+                          solver.tol if tol is None else tol)
 
 
 def test_the_signature_follows_what_a_graph_reads(monkeypatch):
@@ -288,42 +272,11 @@ def test_the_signature_follows_what_a_graph_reads(monkeypatch):
 
 # -- the plan's path on the CPU ----------------------------------------------
 
-class _CallGraph:
-    "Stands in for a captured graph on the CPU: a replay runs the iteration."
-
-    def __init__(self, iterate):
-        self.iterate = iterate
-
-    def replay(self):
-        # the counters advance by the captured count (``graphs.replay``),
-        # not by the iteration run here
-        kept = integration.nodes_evaluated
-        self.iterate()
-        integration.nodes_evaluated = kept
-
-
-@pytest.fixture
-def stand_in_graphs(monkeypatch):
-    """The graph path on the CPU: ``_Plan``'s capture replaced by a graph
-    whose replay runs the iteration on the plan's buffers, counted as a
-    capture counts: once, the count added on every replay."""
-    def capture(plan, solver):
-        before = integration.nodes_evaluated
-        plan._iterate(solver)
-        plan.graph = _CallGraph(lambda: plan._iterate(solver))
-        plan.counts = [(integration, "nodes_evaluated",
-                        integration.nodes_evaluated - before)]
-    monkeypatch.setattr(generic._Plan, "_capture", capture)
-    for cls in (SESolver, EPSolver):
-        monkeypatch.setattr(cls, "_why_eager",
-                            lambda self, model, state, groups: None)
-
-
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_the_plan_s_buffers_keep_the_bits_on_the_cpu(case, stand_in_graphs):
     solver, model, state = CASES[case]()
     want = _loop_before(solver, model, state)
-    got = solver._run(model, state, own_state=True)
+    got = solver._run(model, state, own=True)
     _assert_same_bits(got, want)
     # the first iteration is the capture's
     spans = trace.summary()
@@ -332,8 +285,8 @@ def test_the_plan_s_buffers_keep_the_bits_on_the_cpu(case, stand_in_graphs):
         == int(got[2].max())
     # the answers are not the plan's buffers, which the next solve writes
     plan = type(solver)._plans[solver.engine._lanes(state)]
-    own = {t.data_ptr() for t in graphs.leaves(plan.loop)}
-    assert not {t.data_ptr() for t in graphs.leaves(got)} & own
+    own = {t.data_ptr() for t in loop.leaves(plan.loop)}
+    assert not {t.data_ptr() for t in loop.leaves(got)} & own
     # a second solve replays the plan: no capture
     trace.reset()
     _assert_same_bits(solver._run(model, state), want)
@@ -369,17 +322,17 @@ def test_a_warm_restart_s_state_outlives_a_later_solve_on_the_cpu(
     short, model, _ = _tree(50, 40, 3, "cpu", seed=1, max_iter=4)
     _, state, n_first = short.solve_batch_with_state(model)
     assert n_first.tolist() == [4, 4, 4]
-    kept = [t.clone() for t in graphs.leaves(state)]
+    kept = [t.clone() for t in loop.leaves(state)]
     # a later solve of another model of as many lanes, on the same plan
     solver, other, _ = _tree(50, 40, 3, "cpu", seed=2)
     solver.solve_batch(other)
     assert "capture" in trace.summary() and list(EPSolver._plans) == [3]
-    for t, k in zip(graphs.leaves(state), kept):
+    for t, k in zip(loop.leaves(state), kept):
         assert torch.equal(t, k)
     # the warm restart from it keeps the bits of the loop it replaced
     want = _loop_before(solver, model, state)
-    _assert_same_bits(solver._run(model, state, own_state=True), want)
-    for t, k in zip(graphs.leaves(state), kept):
+    _assert_same_bits(solver._run(model, state, own=True), want)
+    for t, k in zip(loop.leaves(state), kept):
         assert torch.equal(t, k)
 
 
@@ -389,22 +342,22 @@ def test_the_gated_mode_keeps_its_bits_and_answers_on_the_cpu(
     solver, model, _ = _tree(50, 40, 3, "cpu", seed=3, dtype=f32, tol=1e-5)
     _, other, _ = _tree(50, 40, 3, "cpu", seed=4, dtype=f32)
     got = solver.solve_batch_gated_bf16(model)
-    kept = [t.clone() for t in graphs.leaves(got)]
+    kept = [t.clone() for t in loop.leaves(got)]
     # its two phases: two signatures, one plan of 3 lanes replacing the
     # other
     assert trace.summary()["capture"]["count"] == 2
     # the same call with the graph path shut
-    monkeypatch.setattr(EPSolver, "_why_eager",
-                        lambda self, model, state, groups: "eager")
+    monkeypatch.setattr(loop, "why_eager",
+                        lambda model, device, groups: "eager")
     want = solver.solve_batch_gated_bf16(model)
     assert int(got[1].max()) > 2
-    for a, b in zip(graphs.leaves(got), graphs.leaves(want)):
+    for a, b in zip(loop.leaves(got), loop.leaves(want)):
         assert torch.equal(a, b)
     # a later solve leaves the answers handed out
-    monkeypatch.setattr(EPSolver, "_why_eager",
-                        lambda self, model, state, groups: None)
+    monkeypatch.setattr(loop, "why_eager",
+                        lambda model, device, groups: None)
     solver.solve_batch_gated_bf16(other)
-    for t, k in zip(graphs.leaves(got), kept):
+    for t, k in zip(loop.leaves(got), kept):
         assert torch.equal(t, k)
 
 
@@ -414,8 +367,8 @@ def test_a_plan_counts_the_quadrature_nodes_of_the_eager_loop(
     before = integration.nodes_evaluated
     on_plan = solver._run(model, state)
     counted = integration.nodes_evaluated - before
-    monkeypatch.setattr(SESolver, "_why_eager",
-                        lambda self, model, state, groups: "eager")
+    monkeypatch.setattr(loop, "why_eager",
+                        lambda model, device, groups: "eager")
     before = integration.nodes_evaluated
     eager = solver._run(model, state)
     assert integration.nodes_evaluated - before == counted > 0
@@ -446,11 +399,11 @@ def test_an_iteration_copies_nothing_from_the_host(case, monkeypatch):
     eng = solver.engine
     B = eng._lanes(state)
     aux = eng._fill_aux(model, state, eng._prepare(model))
-    loop = solver._start(state, B)
+    state = solver._start(model, aux, B, state)
     # the first iteration moves the quadrature's nodes to the device, once
-    solver._iterate(model, aux, B, loop, solver.tol)
+    solver._iterate(model, aux, B, state, solver.tol)
     with _HostData() as seen:
-        solver._iterate(model, aux, B, loop, solver.tol)
+        solver._iterate(model, aux, B, state, solver.tol)
     assert seen.seen == []
 
 
@@ -462,16 +415,14 @@ def _card():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def _eager(solver, monkeypatch):
-    "``solver`` with its graph path shut, for the comparison."
-    monkeypatch.setattr(solver, "_why_eager",
-                        lambda model, state, groups: "eager for the "
-                                                     "comparison")
-    return solver
-
-
-def _solve(solver, model, state):
-    out = solver._run(model, state, own_state=True)
+def _solve(solver, model, state, eager=False):
+    """``solver._run(model, state)`` synchronised; ``eager``: with the graph
+    path shut, for the comparison."""
+    with pytest.MonkeyPatch.context() as patch:
+        if eager:
+            patch.setattr(loop, "why_eager",
+                          lambda model, device, groups: "eager")
+        out = solver._run(model, state, own=True)
     torch.cuda.synchronize()
     return out
 
@@ -500,13 +451,13 @@ def _grid103(device, shift=0.0, rhos=(0.25,), prior=None):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["grid103", "ep_tree"])
-def test_the_graph_keeps_the_eager_bits_on_card(case, monkeypatch):
+def test_the_graph_keeps_the_eager_bits_on_card(case):
     _card()
     make = {"grid103": lambda: _grid103("cuda"),
             "ep_tree": lambda: _tree(2000, 1500, 16, "cuda", seed=5)}[case]
     solver, model, state = make()
     eager_solver, _, _ = make()
-    want = _solve(_eager(eager_solver, monkeypatch), model, state)
+    want = _solve(eager_solver, model, state, eager=True)
     assert "replay" not in trace.summary()
     got = _solve(solver, model, state)
     _assert_same_bits(got, want)
@@ -522,14 +473,13 @@ def test_the_graph_keeps_the_eager_bits_on_card(case, monkeypatch):
 
 
 @pytest.mark.cuda
-def test_grids_of_one_structure_capture_once_on_card(monkeypatch):
+def test_grids_of_one_structure_capture_once_on_card():
     _card()
     for shift in (0.0, 0.004):
         solver, model, state = _grid103("cuda", shift)
         got = _solve(solver, model, state)
         eager, _, _ = _grid103("cuda", shift)
-        _assert_same_bits(got, _solve(_eager(eager, monkeypatch), model,
-                                      state))
+        _assert_same_bits(got, _solve(eager, model, state, eager=True))
     assert trace.summary()["capture"]["count"] == 1
     # another lane count captures its own plan
     solver, model, state = _grid103("cuda", rhos=(0.25, 0.5))
@@ -548,11 +498,11 @@ class _ReadingPrior(GaussBernoulliPrior):
 
 
 @pytest.mark.cuda
-def test_a_prior_that_reads_the_device_runs_eagerly_on_card(monkeypatch):
+def test_a_prior_that_reads_the_device_runs_eagerly_on_card():
     _card()
     solver, model, state = _grid103("cuda", prior=_ReadingPrior)
     eager, _, _ = _grid103("cuda", prior=_ReadingPrior)
-    want = _solve(_eager(eager, monkeypatch), model, state)
+    want = _solve(eager, model, state, eager=True)
     got = _solve(solver, model, state)
     _assert_same_bits(got, want)
     assert SESolver._plans[103].failed
@@ -562,7 +512,7 @@ def test_a_prior_that_reads_the_device_runs_eagerly_on_card(monkeypatch):
 
 
 @pytest.mark.cuda
-def test_a_replay_adds_the_eager_node_count_on_card(monkeypatch):
+def test_a_replay_adds_the_eager_node_count_on_card():
     _card()
     solver, model, state = _grid103("cuda")
     counts = []
@@ -572,7 +522,7 @@ def test_a_replay_adds_the_eager_node_count_on_card(monkeypatch):
         counts.append(integration.nodes_evaluated - before)
     eager, _, _ = _grid103("cuda")
     before = integration.nodes_evaluated
-    _solve(_eager(eager, monkeypatch), model, state)
+    _solve(eager, model, state, eager=True)
     assert counts == [integration.nodes_evaluated - before] * 2
     assert counts[0] == 103 * 2 * 640 * int(n_iter.max())
     assert trace.summary()["replay"]["count"] == 2 * int(n_iter.max()) - 1

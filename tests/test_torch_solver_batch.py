@@ -173,7 +173,7 @@ def test_converged_flags_are_per_lane(name):
         _, _, _, conv = solver._run(
             broken, solver._with_lanes(solver.init_state(), LANES))
     else:
-        conv = solver._run(broken)[2]
+        conv = solver._run(broken)[3]
     assert conv.tolist() == [True, False, True, True]
 
 

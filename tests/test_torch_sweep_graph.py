@@ -1,5 +1,5 @@
 """The loop of ``parallel.MLVAMPSolver`` as one in-place iteration, and its
-replay as a captured CUDA graph.
+replay as a captured CUDA graph (``parallel.loop``).
 
 On the CPU (float64):
 
@@ -9,10 +9,10 @@ On the CPU (float64):
   the relu net at one instance and at three lanes, the perceptron (a sign
   likelihood, which is not pinned), and a warm restart from
   ``solve_batch_with_state``, whose state the solve leaves as it was;
-- the choice of the eager loop: a model on the CPU or on a mesh (stop
-  groups, a model split over ranks) runs eagerly, with no ``replay`` or ``capture`` span; the signature that
-  decides a new capture follows every factor tensor's storage but the
-  terminal factor's, and the numbers and switches the step reads.
+- the signature that decides a new capture follows every factor tensor's
+  storage but the terminal factor's, and the numbers and switches the step
+  reads (the eager loop on the CPU and on a mesh, and a moved tensor, are
+  tests/test_torch_solver_loop.py's, for the generic loop too).
 
 On the card (``-m cuda``; this file imports no JAX, so it runs there with
 ``--noconftest``), the relu net of N = 4096, M = 2048 in float64: the graph
@@ -22,8 +22,6 @@ factor that reads the device from the host, whose capture fails into the
 eager loop; a tensor that moved, which is captured again; and the message
 kernels' launch counters, one launch of each per replay.
 """
-import types
-
 import pytest
 import torch
 
@@ -32,16 +30,20 @@ from tramp_tpu_torch import config, trace
 from tramp_tpu_torch.channels import GaussianChannel, LinearChannel, ReluChannel
 from tramp_tpu_torch.lanes import model_lanes, select
 from tramp_tpu_torch.ops import pl_fused
-from tramp_tpu_torch.parallel import MLVAMPSolver, ml_vamp, with_buffers
+from tramp_tpu_torch.parallel import MLVAMPSolver, loop, with_buffers
 from tramp_tpu_torch.parallel.mesh import all_done
 from tramp_tpu_torch.priors import GaussBernoulliPrior
+
+from torch_stand_in_graph import stand_in_graphs  # noqa: F401
 
 F64 = torch.float64
 
 
 @pytest.fixture(autouse=True)
-def fresh_spans(monkeypatch):
+def fresh_spans_and_plans(monkeypatch):
+    "Spans recorded from zero; no plan of another test."
     monkeypatch.setattr(config, "TRACE", True)
+    monkeypatch.setattr(MLVAMPSolver, "_plans", {})
     trace.reset()
     yield
     trace.reset()
@@ -49,12 +51,12 @@ def fresh_spans(monkeypatch):
 
 def _loop_before(solver, model, carry=None):
     """The loop of ``MLVAMPSolver._run`` as it was written before its
-    iteration became ``_iterate``: (post, n_iter, conv, carry)."""
+    iteration became ``_iterate``: (post, carry, n_iter, conv)."""
     B = model_lanes(model, solver.template)
     inv = solver._invariants(model, B)
     if carry is None:
         carry = solver._init(model, B)
-    old_r = solver._posterior_r(carry, inv)
+    old_r = solver._metric(carry, inv)
     flags = () if B is None else (B,)
     n_iter = torch.zeros(flags, dtype=torch.int64)
     done = torch.zeros(flags, dtype=torch.bool)
@@ -75,9 +77,9 @@ def _loop_before(solver, model, carry=None):
         ok = torch.stack(
             [torch.isfinite(x.reshape(x.shape[0], -1) if B else
                             x.reshape(-1)).all(-1)
-             for x in solver._leaves(new_carry)]).all(0)
+             for x in loop.leaves(new_carry)]).all(0)
         new_carry = both(lambda n, o: select(ok, n, o), new_carry, carry)
-        new_r = solver._posterior_r(new_carry, inv)
+        new_r = solver._metric(new_carry, inv)
         delta = torch.stack([
             norm(n - o) / torch.clamp(norm(n), min=torch.finfo(n.dtype).tiny)
             for n, o in zip(new_r, old_r)]).amax(0)
@@ -94,7 +96,7 @@ def _loop_before(solver, model, carry=None):
         done = done | converged | ~ok
         if all_done(done, []):
             break
-    return solver._readout(model, carry, inv, B), n_iter, conv, carry
+    return solver._readout(model, carry, inv, B), carry, n_iter, conv
 
 
 def _relu_net(N, M, lanes, device, seed=0, rho=0.25,
@@ -134,17 +136,16 @@ def _perceptron(lanes):
 
 
 def _assert_same_bits(got, want):
-    post, n_iter, conv, carry = got
-    post_w, n_iter_w, conv_w, carry_w = want
+    post, carry, n_iter, conv = got
+    post_w, carry_w, n_iter_w, conv_w = want
     assert torch.equal(n_iter, n_iter_w)
     assert conv is None or torch.equal(conv, conv_w)
     assert post.keys() == post_w.keys()
     for vid in post:
         for k in ("r", "v"):
             assert torch.equal(post[vid][k], post_w[vid][k]), (vid, k)
-    leaves = MLVAMPSolver._leaves
-    assert len(leaves(carry)) == len(leaves(carry_w))
-    for a, b in zip(leaves(carry), leaves(carry_w)):
+    assert len(loop.leaves(carry)) == len(loop.leaves(carry_w))
+    for a, b in zip(loop.leaves(carry), loop.leaves(carry_w)):
         assert torch.equal(a, b)
 
 
@@ -161,7 +162,7 @@ def test_the_eager_loop_keeps_the_bits_of_the_loop_it_replaced(case):
     student, model = CASES[case]()
     solver = MLVAMPSolver(student, damping=0.1, tol=1e-8, max_iter=150)
     got = solver._run(model)
-    assert int(got[1].max()) > 2
+    assert int(got[2].max()) > 2
     _assert_same_bits(got, _loop_before(solver, model))
     assert "replay" not in trace.summary() and solver._plans == {}
 
@@ -171,75 +172,37 @@ def test_a_warm_restart_keeps_the_bits_and_leaves_its_state():
     first = MLVAMPSolver(student, damping=0.1, tol=1e-8, max_iter=4)
     _, state, n_first = first.solve_batch_with_state(model)
     assert n_first.tolist() == [4, 4, 4]
-    kept = [t.clone() for t in MLVAMPSolver._leaves(state)]
+    kept = [t.clone() for t in loop.leaves(state)]
     solver = MLVAMPSolver(student, damping=0.1, tol=1e-8, max_iter=150)
     post, carry, n_iter = solver.solve_batch_with_state(model, state)
     want = _loop_before(solver, model, state)
-    _assert_same_bits((post, n_iter, None, carry), want)
-    for a, b in zip(MLVAMPSolver._leaves(state), kept):
+    _assert_same_bits((post, carry, n_iter, None), want)
+    for a, b in zip(loop.leaves(state), kept):
         assert torch.equal(a, b)
 
 
-def test_a_model_on_the_cpu_runs_eagerly():
-    student, model = _relu_net(60, 40, 3, "cpu")
-    solver = MLVAMPSolver(student, damping=0.1)
-    assert solver._why_eager(model, []) == "the model is not on a CUDA device"
-    solver.solve_batch(model)
-    solver.solve(student)
-    spans = trace.summary()
-    assert spans["sweep"]["count"] > 2
-    assert "replay" not in spans and "capture" not in spans
-    assert solver._plans == {}
-
-
-def test_a_model_on_a_mesh_runs_eagerly():
-    student, model = _relu_net(60, 40, 3, "cpu")
-    solver = MLVAMPSolver(student, damping=0.1)
-    on_mesh = "the model is on a mesh"
-    # a stop flag reduced over process groups
-    assert solver._why_eager(model, [object()]) == on_mesh
-    # lanes or operators split over the mesh (``shard_batched_model``)
-    split = with_buffers(model, {})
-    split.mesh_lanes = types.SimpleNamespace()
-    assert solver._why_eager(split, []) == on_mesh
-    assert solver._why_eager(with_buffers(split, {}), []) == on_mesh
+def _signature(solver, model):
+    B = model_lanes(model, solver.template)
+    return loop.signature(solver, model, solver._invariants(model, B), None,
+                          B, solver.tol)
 
 
 def test_the_signature_follows_what_a_graph_reads():
     student, model = _relu_net(60, 40, 3, "cpu")
     solver = MLVAMPSolver(student, damping=0.1)
-    base = solver._signature(model)
+    base = _signature(solver, model)
     # a fresh observation is copied in: no new capture
     fresh = with_buffers(model, {(3, "y"): model.factors[3].y.clone()})
-    assert solver._signature(fresh) == base
+    assert _signature(solver, fresh) == base
     # an operator with the same values in another storage
     W = with_buffers(model, {(1, "V"): model.factors[1].V.clone()})
-    assert solver._signature(W) != base
+    assert _signature(solver, W) != base
     # observations of another layout, a number the step reads, the tol
-    assert solver._signature(with_buffers(
+    assert _signature(solver, with_buffers(
         model, {(3, "y"): model.factors[3].y[:2]})) != base
-    assert solver._signature(with_buffers(model, {(0, "rho"): 0.3})) != base
+    assert _signature(solver, with_buffers(model, {(0, "rho"): 0.3})) != base
     solver.tol = 1e-9
-    assert solver._signature(model) != base
-
-
-class _CallGraph:
-    "Stands in for a captured graph on the CPU: a replay runs the iteration."
-
-    def __init__(self, iterate):
-        self.replay = iterate
-
-
-@pytest.fixture
-def stand_in_graphs(monkeypatch):
-    """The graph path on the CPU: ``_Plan``'s capture replaced by a graph
-    whose replay runs the iteration on the plan's buffers."""
-    def capture(plan, solver):
-        plan._iterate(solver)
-        plan.graph = _CallGraph(lambda: plan._iterate(solver))
-    monkeypatch.setattr(ml_vamp._Plan, "_capture", capture)
-    monkeypatch.setattr(MLVAMPSolver, "_why_eager",
-                        lambda self, model, groups: None)
+    assert _signature(solver, model) != base
 
 
 @pytest.mark.parametrize("lanes", [None, 3])
@@ -249,44 +212,45 @@ def test_the_plan_s_buffers_keep_the_bits_on_the_cpu(lanes, stand_in_graphs):
     out a copy, not the plan's own."""
     student, model = _relu_net(60, 40, lanes, "cpu", seed=1)
     solver = MLVAMPSolver(student, damping=0.1, tol=1e-8, max_iter=150)
-    got = solver._run(model, own_carry=True)
+    got = solver._run(model, own=True)
     _assert_same_bits(got, _loop_before(solver, model))
     # the first iteration is the capture's
     spans = trace.summary()
     assert spans["capture"]["count"] == 1
     assert spans["replay"]["count"] + 1 == spans["sweep"]["count"] \
-        == int(got[1].max())
+        == int(got[2].max())
     _, other = _relu_net(60, 40, lanes, "cpu", seed=2)
     other = with_buffers(model, {(3, "y"): other.factors[3].y})
     trace.reset()
-    again = solver._run(other, own_carry=True)
+    again = solver._run(other, own=True)
     _assert_same_bits(again, _loop_before(solver, other))
     spans = trace.summary()
     assert "capture" not in spans
-    assert spans["replay"]["count"] == int(again[1].max())
-    own = MLVAMPSolver._leaves(solver._plans[lanes].state[0])
-    assert not {t.data_ptr() for t in MLVAMPSolver._leaves(again[3])} & {
+    assert spans["replay"]["count"] == int(again[2].max())
+    own = loop.leaves(MLVAMPSolver._plans[lanes].loop["carry"])
+    assert not {t.data_ptr() for t in loop.leaves(again[1])} & {
         t.data_ptr() for t in own}
     # n_iter and conv are not the plan's flags, which the next call zeroes
-    n_iter = again[1].clone()
+    n_iter = again[2].clone()
     solver._run(model)
-    assert torch.equal(again[1], n_iter)
+    assert torch.equal(again[2], n_iter)
 
 
-def test_the_plan_s_warm_restart_and_a_moved_tensor_on_the_cpu(
-        stand_in_graphs):
+def test_the_plan_s_warm_restart_on_the_cpu(stand_in_graphs):
+    """A warm restart keeps the bits on the plan; its carry's layouts
+    enter the signature, so it captures a plan of its own."""
     student, model = _relu_net(60, 40, 3, "cpu", seed=1)
     _, state, _ = MLVAMPSolver(student, damping=0.1, tol=1e-8,
                                max_iter=4).solve_batch_with_state(model)
-    assert "capture" in trace.summary()
+    assert trace.summary()["capture"]["count"] == 1
+    kept = [t.clone() for t in loop.leaves(state)]
     solver = MLVAMPSolver(student, damping=0.1, tol=1e-8, max_iter=150)
     post, carry, n_iter = solver.solve_batch_with_state(model, state)
-    _assert_same_bits((post, n_iter, None, carry),
+    _assert_same_bits((post, carry, n_iter, None),
                       _loop_before(solver, model, state))
-    trace.reset()
-    moved = with_buffers(model, {(1, "V"): model.factors[1].V.clone()})
-    _assert_same_bits(solver._run(moved), _loop_before(solver, moved))
-    assert trace.summary()["capture"]["count"] == 1
+    assert trace.summary()["capture"]["count"] == 2
+    for a, b in zip(loop.leaves(state), kept):
+        assert torch.equal(a, b)
 
 
 # -- on the card --------------------------------------------------------------
@@ -300,44 +264,41 @@ def _card():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def _eager(solver, monkeypatch):
-    "``solver`` with its graph path shut, for the comparison."
-    monkeypatch.setattr(solver, "_why_eager",
-                        lambda model, groups: "eager for the comparison")
-    return solver
-
-
-def _solve(solver, model):
-    post, n_iter, conv, carry = solver._run(model, own_carry=True)
+def _solve(solver, model, eager=False):
+    """``solver._run(model)`` synchronised; ``eager``: with the graph path
+    shut, for the comparison."""
+    with pytest.MonkeyPatch.context() as patch:
+        if eager:
+            patch.setattr(loop, "why_eager",
+                          lambda model, device, groups: "eager")
+        out = solver._run(model, own=True)
     torch.cuda.synchronize()
-    return post, n_iter, conv, carry
+    return out
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("lanes", [None, 64])
-def test_the_graph_keeps_the_eager_bits_on_card(lanes, monkeypatch):
+def test_the_graph_keeps_the_eager_bits_on_card(lanes):
     _card()
     student, model = _relu_net(N, M, lanes, "cuda", seed=5)
     solver = MLVAMPSolver(student, damping=0.1, tol=1e-6, max_iter=500)
-    eager = _eager(MLVAMPSolver(student, damping=0.1, tol=1e-6,
-                                max_iter=500), monkeypatch)
-    want = _solve(eager, model)
+    want = _solve(solver, model, eager=True)
     assert "replay" not in trace.summary()
     got = _solve(solver, model)
     _assert_same_bits(got, want)
     # the first iteration is the capture's
     spans = trace.summary()
     assert spans["capture"]["count"] == 1
-    assert spans["replay"]["count"] + 1 == int(got[1].max()) > 2
+    assert spans["replay"]["count"] + 1 == int(got[2].max()) > 2
     # a second call with fresh observations: copied in, not captured again
     _, again = _relu_net(N, M, lanes, "cuda", seed=6)
     again = with_buffers(model, {(3, "y"): again.factors[3].y})
     trace.reset()
     got = _solve(solver, again)
-    _assert_same_bits(got, _solve(eager, again))
+    _assert_same_bits(got, _solve(solver, again, eager=True))
     spans = trace.summary()
     assert "capture" not in spans
-    assert spans["replay"]["count"] == int(got[1].max())
+    assert spans["replay"]["count"] == int(got[2].max())
 
 
 class _ReadingPrior(GaussBernoulliPrior):
@@ -350,30 +311,30 @@ class _ReadingPrior(GaussBernoulliPrior):
 
 
 @pytest.mark.cuda
-def test_a_factor_that_reads_the_device_runs_eagerly_on_card(monkeypatch):
+def test_a_factor_that_reads_the_device_runs_eagerly_on_card():
+    """The capture fails: that solve finishes eagerly, and the plan keeps
+    its signature as failed, so later solves of it run eagerly."""
     _card()
     student, model = _relu_net(N, M, 8, "cuda", seed=7, prior=_ReadingPrior)
     solver = MLVAMPSolver(student, damping=0.1, tol=1e-6, max_iter=500)
-    eager = _eager(MLVAMPSolver(student, damping=0.1, tol=1e-6,
-                                max_iter=500), monkeypatch)
     got = _solve(solver, model)
-    assert solver._plans[8] is None
-    _assert_same_bits(got, _solve(eager, model))
+    plan = MLVAMPSolver._plans[8]
+    assert plan.failed and plan.loop is None
+    _assert_same_bits(got, _solve(solver, model, eager=True))
     _assert_same_bits(_solve(solver, model), got)
     spans = trace.summary()
     assert spans["capture"]["count"] == 1 and "replay" not in spans
 
 
 @pytest.mark.cuda
-def test_a_moved_tensor_is_captured_again_on_card(monkeypatch):
+def test_a_moved_tensor_is_captured_again_on_card():
     _card()
     student, model = _relu_net(N, M, 8, "cuda", seed=8)
     solver = MLVAMPSolver(student, damping=0.1, tol=1e-6, max_iter=500)
-    eager = _eager(MLVAMPSolver(student, damping=0.1, tol=1e-6,
-                                max_iter=500), monkeypatch)
     _solve(solver, model)
     moved = with_buffers(model, {(1, "V"): model.factors[1].V.clone()})
-    _assert_same_bits(_solve(solver, moved), _solve(eager, moved))
+    _assert_same_bits(_solve(solver, moved),
+                      _solve(solver, moved, eager=True))
     assert trace.summary()["capture"]["count"] == 2
 
 
@@ -389,7 +350,7 @@ def test_a_replay_counts_one_launch_of_each_message_on_card(lanes):
     for _ in range(2):
         before = [f.launches for f in counters]
         trace.reset()
-        _, n_iter, _, _ = _solve(solver, model)
+        _, _, n_iter, _ = _solve(solver, model)
         loops = trace.summary()["sweep"]["count"]
         assert loops == int(n_iter.max()) > 2
         assert [f.launches - n for f, n in zip(counters, before)] == [

@@ -34,32 +34,24 @@ message contract (compute_forward_message / compute_backward_message);
 ``LinearChannel`` (exactly) gets the spectral treatment. Multi-edge
 topologies are not chains: use ``EPSolver``. ``dispatch_solver`` picks.
 
-The loop is a Python loop with one host read per iteration, and batches are
-a lane axis written out, with the semantics of the JAX package's
-``vmap`` of a ``while_loop`` (see vamp_glm.py's module docstring): a step
-that is not finite is dropped and ends its lane, and a lane that is done is
-frozen. An iteration (``MLVAMPSolver._iterate``) updates the loop's state
-in place on the device, with no host read.
-
-On the card, off a mesh, the iteration is captured once per solver and lane
-count as a CUDA graph (``_Plan``), and each iteration replays it: one
-launch where the eager iteration makes about 260. Each solve copies its
-observation and loop invariants into the plan's buffers; a model whose
-other tensors moved is captured again, and a factor whose message reads the
-device from the host, which no graph can hold, runs eagerly. The replay
-runs the eager iteration's kernels, so the answers are the same bits.
+The loop, its flags and frozen lanes, and its replay as a CUDA graph on
+the card (one launch where the eager iteration makes about 260) are
+``parallel/loop.py``'s. Its iteration here (``MLVAMPSolver._iterate``): a
+step that is not finite is dropped and ends its lane. A plan copies in the
+terminal factor's tensors (the observation) and the loop invariants; the
+other factors' tensors (W and its SVD factors) are read where they lie, so
+a model whose operator moved is captured again.
 """
 import torch
 
-from .. import config, trace
 from ..base import compute_ab_new
 from ..channels import LinearChannel
-from ..lanes import (
-    lane_count, lane_values, model_lanes, per_lane, with_buffers,
-)
+from ..lanes import lane_count, lane_values, model_lanes, per_lane
 from ..likelihoods import GaussianLikelihood
-from . import graphs
-from .mesh import all_done, map_tree, stop_groups, whole_batch
+from .loop import (
+    SolverLoop, advance, leaves, select_, start_flags, tensor_fields,
+)
+from .mesh import map_tree, whole_batch
 
 
 def chain_factors(model):
@@ -119,24 +111,12 @@ def _lin_bwd(lin, az, bz, ax, tx, tz):
     return rz, vz
 
 
-def _fields(factor):
-    "(name, value) of every data and meta field of ``factor``."
-    for name in type(factor)._data_fields + type(factor)._meta_fields:
-        yield name, getattr(factor, name, None)
-
-
-def _select_(flag, new, old):
-    "``lanes.select(flag, new, old)`` written into ``old``."
-    flag = flag.reshape(flag.shape + (1,) * (old.ndim - flag.ndim))
-    torch.where(flag, new, old, out=old)
-
-
 def _norm(x, B):
     "The root mean square of ``x``, one per lane."
     return torch.sqrt(per_lane(x**2, B).mean(-1))
 
 
-class MLVAMPSolver:
+class MLVAMPSolver(SolverLoop):
     """Spectral chain solver; same call surface as EPSolver and
     SpectralVAMPSolver: ``solve(model) -> ({id: {r, v}}, n_iter)``, and
     ``solve_batch`` on a model whose buffers carry lanes (a buffer has lanes
@@ -183,9 +163,6 @@ class MLVAMPSolver:
         shapes = model.init_shapes()
         self._shapes = [shapes[i] for i, n in enumerate(model.nodes)
                         if n in model.variables]
-        # the loop's buffers and captured iteration by lane count, None
-        # where a capture raised (``_plan``)
-        self._plans = {}
 
     # -- loop invariants ---------------------------------------------------
     def _invariants(self, model, B=None):
@@ -297,7 +274,7 @@ class MLVAMPSolver:
             msgs[L - 1] = m
         return (tuple(msgs), txs)
 
-    def _posterior_r(self, carry, inv):
+    def _metric(self, carry, inv):
         "Per-interface posterior means (the engine's 'r' stop metric)."
         L = self.L
         pin = inv["pin"]
@@ -350,11 +327,6 @@ class MLVAMPSolver:
         return (msgs, txs)
 
     @staticmethod
-    def _leaves(carry):
-        return [v for m in carry[0] for v in m.values()] + list(
-            carry[1].values())
-
-    @staticmethod
     def _pairs(new, old):
         "(new leaf, old leaf) of two carries of one structure, key by key."
         for n, o in zip(new[0], old[0]):
@@ -363,150 +335,62 @@ class MLVAMPSolver:
         for k in old[1]:
             yield new[1][k], old[1][k]
 
-    def _start(self, model, inv, B, carry=None):
+    def _prepare(self, model, carry):
+        "The run's lane count, device, loop invariants and carry."
+        B = model_lanes(model, self.template)
+        return (B, model.factors[-1].y.device, self._invariants(model, B),
+                carry)
+
+    def _start(self, model, inv, B, carry):
         """The loop's state before its first iteration, which ``_iterate``
-        updates in place: (carry, posterior means, flags). The carry is
-        the zero carry, or a copy of ``carry``; the flags are ``n_iter``,
-        ``conv`` and ``done``, one per lane, and ``count``, the iterations
-        run, on the device."""
+        updates in place: the zero carry, or a copy of ``carry``, the
+        posterior means and the flags."""
         carry = (self._init(model, B) if carry is None
                  else map_tree(torch.clone, carry))
-        r = list(self._posterior_r(carry, inv))
-        kw = dict(device=r[0].device)
-        lanes = () if B is None else (B,)
-        flags = {"n_iter": torch.zeros(lanes, dtype=torch.int64, **kw),
-                 "conv": torch.zeros(lanes, dtype=torch.bool, **kw),
-                 "done": torch.zeros(lanes, dtype=torch.bool, **kw),
-                 "count": torch.zeros((), dtype=torch.int64, **kw)}
-        return carry, r, flags
+        r = list(self._metric(carry, inv))
+        return {"carry": carry, "metric": r,
+                "flags": start_flags(B, r[0].device)}
 
-    def _iterate(self, model, inv, B, state):
-        """One iteration of the loop, in place on ``state`` (``_start``):
+    def _iterate(self, model, inv, B, loop, tol):
+        """One iteration of the loop, in place on ``loop`` (``_start``):
         the sweep, the finite test, the frozen lanes, the stop metric and
-        the flags, all on the device. The eager loop runs it, and the graph
-        of ``_Plan`` is a capture of it."""
-        carry, r, flags = state
+        the flags, all on the device."""
+        carry, r, flags = loop["carry"], loop["metric"], loop["flags"]
         new = self._step(model, carry, inv)
         ok = torch.stack([torch.isfinite(per_lane(x, B)).all(-1)
-                          for x in self._leaves(new)]).all(0)
+                          for x in leaves(new)]).all(0)
         # a step that is not finite is dropped and ends its lane; a lane
         # that is done is frozen (without lanes the loop ends with it)
         active = ~flags["done"]
         keep = ok if B is None else ok & active
         for n, o in self._pairs(new, carry):
             if n is not o:
-                _select_(keep, n, o)
-        new_r = self._posterior_r(carry, inv)
+                select_(keep, n, o)
+        new_r = self._metric(carry, inv)
         delta = torch.stack([
             _norm(n - o, B) / torch.clamp(
                 _norm(n, B), min=torch.finfo(n.dtype).tiny)
             for n, o in zip(new_r, r)]).amax(0)
-        count = flags["count"]
-        converged = (delta < self.tol) & (count > 0)
+        converged = (delta < tol) & (flags["count"] > 0)
         # a frozen lane's carry is unchanged, so its means computed again
         # are those it had, bit for bit: the copy keeps them
         for n, o in zip(new_r, r):
             o.copy_(n)
-        torch.where(active, count + 1, flags["n_iter"], out=flags["n_iter"])
-        flags["conv"] |= active & converged
-        flags["done"] |= converged | ~ok
-        count += 1
+        advance(flags, active, converged, ~ok)
 
-    def _why_eager(self, model, groups):
-        """Why a solve of ``model`` runs its loop eagerly, or None where it
-        can replay a captured graph (``_Plan``): on a mesh
-        (``shard_batched_model``) the stop flag is reduced over ranks and
-        the products are made whole by collectives, and off the card there
-        is no graph."""
-        if groups or getattr(model, "mesh_lanes", None) is not None:
-            return "the model is on a mesh"
-        if model.factors[-1].y.device.type != "cuda":
-            return "the model is not on a CUDA device"
-        return None
+    def _copied(self, model):
+        """What a plan copies in: the terminal factor's tensors; W and the
+        other factors' tensors are read where they lie (copies would add
+        their size to the peak memory)."""
+        return tensor_fields(model, [len(model.factors) - 1])
 
-    def _signature(self, model):
-        """What a captured graph reads of ``model`` and of the settings
-        beyond what each solve copies in: every field of every factor, a
-        tensor by its storage and layout (the terminal factor's by its
-        layout alone: ``_Plan.load`` copies them in) and anything else by
-        its value; the switches the step reads; tol and damping."""
-        last = len(model.factors) - 1
-        out = [config.matvec_bf16(), config.VMIN, config.AMIN, config.AMAX,
-               torch.backends.cuda.matmul.allow_tf32, self.tol,
-               self.damping]
-        for i, f in enumerate(model.factors):
-            out.append(type(f))
-            for name, v in _fields(f):
-                if isinstance(v, torch.Tensor):
-                    v = (name, tuple(v.shape), v.stride(), v.dtype, v.device,
-                         None if i == last else v.data_ptr())
-                out.append(v)
-        return out
+    def _numbers(self):
+        "What the iteration reads of the solver."
+        return (self.damping, self._pin_terminal)
 
-    def _plan(self, model, B, inv):
-        """The ``_Plan`` of ``B`` lanes: made at the first solve that can
-        replay one, and again where a tensor the graph reads has moved;
-        None once a capture at ``B`` has raised (the loop then runs
-        eagerly)."""
-        if B in self._plans and self._plans[B] is None:
-            return None
-        signature = self._signature(model)
-        plan = self._plans.get(B)
-        if plan is None or plan.signature != signature:
-            # the old plan's buffers and graph go before the new ones
-            self._plans.pop(B, None)
-            del plan
-            plan = self._plans[B] = _Plan(self, model, B, inv, signature)
-        return plan
-
-    def _run(self, model, carry=None, stop=None, own_carry=False):
-        """The loop from ``carry`` (None: the zero carry); ``stop``: the
-        process groups its stop flag is reduced over (None: those of the
-        model's mesh, if any). Returns the posteriors, n_iter, the converged
-        flags and the final carry, which on the graph path is the plan's
-        own (the next solve of as many lanes overwrites it) unless
-        ``own_carry``."""
-        with trace.span("solve"):
-            groups = stop_groups(model) if stop is None else stop
-            B = model_lanes(model, self.template)
-            inv = self._invariants(model, B)
-            plan = (None if self._why_eager(model, groups)
-                    else self._plan(model, B, inv))
-            if plan is None:
-                state = self._start(model, inv, B, carry)
-
-                def iterate():
-                    self._iterate(model, inv, B, state)
-            else:
-                state = plan.load(self, model, inv, carry)
-
-                def iterate():
-                    plan.step(self)
-            for _ in range(self.max_iter):
-                with trace.span("sweep"):
-                    iterate()
-                # the one host read of the iteration
-                if all_done(state[2]["done"], groups):
-                    break
-            carry, flags = state[0], state[2]
-            with trace.span("readout"):
-                post = self._readout(model, carry, inv, B)
-            n_iter, conv = flags["n_iter"], flags["conv"]
-            if plan is not None:
-                if plan.failed:
-                    # later solves of as many lanes run eagerly
-                    self._plans[B] = None
-                n_iter, conv = n_iter.clone(), conv.clone()
-                if own_carry:
-                    carry = map_tree(torch.clone, carry)
-            return post, n_iter, conv, carry
-
-    def _readout(self, model, carry, inv=None, B=None):
+    def _readout(self, model, carry, inv, B):
         "Posterior {id: {r, v}} at every interface from the final state."
         L = self.L
-        if inv is None:
-            B = self._carry_lanes(carry)
-            inv = self._invariants(model, B)
         msgs = list(carry[0])
         if self._pin_terminal:
             # reconstitute the pinned slots (kept out of the loop carry)
@@ -532,12 +416,12 @@ class MLVAMPSolver:
 
     def solve(self, model):
         "One instance: ({id: {r, v}}, n_iter)."
-        post, n_iter, _, _ = self._run(model)
+        post, _, n_iter, _ = self._run(model)
         return post, n_iter
 
     def solve_info(self, model):
         "Like solve, with the converged flag (True iff delta < tol fired)."
-        post, n_iter, conv, _ = self._run(model)
+        post, _, n_iter, conv = self._run(model)
         return post, n_iter, conv
 
     def solve_batch(self, stacked_model, state=None):
@@ -564,7 +448,8 @@ class MLVAMPSolver:
                      stop=None, own_carry=False):
         """The batched loop on this rank's lanes: (post, carry, n_iter,
         conv), not gathered. The loop starts from the zero carry or
-        ``state``: it takes no initializer. ``own_carry`` as ``_run``."""
+        ``state``: it takes no initializer. ``own_carry``: ``_run``'s
+        ``own``."""
         if initializer is not None:
             raise ValueError("MLVAMPSolver starts from the zero carry: no "
                              "initializer")
@@ -573,84 +458,7 @@ class MLVAMPSolver:
         where = getattr(stacked_model, "mesh_lanes", None)
         if where is not None and state is not None:
             state = where.local(state)
-        post, n_iter, conv, carry = self._run(stacked_model, state, stop,
-                                              own_carry)
-        return post, carry, n_iter, conv
-
-
-class _Plan:
-    """The loop's static buffers for one solver and lane count, and
-    ``MLVAMPSolver._iterate`` on them captured as one CUDA graph: the loop
-    state (``_start``, from ``_init`` once), the loop invariants and the
-    terminal factor's tensors (a twin of the model holds them), which each
-    solve copies in (``load``). A replay runs the same kernels with the
-    same arguments in the same order as the eager iteration, so it gives
-    the same bits.
-
-    The first ``step`` runs its iteration eagerly on a side stream (the
-    handles, workspaces and caches a first call makes are made outside the
-    capture), then captures the next one. A capture that raises (a factor
-    whose message reads the device from the host) leaves ``failed`` set,
-    and the steps of that solve run eagerly on the buffers. Capture
-    launches nothing: what it added to the host's counters is taken back
-    out and added on each replay (``graphs``)."""
-
-    def __init__(self, solver, model, B, inv, signature):
-        self.signature = signature
-        self.graph = None
-        self.failed = False
-        self.launches = []
-        last = len(model.factors) - 1
-        self.terminal = {name: v.clone() for name, v in _fields(
-            model.factors[last]) if isinstance(v, torch.Tensor)}
-        self.model = with_buffers(
-            model, {(last, name): v for name, v in self.terminal.items()})
-        self.inv = map_tree(torch.clone, inv)
-        self.B = B
-        self.state = solver._start(self.model, self.inv, B)
-
-    def load(self, solver, model, inv, carry=None):
-        """Copy a solve's inputs in: the terminal factor's tensors of
-        ``model``, the invariants ``inv``, and ``carry`` (None: the zero
-        carry); the posterior means from them, and the flags zeroed.
-        Returns the loop state, the plan's own."""
-        lik = model.factors[-1]
-        for name, v in self.terminal.items():
-            v.copy_(getattr(lik, name))
-        for mine, theirs in zip(graphs.leaves(self.inv), graphs.leaves(inv)):
-            mine.copy_(theirs)
-        own, r, flags = self.state
-        if carry is None:
-            torch._foreach_zero_(solver._leaves(own))
-        else:
-            for theirs, mine in solver._pairs(carry, own):
-                mine.copy_(theirs)
-        for mine, theirs in zip(r, solver._posterior_r(own, self.inv)):
-            mine.copy_(theirs)
-        torch._foreach_zero_(list(flags.values()))
-        return self.state
-
-    def step(self, solver):
-        """One iteration: a replay of the graph, its launches counted;
-        before the graph, the capture; after a capture that raised, the
-        eager iteration."""
-        if self.graph is not None:
-            graphs.replay(self.graph, self.launches)
-        elif self.failed:
-            self._iterate(solver)
-        else:
-            with trace.span("capture"):
-                self._capture(solver)
-
-    def _iterate(self, solver):
-        solver._iterate(self.model, self.inv, self.B, self.state)
-
-    def _capture(self, solver):
-        "This iteration eagerly on a side stream, then the capture."
-        graphs.warm(lambda: self._iterate(solver))
-        self.graph, self.launches = graphs.capture(
-            lambda: self._iterate(solver))
-        self.failed = self.graph is None
+        return self._run(stacked_model, state, stop, own=own_carry)
 
 
 def dispatch_solver(model, damping=None, tol=1e-6, max_iter=200, **kw):

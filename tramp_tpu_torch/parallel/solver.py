@@ -6,29 +6,14 @@ The JAX package stacks the instances into one pytree and ``vmap``s a
 compiled ``while_loop``. Here the instances are a lane axis written out
 (tramp_tpu_torch/lanes.py): the engine's ``_sweep`` runs once per iteration
 on a state whose messages are ``(B, n)`` with precisions ``(B, 1)``, against
-a model whose buffers carry the lanes, and the stop flags are one per lane,
-read by the host once per iteration (``done.all()``). The loop keeps the
-``while_loop``'s semantics lane by lane: a sweep that is not finite is
-dropped and ends its lane, a lane whose metric grows past the rollback
-bound goes back to its previous state and ends, and a lane that is done is
-frozen (its state and its ``n_iter`` stay) while the slower lanes go on, so
-a lane of a batched solve follows the single solve on that lane's data. An
-iteration (``_Solver._iterate``) updates the loop's state in place on the
-device, with no host read.
-
-On the card, off a mesh, the iteration is captured as one CUDA graph
-(``_Plan``), and each iteration replays it: one launch where the eager
-iteration makes hundreds (about 300 for an SE phase grid, whose loop is
-otherwise bound by the host's launches). Each solve copies its model's
-tensors, the run's ``aux`` and its initial state into the plan's buffers,
-and a replay runs the eager iteration's kernels, so the answers are the
-same bits. The plans live on the solver's class, one per lane count,
-replaced when what the graph reads beyond those copies differs (the
-structure, the numbers, tol, the switches: ``_signature``): a front door
-that makes a new solver for every call (``parallel.build_se_grid``) still
-captures once. A model on the CPU or on a mesh, and a sweep that reads the
-device from the host (whose capture raises), run the same iteration
-eagerly.
+a model whose buffers carry the lanes. The loop, its flags and frozen lanes,
+and its replay as a CUDA graph on the card are ``parallel/loop.py``'s
+(``SolverLoop``, ``Plan``). Its iteration here (``_Solver._iterate``): a
+sweep that is not finite is dropped and ends its lane, and a lane whose
+metric grows past the rollback bound goes back to its previous state and
+ends. A plan copies in every buffer and per-lane hyperparameter of the
+model, so a grid whose every point changes the prior and the channel
+(``parallel.build_se_grid``) replays one capture.
 
 On a model sharded over a device mesh (``parallel.mesh``) each rank runs the
 loop on its own lanes; the stop flag is reduced over the mesh
@@ -44,19 +29,15 @@ The convergence-gated throughput mode (``solve_gated_bf16``,
 stored in bfloat16 (``config.STATE_BF16``) to a coarse tol, then from that
 state, upcast, in float32 to the solver's own tol.
 """
-import numpy as np
 import torch
 
-from .. import config, trace
+from .. import config
 from ..algos import ExpectationPropagation, StateEvolution
 from ..lanes import (
-    hyperparameters, lane_precision, lane_values, model_lanes, select,
-    stack_models, to_lanes, with_buffers,
+    lane_precision, lane_values, model_lanes, select, stack_models, to_lanes,
 )
-from . import graphs
-from .mesh import (
-    all_done, map_tree, shard_batched_model, stop_groups, whole_batch,
-)
+from .loop import SolverLoop, advance, select_, start_flags, tensor_fields
+from .mesh import map_tree, shard_batched_model, whole_batch
 
 def stack_pytrees(trees, device=None, dtype=None):
     """The JAX package's name for ``lanes.stack_models``, with its parameter
@@ -64,7 +45,7 @@ def stack_pytrees(trees, device=None, dtype=None):
     return stack_models(trees, device=device, dtype=dtype)
 
 
-class _Solver:
+class _Solver(SolverLoop):
     """A generic engine behind the solvers' call surface:
     ``solve(model) -> ({id: posterior data}, n_iter)`` and ``solve_batch``.
 
@@ -86,12 +67,6 @@ class _Solver:
     the per-variable mean posterior variance)."""
 
     engine_cls = None
-
-    def __init_subclass__(cls, **kwargs):
-        super().__init_subclass__(**kwargs)
-        #: the loop's buffers and captured iteration (``_Plan``) by lane
-        #: count, shared by the solvers of this class
-        cls._plans = {}
 
     def __init__(self, model, damping=None, tol=1e-6, max_iter=200,
                  wait_increase=None, rollback_increase=None, stop_kind=None,
@@ -125,35 +100,35 @@ class _Solver:
                        for k, v in state[eng.n_slots].items()},)
         return slots
 
-    def _start(self, state, B):
+    def _prepare(self, model, state):
+        """The run's lane count, device, ``aux`` (the run's second moments
+        or pinned messages) and state, whose carried spectral images are
+        derived from this model's operators, lane by lane (the same matvec
+        the first uncached forward pass does)."""
+        eng = self.engine
+        aux = eng._prepare(model)
+        if eng.spectral_factors:
+            state = eng._refresh_spectral_cache(state, model)
+        aux = eng._fill_aux(model, state, aux)
+        return eng._lanes(state), state[0]["a"].device, aux, state
+
+    def _start(self, model, aux, B, state):
         """The loop's state before its first iteration, which ``_iterate``
-        updates in place: ``state`` (a copy of the messages, which the loop
-        writes), the stop metric and the flags ``n_iter``, ``conv`` and
-        ``done``, one per lane, and ``count``, the iterations run, on the
-        device."""
-        msgs = [{k: v.clone() for k, v in m.items()} for m in state]
-        device = state[0]["a"].device
-        flags = () if B is None else (B,)
-        return {"state": msgs,
-                "metric": self.engine._metric(state, self.stop_kind),
-                "flags": {
-                    "n_iter": torch.zeros(flags, dtype=torch.int64,
-                                          device=device),
-                    "conv": torch.zeros(flags, dtype=torch.bool,
-                                        device=device),
-                    "done": torch.zeros(flags, dtype=torch.bool,
-                                        device=device),
-                    "count": torch.zeros((), dtype=torch.int64,
-                                         device=device)}}
+        updates in place: a copy of ``state`` (the messages, which the loop
+        writes), the stop metric and the flags."""
+        return {"carry": map_tree(torch.clone, state),
+                "metric": self._metric(state, aux),
+                "flags": start_flags(B, state[0]["a"].device)}
+
+    def _metric(self, state, aux):
+        return self.engine._metric(state, self.stop_kind)
 
     def _iterate(self, model, aux, B, loop, tol):
         """One iteration of the loop, in place on ``loop`` (``_start``):
         the sweep, the finite test, the stop metric, the rollback, the
-        frozen lanes and the flags, all on the device, with no host read.
-        The eager loop runs it, and the graph of ``_Plan`` is a capture of
-        it."""
+        frozen lanes and the flags, all on the device, with no host read."""
         eng, kind = self.engine, self.stop_kind
-        state, old_m, flags = loop["state"], loop["metric"], loop["flags"]
+        state, old_m, flags = loop["carry"], loop["metric"], loop["flags"]
         swept = eng._sweep(model, state, self.damp, aux)
         ok = eng._all_finite(swept)
         swept = tuple({k: select(ok, a[k], b[k]) for k in a}
@@ -171,118 +146,26 @@ class _Solver:
         keep = ~rb if B is None else active & ~rb
         for new, old in zip(swept, state):
             for k in old:
-                _write(old[k], new[k], keep)
+                select_(keep, new[k], old[k])
         for n, o in zip(new_m, old_m):
             o.copy_(n)
-        torch.where(active, count + 1, flags["n_iter"], out=flags["n_iter"])
-        # conv records actual convergence (delta < tol), distinct from
-        # done, which also latches on rollback and non-finite sweeps
-        flags["conv"] |= active & converged
-        flags["done"] |= converged | rb | ~ok
-        count += 1
+        advance(flags, active, converged, rb | ~ok)
 
-    def _why_eager(self, model, state, groups):
-        """Why a solve of ``model`` from ``state`` runs its loop eagerly,
-        or None where it can replay a captured graph (``_Plan``): on a mesh
-        (``shard_batched_model``) the stop flag is reduced over ranks, and
-        off the card there is no graph."""
-        if groups or getattr(model, "mesh_lanes", None) is not None:
-            return "the model is on a mesh"
-        if state[0]["a"].device.type != "cuda":
-            return "the state is not on a CUDA device"
-        return None
-
-    def _signature(self, model, aux, state, B, tol):
-        """What a captured graph reads beyond what ``_Plan.load`` copies
-        in: the structure, every factor's fields (a tensor by its layout,
-        since it is copied in, and anything else by its value), a tensor
-        the factor holds beside its fields by its storage, the layouts of
-        ``aux`` and of the state, the loop's numbers and the switches the
-        sweep reads."""
+    def _readout(self, model, state, aux, B):
         eng = self.engine
-        out = [type(self), type(eng), B, tol, self.damp, self.stop_kind,
-               self.wait_increase, self.rollback_increase, eng.pinned,
-               eng.spectral_factors, config.state_bf16(),
-               config.matvec_bf16(), config.VMIN, config.AMIN, config.AMAX,
-               torch.backends.cuda.matmul.allow_tf32,
-               [type(n) for n in model.nodes], model.edges]
-        for f in model.factors:
-            copied = _copied(f)
-            out.append(type(f))
-            for name in type(f)._data_fields + type(f)._meta_fields:
-                out.append((name, _value(getattr(f, name, None),
-                                         name in copied)))
-            out += [(name, _value(v, False)) for name, v in vars(f).items()
-                    if isinstance(v, torch.Tensor) and name not in copied]
-        out += [_layout(v) for v in graphs.leaves((aux, state))]
-        return out
+        return {eng.nodes[vi].id: self._post(vi, state, B)
+                for vi in eng.variable_indices}
 
-    def _plan(self, model, aux, state, B, tol):
-        """The ``_Plan`` of ``B`` lanes, kept on the solver's class (so
-        that a new solver of a structure already captured replays its
-        graph): made at the first solve that can replay one, and again
-        where the signature differs; None where the capture of this
-        signature has raised (the loop then runs eagerly)."""
-        signature = self._signature(model, aux, state, B, tol)
-        plans = type(self)._plans
-        plan = plans.get(B)
-        if plan is None or plan.signature != signature:
-            # the old plan's buffers and graph go before the new ones
-            plans.pop(B, None)
-            del plan
-            plan = plans[B] = _Plan(self, model, aux, state, B, tol,
-                                    signature)
-        return None if plan.failed else plan
+    def _copied(self, model):
+        "What a plan copies in: every buffer and per-lane hyperparameter."
+        return tensor_fields(model, range(len(model.factors)))
 
-    def _run(self, model, state, stop=None, tol=None, own_state=False):
-        """The loop from ``state``; ``stop``: the process groups its stop
-        flag is reduced over (None: those of the model's mesh, if any);
-        ``tol``: None for the solver's own. Returns (post, state, n_iter,
-        conv); the state is the plan's own on the graph path (the next
-        solve of as many lanes overwrites it) unless ``own_state``."""
-        with trace.span("solve"):
-            eng = self.engine
-            tol = self.tol if tol is None else tol
-            groups = stop_groups(model) if stop is None else stop
-            B = eng._lanes(state)
-            aux = eng._prepare(model)
-            if eng.spectral_factors:
-                # the carried spectral images are derived from this
-                # model's operators, lane by lane (the same matvec the
-                # first uncached forward pass does)
-                state = eng._refresh_spectral_cache(state, model)
-            aux = eng._fill_aux(model, state, aux)
-            plan = (None if self._why_eager(model, state, groups)
-                    else self._plan(model, aux, state, B, tol))
-            if plan is None:
-                loop = self._start(state, B)
-
-                def iterate():
-                    self._iterate(model, aux, B, loop, tol)
-            else:
-                loop = plan.load(self, model, aux, state)
-
-                def iterate():
-                    plan.step(self)
-            for _ in range(self.max_iter):
-                with trace.span("sweep"):
-                    iterate()
-                # the one host read of the iteration
-                if all_done(loop["flags"]["done"], groups):
-                    break
-            state, flags = tuple(loop["state"]), loop["flags"]
-            with trace.span("readout"):
-                post = {eng.nodes[vi].id: self._post(vi, state, B)
-                        for vi in eng.variable_indices}
-            n_iter, conv = flags["n_iter"], flags["conv"]
-            if plan is not None:
-                if plan.failed:
-                    # later solves of this signature run eagerly
-                    plan.release()
-                n_iter, conv = n_iter.clone(), conv.clone()
-                if own_state:
-                    state = map_tree(torch.clone, state)
-            return post, state, n_iter, conv
+    def _numbers(self):
+        "What the iteration reads of the solver and its engine."
+        eng = self.engine
+        return (type(eng), self.damp, self.stop_kind, self.wait_increase,
+                self.rollback_increase, eng.pinned, eng.spectral_factors,
+                config.state_bf16())
 
     def solve(self, model, initializer=None):
         "Solve one instance; returns dict id -> posterior data, and n_iter."
@@ -320,8 +203,8 @@ class _Solver:
     def _solve_batch(self, stacked_model, initializer=None, state=None,
                      stop=None, tol=None, own_state=False):
         """The batched loop on this rank's lanes: (post, state, n_iter,
-        conv), not gathered; ``stop``, ``tol`` and ``own_state`` as in
-        ``_run``."""
+        conv), not gathered; ``stop`` and ``tol`` as in ``_run``,
+        ``own_state`` its ``own``."""
         B = model_lanes(stacked_model, self.engine.model)
         if B is None:
             raise ValueError("solve_batch: no buffer of the model has lanes")
@@ -375,8 +258,8 @@ class _Solver:
             config.STATE_BF16 = prev
 
     # Phase 1's state may be the buffers of its plan; phase 2 copies it into
-    # its own plan's buffers (``_Plan.load``) before it writes any, so the
-    # state needs no copy of its own.
+    # its own plan's buffers (``loop.Plan.load``) before it writes any, so
+    # the state needs no copy of its own.
     def solve_gated_bf16(self, model, initializer=None, coarse_tol=None):
         """One instance in two phases: sweeps with the state stored in
         bfloat16 until the stop metric falls below ``coarse_tol`` (None:
@@ -473,104 +356,3 @@ class SESolver(_Solver):
     def _post(self, vi, state, B):
         p = self.engine._posterior(vi, state)
         return dict(v=lane_values(1.0 / p["a"], B))
-
-
-class _Plan:
-    """The generic loop's static buffers for one lane count, and
-    ``_Solver._iterate`` on them captured as one CUDA graph: the loop state
-    (``_start``), ``aux`` (the run's second moments or pinned messages) and
-    a twin of the model whose every tensor field (buffers, per-lane
-    hyperparameters) is a buffer of the plan; each solve copies its own in
-    (``load``). A replay runs the same kernels with the same arguments in
-    the same order as the eager iteration, so it gives the same bits.
-
-    The first ``step`` runs its iteration eagerly on a side stream, then
-    captures the next one (``graphs``). A capture that raises (a factor
-    whose message reads the device from the host) leaves ``failed`` set,
-    and the steps of that solve run eagerly on the buffers."""
-
-    def __init__(self, solver, model, aux, state, B, tol, signature):
-        self.signature = signature
-        self.graph = None
-        self.failed = False
-        self.counts = []
-        self.B, self.tol = B, tol
-        self.model = with_buffers(model, {
-            (i, name): getattr(f, name).clone()
-            for i, f in enumerate(model.factors) for name in _copied(f)})
-        self.aux = map_tree(torch.clone, aux)
-        self.loop = solver._start(state, B)
-
-    def load(self, solver, model, aux, state):
-        """Copy a solve's inputs in: the tensor fields of ``model``, its
-        ``aux`` and its initial ``state``; the stop metric from them, and
-        the flags zeroed. Returns the loop state, the plan's own."""
-        for f, mine in zip(model.factors, self.model.factors):
-            for name in _copied(f):
-                getattr(mine, name).copy_(getattr(f, name))
-        for mine, theirs in zip(graphs.leaves(self.aux), graphs.leaves(aux)):
-            mine.copy_(theirs)
-        for mine, theirs in zip(self.loop["state"], state):
-            for k in mine:
-                mine[k].copy_(theirs[k])
-        metric = solver.engine._metric(state, solver.stop_kind)
-        for mine, theirs in zip(self.loop["metric"], metric):
-            mine.copy_(theirs)
-        torch._foreach_zero_(list(self.loop["flags"].values()))
-        return self.loop
-
-    def step(self, solver):
-        """One iteration: a replay of the graph; before the graph, the
-        capture; after a capture that failed, the eager iteration."""
-        if self.graph is not None:
-            graphs.replay(self.graph, self.counts)
-        elif self.failed:
-            self._iterate(solver)
-        else:
-            with trace.span("capture"):
-                self._capture(solver)
-
-    def _iterate(self, solver):
-        solver._iterate(self.model, self.aux, self.B, self.loop, self.tol)
-
-    def _capture(self, solver):
-        "This iteration eagerly on a side stream, then the capture."
-        graphs.warm(lambda: self._iterate(solver))
-        self.graph, self.counts = graphs.capture(
-            lambda: self._iterate(solver))
-        self.failed = self.graph is None
-
-    def release(self):
-        "Drop the buffers and the graph; the signature stays, as failed."
-        self.model = self.aux = self.loop = self.graph = None
-
-
-def _write(old, new, flag):
-    """``new`` written into ``old`` where the loop flag ``flag`` is set; the
-    state a sweep emits has the layout of the state it read
-    (``MessagePassing._harmonize_state``)."""
-    flag = flag.reshape(flag.shape + (1,) * (old.ndim - flag.ndim))
-    torch.where(flag, new, old, out=old)
-
-
-def _copied(factor):
-    """The names of ``factor``'s tensor fields that a ``_Plan`` holds and
-    each solve copies in: its buffers and per-lane hyperparameters."""
-    return [name for name in list(factor._buffers) + hyperparameters(factor)
-            if isinstance(getattr(factor, name, None), torch.Tensor)]
-
-
-def _layout(t):
-    "A tensor's shape, strides, dtype and device."
-    return (tuple(t.shape), t.stride(), t.dtype, t.device)
-
-
-def _value(v, copied):
-    """A field as a signature compares it: a tensor a plan copies in by its
-    layout, another tensor by its layout and storage, an array by its
-    bytes, anything else as it is."""
-    if isinstance(v, torch.Tensor):
-        return _layout(v) if copied else (_layout(v), v.data_ptr())
-    if isinstance(v, np.ndarray):
-        return (v.shape, v.dtype.str, v.tobytes())
-    return v

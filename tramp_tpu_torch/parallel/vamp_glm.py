@@ -21,26 +21,24 @@ Convergence is measured on the mean posterior variance <v1>, like the
 reference's EarlyStopping.
 
 The JAX package compiles the loop (``lax.while_loop``) and batches it with
-``jax.vmap``. Here the loop is a Python loop with one host read per
-iteration (``done.all()``), and the batch is a lane axis written out
-(tramp_tpu_torch/lanes.py): ``r1`` is ``(B, Nz)``, ``gamma1`` ``(B, 1)``,
-and with one shared operator the two products are GEMMs. The loop keeps the
-``while_loop``'s semantics lane by lane: a step that is not finite is dropped
-and ends its lane, ``conv`` records that ``delta < tol`` fired, and a lane
-that is done is frozen (its carry, its ``v1`` and its ``n_iter`` stay), as
-``vmap`` freezes a lane whose ``cond`` is false. So a lane of a batched solve
-follows the single solve on that lane's data.
+``jax.vmap``. Here the loop is ``parallel/loop.py``'s, and the batch is a
+lane axis written out (tramp_tpu_torch/lanes.py): ``r1`` is ``(B, Nz)``,
+``gamma1`` ``(B, 1)``, and with one shared operator the two products are
+GEMMs. Its iteration here (``SpectralVAMPSolver._iterate``): a step that is
+not finite is dropped and ends its lane, and a lane that is done is frozen
+(its carry, its ``v1`` and its ``n_iter`` stay). The loop runs eagerly
+everywhere: it keeps no plan.
 """
 import torch
 
-from .. import config, trace
+from .. import config
 from ..channels import LinearChannel
 from ..lanes import (
     last_axis, lane_count, lane_mean, lane_values, model_lanes, per_lane,
-    select,
 )
 from ..likelihoods import GaussianLikelihood
-from .mesh import all_done, stop_groups, whole_batch
+from .loop import SolverLoop, advance, select_, start_flags
+from .mesh import whole_batch
 
 
 def _find_glm_parts(model):
@@ -58,7 +56,7 @@ def _find_glm_parts(model):
     return factors[0], factors[1], factors[2]
 
 
-class SpectralVAMPSolver:
+class SpectralVAMPSolver(SolverLoop):
     """VAMP on a GLM chain, diagonalized in the SVD basis.
 
     ``model`` fixes the static structure (one instance); solve calls accept
@@ -69,6 +67,9 @@ class SpectralVAMPSolver:
     (``lanes.stack_models``) and one shared operator with an observation per
     lane (``lanes.with_buffers``) work. ``damping`` damps the r1/gamma1
     update (rarely needed for i.i.d. ensembles)."""
+
+    #: no plan: the loop runs eagerly on the card too
+    _plans = None
 
     def __init__(self, model, damping=None, tol=1e-6, max_iter=200):
         _find_glm_parts(model)  # validate structure
@@ -140,71 +141,69 @@ class SpectralVAMPSolver:
                             dtype=p.dtype, device=p.device)
         return r1, gamma1
 
-    def _run(self, model, stop=None):
-        """The loop; ``stop``: the process groups its stop flag is reduced
-        over (None: those of the model's mesh, if any)."""
-        with trace.span("solve"):
-            groups = stop_groups(model) if stop is None else stop
-            B = model_lanes(model, self.template)
-            spectral = self._spectral(model)
-            prior, lin, p, s2d = spectral
-            carry = self._init(model, spectral)
-            flags = () if B is None else (B,)
-            kw = dict(device=p.device)
-            old_v = torch.full(flags, float("inf"), dtype=p.dtype, **kw)
-            n_iter = torch.zeros(flags, dtype=torch.int64, **kw)
-            done = torch.zeros(flags, dtype=torch.bool, **kw)
-            conv = torch.zeros(flags, dtype=torch.bool, **kw)
-            for i in range(self.max_iter):
-                with trace.span("sweep"):
-                    new_carry, (_, v1) = self._step(model, carry, spectral)
-                    ok = (torch.isfinite(per_lane(new_carry[0], B)).all(-1)
-                          & torch.isfinite(new_carry[1]).reshape(flags))
-                    new_carry = tuple(select(ok, n, o)
-                                      for n, o in zip(new_carry, carry))
-                    v1 = v1.reshape(flags)
-                    converged = (torch.abs(v1 - old_v) < self.tol) if i > 0 \
-                        else torch.zeros_like(done)
-                    # a lane that is done is frozen; without lanes the loop
-                    # ends with it, so nothing is left to freeze
-                    active = ~done
-                    if B is not None:
-                        new_carry = tuple(select(active, n, o)
-                                          for n, o in zip(new_carry, carry))
-                        v1 = torch.where(active, v1, old_v)
-                    carry, old_v = new_carry, v1
-                    n_iter = torch.where(active, i + 1, n_iter)
-                    conv = conv | (active & converged)
-                    done = done | converged | ~ok
-                # the one host read of the iteration
-                if all_done(done, groups):
-                    break
-            # final posteriors from the converged cavity (keys: the model's
-            # variable ids, as EPSolver returns them)
-            with trace.span("readout"):
-                r1, gamma1 = carry
-                x1, v1, r2, gamma2 = self._lmmse_input(prior, r1, gamma1)
-                # z = W x posterior: one readout LMMSE pass (not per
-                # iteration)
-                lanes = B is not None
-                t = lin._mm(lin.V, r2, transpose=True, lanes=lanes)    # (k,)
-                den = s2d + gamma2
-                d = (gamma2 * t + p) / den
-                # z = W x: only the k signal modes contribute (s=0 beyond k)
-                z_hat = lin._mm(lin.U, lin.s * d, lanes=lanes)
-                v_z = last_axis(lin.s**2 / den, torch.sum) / lin.Nx
-                post = {self.x_id: {"r": x1, "v": lane_values(v1, B)},
-                        self.z_id: {"r": z_hat, "v": lane_values(v_z, B)}}
-            return post, n_iter, conv
+    def _prepare(self, model, carry):
+        "The run's lane count, device and spectral quantities; no carry."
+        spectral = self._spectral(model)
+        return (model_lanes(model, self.template), spectral[2].device,
+                spectral, None)
+
+    def _start(self, model, spectral, B, carry):
+        """The loop's state before its first iteration, which ``_iterate``
+        updates in place: the uninformative carry, the last mean variance
+        ``v1`` (none yet: infinite) and the flags."""
+        carry = self._init(model, spectral)
+        p = spectral[2]
+        flags = start_flags(B, p.device)
+        return {"carry": carry, "flags": flags,
+                "metric": torch.full(flags["done"].shape, float("inf"),
+                                     dtype=p.dtype, device=p.device)}
+
+    def _iterate(self, model, spectral, B, loop, tol):
+        """One iteration of the loop, in place on ``loop`` (``_start``): the
+        step, the finite test, the frozen lanes, the stop metric and the
+        flags."""
+        carry, old_v, flags = loop["carry"], loop["metric"], loop["flags"]
+        new, (_, v1) = self._step(model, carry, spectral)
+        v1 = v1.reshape(old_v.shape)
+        ok = (torch.isfinite(per_lane(new[0], B)).all(-1)
+              & torch.isfinite(new[1]).reshape(old_v.shape))
+        # a step that is not finite is dropped and ends its lane; a lane
+        # that is done is frozen (without lanes the loop ends with it)
+        active = ~flags["done"]
+        keep = ok if B is None else ok & active
+        for n, o in zip(new, carry):
+            select_(keep, n, o)
+        converged = (torch.abs(v1 - old_v) < tol) & (flags["count"] > 0)
+        # a done lane's v1 is read by nothing: no select
+        old_v.copy_(v1)
+        advance(flags, active, converged, ~ok)
+
+    def _readout(self, model, carry, spectral, B):
+        """The posteriors from the converged cavity (keys: the model's
+        variable ids, as EPSolver returns them)."""
+        prior, lin, p, s2d = spectral
+        r1, gamma1 = carry
+        x1, v1, r2, gamma2 = self._lmmse_input(prior, r1, gamma1)
+        # z = W x posterior: one readout LMMSE pass (not per iteration)
+        lanes = B is not None
+        t = lin._mm(lin.V, r2, transpose=True, lanes=lanes)    # (k,)
+        den = s2d + gamma2
+        d = (gamma2 * t + p) / den
+        # z = W x: only the k signal modes contribute (s=0 beyond k)
+        z_hat = lin._mm(lin.U, lin.s * d, lanes=lanes)
+        v_z = last_axis(lin.s**2 / den, torch.sum) / lin.Nx
+        return {self.x_id: {"r": x1, "v": lane_values(v1, B)},
+                self.z_id: {"r": z_hat, "v": lane_values(v_z, B)}}
 
     def solve(self, model):
         "One instance: ({id: {r, v}}, n_iter)."
-        post, n_iter, _ = self._run(model)
+        post, _, n_iter, _ = self._run(model)
         return post, n_iter
 
     def solve_info(self, model):
         "Like solve, with the converged flag (True iff delta < tol fired)."
-        return self._run(model)
+        post, _, n_iter, conv = self._run(model)
+        return post, n_iter, conv
 
     def solve_batch(self, stacked_model):
         """Many instances in one loop: ``r`` comes back ``(B, n)``, ``v`` and
@@ -224,5 +223,5 @@ class SpectralVAMPSolver:
                              "cavity: no initializer or state")
         if model_lanes(stacked_model, self.template) is None:
             raise ValueError("solve_batch: no buffer of the model has lanes")
-        post, n_iter, conv = self._run(stacked_model, stop)
+        post, _, n_iter, conv = self._run(stacked_model, stop=stop)
         return post, None, n_iter, conv

@@ -3,14 +3,15 @@
 ``span(name)`` is a context manager that marks a stretch of host time. The
 solver loops of ``parallel`` open these spans:
 
-- ``solve``: a whole run of a loop (``_Solver._run``,
-  ``SpectralVAMPSolver._run``, ``MLVAMPSolver._run``), the SE grid's too;
+- ``solve``: a whole run of a loop (``parallel.loop.SolverLoop._run``,
+  which every batched solver runs), the SE grid's too;
 - ``sweep``: one iteration, the step and the masks, everything before the
   stop test: the host's time to enqueue it;
 - ``replay``: inside ``sweep``, the launch of a captured CUDA graph that
-  holds the whole iteration (``MLVAMPSolver`` on the card), where there is
-  one; ``capture``, inside the first ``sweep`` of a new graph, that
-  iteration run eagerly and the capture;
+  holds the whole iteration (``parallel.loop.Plan``: ``MLVAMPSolver``,
+  ``EPSolver`` and ``SESolver`` on the card), where there is one;
+  ``capture``, inside the first ``sweep`` of a new graph, that iteration run
+  eagerly and the capture;
 - ``stop_read``: the loop's one host read (``parallel.mesh.all_done``, with
   its ``all_reduce`` on a mesh): how long the loop waits on the device;
 - ``readout``: the posteriors after the loop.
