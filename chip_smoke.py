@@ -28,7 +28,17 @@ line is printed):
    kernel, torch.mean, compute_ab_new) against the fused message: time per
    call (CUDA events), host time per call (unsynchronised calls on the
    host's clock) and kernels launched, beside an empty kernel's launch; and
-   each kernel's device time from torch.profiler beside its bound;
+   each kernel's device time from torch.profiler beside its bound; then
+   the Gauss-Bernoulli prior's kernel (tramp_tpu_torch/csrc/gb_prior.cu,
+   built on its own, no spill): ``gb_posterior`` and ``gb_message``
+   against their plain versions at 2048 lanes of 4096 and of 10,000 and
+   one instance of 4096, float32 and float64, at the tolerances of
+   tests/test_torch_gb_prior_kernel.py, one launch a call, each with its
+   device time, time per call, host time, byte bound and the plain
+   version's device time; the paths of phases 4 to 7 that run it (the
+   engine's relu nets and flagship, the front door's flagship and relu
+   net) must launch it once per sweep (the message) or once per
+   iteration and readout (the GLM's posterior);
 4. the EP engine's main path through the kernels: the relu net
    x -> W -> relu -> + noise -> y at N = 4096, alpha = 0.5, rho = 0.25,
    noise 1e-2 (bench.py:1124-1157), solved with
@@ -73,7 +83,9 @@ line is printed):
    solve's 1e-6, where the count of converged lanes is only printed;
 8. a JSON line on the kernels (``pl_posterior``'s row carries the
    adaptive EP sweep's launches, device ms and bound under
-   ``adaptive_ep_sweep``), then the result line
+   ``adaptive_ep_sweep``; ``gb_posterior``'s and ``gb_message``'s rows
+   their launches on phases 4 to 7 and phase 3's readings), then the
+   result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
 9. (run before the summary) the state evolution, all in float64:
    a. the compressed-sensing golden rows of tests/test_golden_csv.py through
@@ -1105,9 +1117,129 @@ def relu_net(torch, tt, dtype, N=4096, alpha=0.5, device="cuda", svd=None,
     return teacher.to_observed({"y": y}), x0, linear
 
 
+#: (lanes, n) at which the Gauss-Bernoulli prior's kernel is held and timed:
+#: the relu batch, the GLM batch, one relu instance (None: no lane axis)
+GB_SHAPES = ((LANES, 4096), (LANES, 10_000), (None, 4096))
+#: the cell's shape of each wrapper's kernels-line row, in float64
+GB_MAIN = {"gb_posterior": (LANES, 10_000), "gb_message": (LANES, 4096)}
+#: (the full-width output, the per-lane one) as tests/test_torch_gb_prior_
+#: kernel.py holds them: against the lane's largest magnitude, relative
+GB_RTOL = {"float64": (1e-13, 1e-14), "float32": (1e-5, 1e-5)}
+
+
+def gb_inputs(torch, lanes, n, dtype, seed):
+    """(ax, bx) of the prior's kernel on the card: bx the cavity of a sparse
+    signal, ax 0-d or one value per lane in [1, 2)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kw = dict(dtype=dtype, device="cuda")
+    rows = lanes or 1
+    x = ((torch.rand(rows, n, generator=g, **kw) < RHO)
+         * torch.randn(rows, n, generator=g, **kw))
+    ax = 1.0 + torch.rand(rows, 1, generator=g, **kw)
+    bx = ax * x + ax.sqrt() * torch.randn(rows, n, generator=g, **kw)
+    if lanes is None:
+        return ax.reshape(()), bx.reshape(n)
+    return ax, bx
+
+
+def hold_gb_prior(torch, card):
+    """Phase 3, the Gauss-Bernoulli prior's kernel (ops/gb_prior.py): its
+    build and ptxas report, then both wrappers against their plain versions
+    at GB_SHAPES in float32 and float64 (GB_RTOL), one launch a call, with
+    the device time per call (torch.profiler over 20 calls), the time per
+    call (CUDA events), the host time, the byte bound and the plain
+    version's device time and kernels. Returns {wrapper: {(lanes, n,
+    dtype name): reading}}."""
+    from portbench.metrics.gb_prior_roofline import bound_s
+    from tramp_tpu_torch.ops import _build, gb_prior
+    from tramp_tpu_torch.priors import GaussBernoulliPrior
+    t0 = time.perf_counter()
+    lib, log = gb_prior.build()
+    print(f"build: {time.perf_counter() - t0:.2f} s -> {lib.name}")
+    rows = [row for row in _build.ptxas_report(log)
+            if row["kernel"].startswith("gb_prior")]
+    for row in rows:
+        print(f"ptxas: {row['kernel']}<{row['dtype']}, "
+              f"{', '.join(map(str, row['params']))}> {row['registers']} "
+              f"registers, {row['spill_bytes']} bytes of spill stores")
+    # posterior and message, 16-byte and single-element loads, two types
+    check(len(rows) == 8 and not any(row["spill_bytes"] for row in rows),
+          f"gb_prior: ptxas reported {rows}")
+    prior = GaussBernoulliPrior(size=1, rho=RHO)
+    hyper = (prior.a, prior.b, prior.eta)
+    out = {"gb_posterior": {}, "gb_message": {}}
+    for dtype in (torch.float32, torch.float64):
+        dname = dtype_name(dtype)
+        rtol_full, rtol_lane = GB_RTOL[dname]
+        for lanes, n in GB_SHAPES:
+            ax, bx = gb_inputs(torch, lanes, n, dtype, seed=n)
+            rows_ = lanes or 1
+            bound_ms = 1e3 * bound_s(rows_, n, bx.element_size())
+            for name, order in (("gb_posterior", 1), ("gb_message", -1)):
+                fn = getattr(gb_prior, name)
+                plain = getattr(gb_prior, f"{name}_plain")
+                what = f"{name} {dname} lanes={lanes} n={n}"
+                before = fn.launches
+                full, per_lane = fn(ax, bx, *hyper)[::order]
+                check(fn.launches == before + 1,
+                      f"{what}: {fn.launches - before} launches, want 1")
+                want_full, want_lane = plain(ax, bx, *hyper)[::order]
+                torch.cuda.synchronize()
+                check(full.shape == want_full.shape
+                      and per_lane.shape == want_lane.shape
+                      and bool(torch.isfinite(full).all())
+                      and bool(torch.isfinite(per_lane).all()),
+                      f"{what}: shapes {tuple(full.shape)}, "
+                      f"{tuple(per_lane.shape)} or not finite")
+                err = (full - want_full).abs().reshape(rows_, -1)
+                scale = want_full.abs().reshape(rows_, -1).amax(
+                    -1, keepdim=True)
+                full_ratio = float((err / (rtol_full * scale)).max())
+                lane_ratio = float(((per_lane - want_lane).abs()
+                                    / (rtol_lane * want_lane.abs())).max())
+                check(full_ratio <= 1.0 and lane_ratio <= 1.0,
+                      f"{what}: {full_ratio:.3g} and {lane_ratio:.3g} of "
+                      "the tolerances (full width, per lane)")
+                kernels, device_ms, _ = profiled(
+                    lambda: fn(ax, bx, *hyper), 20)
+                plain_kernels, plain_ms, _ = profiled(
+                    lambda: plain(ax, bx, *hyper), 5)
+                check(device_ms > 0 and plain_ms > 0,
+                      f"{what}: torch.profiler shows no device time")
+                reading = out[name][lanes, n, dname] = {
+                    "shape": [lanes, n], "dtype": dname,
+                    "max_abs_err": float(err.max()),
+                    "of_rtol": max(full_ratio, lane_ratio),
+                    "kernels": kernels, "device_ms": device_ms,
+                    "ms": per_call_ms(lambda: fn(ax, bx, *hyper)),
+                    "host_ms": host_ms(lambda: fn(ax, bx, *hyper)),
+                    "bound_ms": bound_ms, "bound_by": "bytes",
+                    "share": bound_ms / device_ms,
+                    "plain_ms": plain_ms, "plain_kernels": plain_kernels}
+                print(f"{what}: {reading['of_rtol']:.3g} of the tolerance; "
+                      f"device {1e3 * device_ms:.2f} us ({kernels:.0f} "
+                      f"launches), per call {1e3 * reading['ms']:.2f} us, "
+                      f"host {1e3 * reading['host_ms']:.2f} us, bound "
+                      f"{1e3 * bound_ms:.2f} us "
+                      f"({100 * reading['share']:.1f}%); plain "
+                      f"{1e3 * plain_ms:.2f} us ({plain_kernels:.0f} "
+                      f"kernels) [{card}]")
+    return out
+
+
+def read_gb_launches():
+    "The Gauss-Bernoulli prior kernel's launches since ``reset_launches``."
+    from tramp_tpu_torch.ops import gb_prior
+    return {"gb_posterior": gb_prior.gb_posterior.launches,
+            "gb_message": gb_prior.gb_message.launches}
+
+
 def reset_launches(pl):
+    "Sets every kernel's launch count to 0 (the prior's kernel's too)."
+    from tramp_tpu_torch.ops import gb_prior
     for fn in (pl.pl_posterior, pl.pl_forward_message,
-               pl.pl_backward_message):
+               pl.pl_backward_message, gb_prior.gb_posterior,
+               gb_prior.gb_message):
         fn.launches = 0
 
 
@@ -1117,11 +1249,12 @@ def read_launches(pl):
             "pl_backward_message": pl.pl_backward_message.launches}
 
 
-def solve(torch, tt, pl, student, x0):
+def solve(torch, tt, pl, student, x0, gb=None):
     """Solve twice: once to warm up (library handles, lazily loaded
     kernels), then timed, with the kernels' launch counts set to 0 just
     before and read just after. Returns (engine, mse, v, wall seconds,
-    launches by kernel)."""
+    launches by kernel); the prior kernel's launches go into the dict
+    ``gb`` where one is given."""
     ep = tt.ExpectationPropagation(student)
     ep.iterate(**SOLVE)
     torch.cuda.synchronize()
@@ -1131,6 +1264,8 @@ def solve(torch, tt, pl, student, x0):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches(pl)
+    if gb is not None:
+        gb.update(read_gb_launches())
     x = ep.get_variable_data("x")
     r = x["r"].double().cpu().numpy()
     check(np.isfinite(r).all() and bool(torch.isfinite(x["v"]).all()),
@@ -1204,13 +1339,15 @@ def batch_of_observations(torch, W, lanes, relu, seed):
     return x, z + np.sqrt(NOISE) * torch.randn((lanes, M), **kw)
 
 
-def batched_solve(torch, pl, what, run, lanes, card, window, warm_up=True):
+def batched_solve(torch, pl, what, run, lanes, card, window, warm_up=True,
+                  gb=None):
     """Run a batched solve (after a warm-up run of the same, if asked),
     timed, with the kernels' launch counts set to 0 just before and read
     just after; ``run()`` returns (post, n_iter, conv). Prints the
     readings, with the busy share of this unprofiled run: the device time
     per iteration of ``window`` (loop_window) over the wall time per
-    iteration here. Returns (post, n_iter, conv, launches)."""
+    iteration here. Returns (post, n_iter, conv, launches); the prior
+    kernel's launches go into the dict ``gb`` where one is given."""
     if warm_up:
         run()
     torch.cuda.synchronize()
@@ -1221,6 +1358,8 @@ def batched_solve(torch, pl, what, run, lanes, card, window, warm_up=True):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches(pl)
+    if gb is not None:
+        gb.update(read_gb_launches())
     peak = torch.cuda.max_memory_allocated()
     check(n_iter.shape == (lanes,) and conv.shape == (lanes,),
           f"{what}: n_iter {tuple(n_iter.shape)}, conv {tuple(conv.shape)}")
@@ -1293,7 +1432,9 @@ def lanes_against_singles(torch, what, solver, student, likelihood, ys,
 def front_door_flagship(torch, tt, pl, student, teacher_x, linear, engine_v,
                         card):
     """Phase 6: the flagship through dispatch_solver, one solve and LANES
-    lanes. Returns the launches of the path (none: it runs no kernel)."""
+    lanes. Returns the launches of the path by kernel: none of pl_fused's,
+    and one of the prior's posterior per iteration and readout (checked),
+    as a second dict."""
     from tramp_tpu_torch.parallel import (
         SpectralVAMPSolver, dispatch_solver, with_buffers)
     solver = dispatch_solver(student)
@@ -1307,6 +1448,7 @@ def front_door_flagship(torch, tt, pl, student, teacher_x, linear, engine_v,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches(pl)
+    gb = read_gb_launches()
     r, v = post["x"]["r"], float(post["x"]["v"])
     check(bool(conv) and bool(torch.isfinite(r).all()),
           f"flagship through the front door: conv={bool(conv)}")
@@ -1317,6 +1459,10 @@ def front_door_flagship(torch, tt, pl, student, teacher_x, linear, engine_v,
           f"(band {FLAGSHIP_BAND}), v {v:.6g} vs the engine's "
           f"{engine_v:.6g} ({v_rel:.3g}, bound 1e-2)")
     n_iter = int(n_iter)
+    check(gb == {"gb_posterior": n_iter + 1, "gb_message": 0},
+          f"flagship through the front door: prior kernel launches {gb} "
+          f"for {n_iter} iterations (want one posterior per iteration and "
+          "one at the readout)")
     print(f"flagship GLM N=10000 float32 through dispatch_solver "
           f"(SpectralVAMPSolver): n_iter={n_iter} mse={mse:.6g} v={v:.6g} "
           f"|mse-v|/v={band:.3e} v vs engine {v_rel:.3e} wall={wall:.3f} s "
@@ -1331,13 +1477,20 @@ def front_door_flagship(torch, tt, pl, student, teacher_x, linear, engine_v,
     window = print_window(what, loop_window(
         lambda k: SpectralVAMPSolver(student, max_iter=k,
                                      tol=0.0).solve_batch(stacked)), card)
+    batch_gb = {}
     post, n_iter, conv, batch_launches = batched_solve(
         torch, pl, what, lambda: solver.solve_info(stacked), LANES, card,
-        window)
+        window, gb=batch_gb)
     check(bool(conv.all()), f"{what}: {int((~conv).sum())} lanes did not "
                             "converge")
+    iterations = int(n_iter.max())
+    check(batch_gb == {"gb_posterior": iterations + 1, "gb_message": 0},
+          f"{what}: prior kernel launches {batch_gb} for {iterations} "
+          "iterations (want one posterior per iteration and one at the "
+          "readout)")
     lanes_against_singles(torch, what, solver, student, 2, ys, post, n_iter)
-    return {k: launches[k] + batch_launches[k] for k in launches}
+    return ({k: launches[k] + batch_launches[k] for k in launches},
+            {k: gb[k] + batch_gb[k] for k in gb})
 
 
 def front_door_relu_net(torch, tt, pl, students, engine_r, card):
@@ -1345,15 +1498,23 @@ def front_door_relu_net(torch, tt, pl, students, engine_r, card):
     and float64, then LANES lanes in float32 through MLVAMPSolver and through
     EPSolver. ``students``: {dtype name: (student, x0, linear)} of phase 4;
     ``engine_r``: the float64 engine's x posterior mean. Returns the
-    launches of the path by kernel."""
+    launches of the path by kernel: pl_fused's, and as a second dict the
+    prior's message, one per sweep (checked)."""
     from tramp_tpu_torch.channels import ReluChannel
     from tramp_tpu_torch.parallel import (
         EPSolver, MLVAMPSolver, dispatch_solver, with_buffers)
     total = dict.fromkeys(read_launches(pl), 0)
+    gb_total = dict.fromkeys(read_gb_launches(), 0)
 
-    def add(launches):
+    def add(launches, into=total):
         for k, v in launches.items():
-            total[k] += v
+            into[k] += v
+
+    def add_gb(gb, sweeps, what):
+        check(gb == {"gb_posterior": 0, "gb_message": sweeps},
+              f"{what}: prior kernel launches {gb} for {sweeps} sweeps "
+              "(want one message per sweep)")
+        add(gb, gb_total)
 
     results, solvers = {}, {}
     for dname, (student, x0, _) in students.items():
@@ -1368,8 +1529,10 @@ def front_door_relu_net(torch, tt, pl, students, engine_r, card):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_launches(pl)
+        gb = read_gb_launches()
         add(launches)
         n_iter = int(n_iter)
+        add_gb(gb, n_iter, f"relu net {dname} through the front door")
         check(bool(conv) and launches["pl_forward_message"] == n_iter > 0
               and launches["pl_backward_message"] == n_iter
               and launches["pl_posterior"] == 0,
@@ -1449,11 +1612,13 @@ def front_door_relu_net(torch, tt, pl, students, engine_r, card):
                           ("EPSolver", ep_batch)):
             what = (f"relu net float32, {name}.solve_batch over {LANES} "
                     f"lanes, tol {tol:g}")
+            gb = {}
             post, n_iter, conv, launches = batched_solve(
                 torch, pl, what, run, LANES, card, windows[name],
-                warm_up=above_floor)
+                warm_up=above_floor, gb=gb)
             add(launches)
             sweeps = int(n_iter.max())
+            add_gb(gb, sweeps, what)
             check(launches["pl_forward_message"] == sweeps
                   and launches["pl_backward_message"] == sweeps
                   and launches["pl_posterior"] == 0,
@@ -1500,7 +1665,7 @@ def front_door_relu_net(torch, tt, pl, students, engine_r, card):
           f"{tuple(rx.shape)}, {tuple(vx.shape)}")
     print(f"relu posteriors of {LANES} lanes: 2 launches of pl_posterior, "
           "inside the tolerance of phase 3")
-    return total
+    return total, gb_total
 
 
 def hold_se_shape(torch, pl, channel, card):
@@ -5944,6 +6109,7 @@ def main():
                                for k, v in lanes_plain_ms.items()))
     se_err, se_rows = hold_se_shape(torch, pl, relu, card)
     max_err["pl_posterior"] = max(max_err["pl_posterior"], se_err)
+    gb_cases = hold_gb_prior(torch, card)
 
     # phase 4: the relu net through the kernels, f32 and f64
     class UnfusedReluChannel(ReluChannel):
@@ -5954,10 +6120,13 @@ def main():
 
     results, students, engine_r = {}, {}, {}
     main_launches = readout_launches = None
+    # the prior kernel's launches by main path
+    gb_paths = {}
     for dtype in (torch.float32, torch.float64):
         dname = dtype_name(dtype)
         student, x0, linear = students[dname] = relu_net(torch, tt, dtype)
-        ep, mse, v, wall, launches = solve(torch, tt, pl, student, x0)
+        gb = {}
+        ep, mse, v, wall, launches = solve(torch, tt, pl, student, x0, gb=gb)
         engine_r[dname] = ep.get_variable_data("x")["r"]
         check(launches["pl_forward_message"] == ep.n_iter > 0
               and launches["pl_backward_message"] == ep.n_iter
@@ -5965,6 +6134,10 @@ def main():
               f"relu net {dname}: launches {launches} for {ep.n_iter} "
               "sweeps (want one of each message per sweep and no "
               "five-output kernel)")
+        check(gb == {"gb_posterior": 0, "gb_message": ep.n_iter},
+              f"relu net {dname}: prior kernel launches {gb} for "
+              f"{ep.n_iter} sweeps (want one message per sweep)")
+        gb_paths[f"engine_relu_net_{dname}"] = gb
         readout = read_relu_posteriors(torch, pl, ep)
         check(readout == 2, f"relu posterior readout: {readout} launches of "
                             "the five-output kernel, want 2")
@@ -6039,8 +6212,12 @@ def main():
     ).to_model()
     sample = teacher.sample(torch.Generator(device="cuda").manual_seed(1))
     student = teacher.to_observed({"y": sample["y"]})
+    gb = gb_paths["engine_flagship_f32"] = {}
     ep, mse, v, wall, _ = solve(torch, tt, pl, student,
-                                sample["x"].double().cpu().numpy())
+                                sample["x"].double().cpu().numpy(), gb=gb)
+    check(gb == {"gb_posterior": 0, "gb_message": ep.n_iter},
+          f"flagship: prior kernel launches {gb} for {ep.n_iter} sweeps "
+          "(want one message per sweep)")
     check(abs(mse - v) / v < FLAGSHIP_BAND,
           f"flagship: |mse - v| / v = {abs(mse - v) / v:.3g} "
           f"(band {FLAGSHIP_BAND})")
@@ -6050,10 +6227,11 @@ def main():
 
     # phases 6 and 7: the front door, one instance and LANES lanes
     engine_launches = dict(main_launches, pl_posterior=readout_launches)
-    flagship_launches = front_door_flagship(
-        torch, tt, pl, student, sample["x"], linear, v, card)
-    relu_launches = front_door_relu_net(torch, tt, pl, students,
-                                        engine_r["float64"], card)
+    flagship_launches, gb_paths["front_door_flagship"] = \
+        front_door_flagship(torch, tt, pl, student, sample["x"], linear, v,
+                            card)
+    relu_launches, gb_paths["front_door_relu_net"] = front_door_relu_net(
+        torch, tt, pl, students, engine_r["float64"], card)
     check(not any(flagship_launches.values()),
           f"the flagship ran kernels: {flagship_launches}")
 
@@ -6158,6 +6336,26 @@ def main():
                              "device_ms": row["device_ms"],
                              "host_ms": row["host_ms"]}
                 for shape, row in se_rows.items()}
+        check(kernels[-1]["launches"] > 0, f"{name} was never launched on "
+                                           "the main paths")
+    # The Gauss-Bernoulli prior's kernel (no TPU kernel: the JAX package
+    # leaves the prior to XLA): its launches on the main paths of phases 4
+    # to 7 that run it, each counted from 0, and phase 3's readings at the
+    # cell's shape in float64 (GB_MAIN), every shape and type under
+    # ``cases``.
+    for name, shape in GB_MAIN.items():
+        main_case = gb_cases[name][(*shape, "float64")]
+        by_path = {path: counts[name] for path, counts in gb_paths.items()}
+        kernels.append(dict(
+            {"name": name, "route": "cuda",
+             "source": "tramp_tpu_torch/csrc/gb_prior.cu", "replaces": None,
+             "launches": sum(by_path.values()), "launches_by_path": by_path,
+             "max_abs_err": max(case["max_abs_err"]
+                                for case in gb_cases[name].values())},
+            **{key: main_case[key]
+               for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                           "device_ms", "host_ms", "shape", "dtype")},
+            cases=list(gb_cases[name].values())))
         check(kernels[-1]["launches"] > 0, f"{name} was never launched on "
                                            "the main paths")
     print(json.dumps({"kernels": kernels}))

@@ -33,7 +33,7 @@ from tramp_tpu_torch.ops import (
     pl_forward_message, pl_backward_message,
     pl_forward_message_plain, pl_backward_message_plain,
 )
-from tramp_tpu_torch.ops import pl_fused
+from tramp_tpu_torch.ops import _build, pl_fused
 
 # chip_smoke.py, at the root: the layouts and the card's checks of them
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -371,7 +371,7 @@ def test_message_kernels_build_without_contraction(monkeypatch, tmp_path):
 
         def wait(self):
             return 1
-    monkeypatch.setattr(pl_fused, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
     monkeypatch.setattr(pl_fused, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(pl_fused.subprocess, "Popen", Failing)
     with pytest.raises(RuntimeError, match="nvcc failed"):

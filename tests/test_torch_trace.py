@@ -28,7 +28,7 @@ from tramp_tpu_torch import config, trace
 from tramp_tpu_torch.channels import (
     GaussianChannel, LinearChannel, ReluChannel,
 )
-from tramp_tpu_torch.ops import pl_fused
+from tramp_tpu_torch.ops import _build, pl_fused
 from tramp_tpu_torch.parallel import (
     EPSolver, MLVAMPSolver, SpectralVAMPSolver, with_buffers,
 )
@@ -250,7 +250,7 @@ class _FakeNvcc:
 def test_the_kernel_build_spans(monkeypatch, tmp_path):
     monkeypatch.setattr(config, "TRACE", True)
     monkeypatch.setattr(pl_fused, "BUILD_DIR", tmp_path)
-    monkeypatch.setattr(pl_fused, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
     monkeypatch.setattr(pl_fused.subprocess, "Popen", _FakeNvcc)
     monkeypatch.setattr(pl_fused, "_load", lambda jobs: {})
     monkeypatch.setattr(pl_fused, "_fns", {})

@@ -48,8 +48,6 @@ import ctypes
 import hashlib
 import math
 import os
-import re
-import shutil
 import subprocess
 from pathlib import Path
 
@@ -61,9 +59,10 @@ from ..lanes import lane_count, lane_mean
 from ..utils.truncated_normal import (
     truncated_normal_mean, truncated_normal_var, truncated_normal_logZ,
 )
+# (ptxas_report is read as pl_fused.ptxas_report too)
+from ._build import (  # noqa: F401
+    BUILD_DIR, CSRC, nvcc_command, ptxas_report, refuse_bf16, stream)
 
-_PACKAGE = Path(__file__).resolve().parents[1]
-CSRC = _PACKAGE / "csrc"
 HEADER = CSRC / "pl_common.cuh"
 SOURCES = {"pl_posterior": CSRC / "pl_posterior.cu",
            "pl_message": CSRC / "pl_message.cu"}
@@ -71,7 +70,6 @@ SOURCES = {"pl_posterior": CSRC / "pl_posterior.cu",
 #: fused multiply-add on their own (csrc/pl_common.cuh writes out the ones
 #: it takes), so that every layout gives an element the same bits
 _FLAGS = {"pl_posterior": [], "pl_message": ["-fmad=false"]}
-BUILD_DIR = _PACKAGE.parent / "build" / "tramp_tpu_torch"
 MAX_REGIONS = 8
 #: most elements the message kernel takes in one launch (kClusterMax in
 #: csrc/pl_message.cu), per lane; above it the message is two launches with
@@ -159,16 +157,6 @@ def pl_backward_message_plain(az, bz, ax, bx, specs):
 
 # -- build ------------------------------------------------------------------
 
-def _nvcc():
-    from torch.utils.cpp_extension import CUDA_HOME
-    nvcc = shutil.which("nvcc") or (
-        CUDA_HOME and os.path.join(CUDA_HOME, "bin", "nvcc"))
-    if not nvcc or not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed "
-                           "to build tramp_tpu_torch's kernels")
-    return nvcc
-
-
 def build():
     """Compile the kernels with nvcc for sm_90a (once per content of the
     sources; the missing libraries are all compiled at the same time) and
@@ -195,10 +183,8 @@ def _build():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", f"-DPL_{suffix.upper()}_ONLY", *_FLAGS[name],
-               "-o", str(tmp), str(source)]
+        cmd = nvcc_command(source, tmp, f"-DPL_{suffix.upper()}_ONLY",
+                           *_FLAGS[name])
         # diagnostics to a file: a pipe could fill while another job is
         # waited for
         with open(f"{tmp}.log", "w") as diagnostics:
@@ -247,30 +233,6 @@ def _load(jobs):
         fn.restype = ctypes.c_int
         fns[name, dtype] = fn
     return fns
-
-
-def ptxas_report(log):
-    """ptxas's ``-v`` report as a list of dicts, one per compiled kernel:
-    ``kernel`` (its name), ``dtype`` ("f" or "d"), ``params`` (the integer
-    template arguments: the region count K, for the message kernel the
-    side, and 1 for the instantiation that takes lanes, 0 for the one that
-    takes a single instance), ``registers`` and ``spill_bytes`` (stores)."""
-    out = []
-    for chunk in log.split("Compiling entry function '")[1:]:
-        mangled = chunk.split("'", 1)[0]
-        name = re.search(r"\d+(pl_\w+?_kernel)(?:I([fd])((?:L[ib]\d+E)*)E)?",
-                         mangled)
-        regs = re.search(r"Used (\d+) registers", chunk)
-        spill = re.search(r"(\d+) bytes spill stores", chunk)
-        if not (name and regs):
-            continue
-        out.append({
-            "kernel": name.group(1), "dtype": name.group(2),
-            "params": [int(v) for v in re.findall(r"L[ib](\d+)E",
-                                                  name.group(3) or "")],
-            "registers": int(regs.group(1)),
-            "spill_bytes": int(spill.group(1)) if spill else 0})
-    return out
 
 
 # -- wrappers ---------------------------------------------------------------
@@ -328,14 +290,6 @@ def _checked(what, az, bz, ax, bx, specs):
     return _precision(az, bz, "az"), _precision(ax, bz, "ax")
 
 
-def _refuse_bf16(what, *arrays):
-    "Raise where an input is bfloat16 (see the module docstring)."
-    if any(isinstance(a, torch.Tensor) and a.dtype == torch.bfloat16
-           for a in arrays):
-        raise ValueError(f"{what}: a bfloat16 input; the kernels and their "
-                         "plain versions take float32 or float64")
-
-
 def _lanes(az, bz, ax):
     "Lanes of a call: B when either precision is per lane of bz, else None."
     counts = [lane_count(a, bz) for a in (az, ax)]
@@ -353,14 +307,6 @@ def _strides(a, bz, lanes):
     return 0, 1
 
 
-def _stream(device):
-    "The current stream's handle, without building a Stream object."
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if raw is None:
-        return torch.cuda.current_stream(device).cuda_stream
-    return raw(device.index)
-
-
 def pl_posterior(az, bz, ax, bx, specs):
     """Fused PL posterior (rz, vz, rx, vx, logZ), elementwise in ``bz``.
 
@@ -372,7 +318,7 @@ def pl_posterior(az, bz, ax, bx, specs):
     one value per lane of ``bz`` (``(B, 1)`` with ``bz`` of ``(B, n)``), or
     arrays of ``bz``'s shape; ``bx`` has ``bz``'s shape. The five outputs are
     views of one allocation."""
-    _refuse_bf16("pl_posterior", az, bz, ax, bx)
+    refuse_bf16("pl_posterior", az, bz, ax, bx)
     if bz.device.type == "cpu":
         return pl_posterior_plain(az, bz, ax, bx, specs)
     if bz.device.type == "meta":
@@ -389,7 +335,7 @@ def pl_posterior(az, bz, ax, bx, specs):
         ax.data_ptr(), *_strides(ax, bz, lanes), bx.data_ptr(), first,
         first + step, first + 2 * step, first + 3 * step, first + 4 * step,
         total // (lanes or 1), lanes or 1, _spec_array(specs, bz.dtype),
-        len(specs), _stream(bz.device))
+        len(specs), stream(bz.device))
     if err != 0:
         raise RuntimeError(f"pl_posterior kernel launch failed: CUDA error "
                            f"{err}")
@@ -433,7 +379,7 @@ def _message_outputs(side, az, bz, ax):
 
 
 def _message(wrapper, plain, side, az, bz, ax, bx, specs):
-    _refuse_bf16(wrapper.__name__, az, bz, ax, bx)
+    refuse_bf16(wrapper.__name__, az, bz, ax, bx)
     if bz.device.type == "cpu":
         return plain(az, bz, ax, bx, specs)
     if bz.device.type == "meta":
@@ -454,7 +400,7 @@ def _message(wrapper, plain, side, az, bz, ax, bx, specs):
         0 if partials is None else partials.shape[1],
         bz.numel() // (lanes or 1), lanes or 1,
         _spec_array(specs, bz.dtype), len(specs), config.VMIN, config.AMIN,
-        config.AMAX, _stream(bz.device))
+        config.AMAX, stream(bz.device))
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
     wrapper.launches += 1 if partials is None else 2
@@ -501,6 +447,6 @@ def launch_floor():
     if not _fns:
         build()
     err = _fns["pl_launch_floor"](
-        _stream(torch.device("cuda", torch.cuda.current_device())))
+        stream(torch.device("cuda", torch.cuda.current_device())))
     if err != 0:
         raise RuntimeError(f"empty kernel launch failed: CUDA error {err}")

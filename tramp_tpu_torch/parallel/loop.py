@@ -51,16 +51,18 @@ import torch
 
 from .. import config, trace
 from ..lanes import hyperparameters, with_buffers
-from ..ops import pl_fused
+from ..ops import gb_prior, pl_fused
 from ..utils import integration
 from .mesh import all_done, map_tree, stop_groups
 
 #: (object, attribute) of every counter an iteration advances on the host:
-#: the message kernels' launches and the quadrature's integrand evaluations
+#: the kernels' launches and the quadrature's integrand evaluations
 COUNTERS = ((pl_fused.pl_forward_message, "launches"),
             (pl_fused.pl_backward_message, "launches"),
             (pl_fused.pl_posterior, "launches"),
-            (integration, "nodes_evaluated"))
+            (integration, "nodes_evaluated"),
+            (gb_prior.gb_posterior, "launches"),
+            (gb_prior.gb_message, "launches"))
 
 
 def start_flags(B, device):

@@ -8,6 +8,7 @@ from .base_prior import Prior
 from ..beliefs import sparse
 from ..config import default_device, DEFAULT_DTYPE
 from ..lanes import lane_mean, log, sqrt
+from ..ops import gb_prior
 from ..utils.integration import gaussian_measure, gaussian_measure_boundary
 
 
@@ -71,15 +72,26 @@ class GaussBernoulliPrior(Prior):
         x_bern = torch.rand(shape, **kw) < self.rho
         return x_gauss * x_bern
 
+    # The isotropic posterior and message are ops/gb_prior.py's: its laned
+    # kernel wherever the kernel takes the inputs (``gb_prior.takes``:
+    # precisions 0-d or per lane, hyperparameters of bx's type), else, and
+    # off the card, its plain version, the eager chain bit for bit. Only a
+    # prior with per-element variances keeps the chain here.
     def compute_forward_posterior(self, ax, bx):
+        hyper = (self.a, self.b, self.eta)
+        if self.isotropic:
+            if gb_prior.takes(ax, bx, *hyper):
+                return gb_prior.gb_posterior(ax, bx, *hyper)
+            return gb_prior.gb_posterior_plain(ax, bx, *hyper)
         a = ax + self.a
         b = bx + self.b
-        eta = self.eta
-        rx = sparse.r(a, b, eta)
-        vx = sparse.v(a, b, eta)
-        if self.isotropic:
-            vx = lane_mean(vx, ax)
-        return rx, vx
+        return sparse.r(a, b, self.eta), sparse.v(a, b, self.eta)
+
+    def compute_forward_message(self, ax, bx):
+        hyper = (self.a, self.b, self.eta)
+        if self.isotropic and gb_prior.takes(ax, bx, *hyper):
+            return gb_prior.gb_message(ax, bx, *hyper)
+        return super().compute_forward_message(ax, bx)
 
     def second_moment(self):
         return self.rho * (self.mean**2 + self.var)
