@@ -14,14 +14,18 @@ The SE measure of the channel is the sum of its regions' measures
 (utils/linear_region.py). ``beliefs_measure`` lays the K regions' grids end
 to end along the node axis and calls the integrand once on all of them, so
 an error or a free energy is one launch of ``pl_posterior`` whatever K, and
-one sweep of the state evolution, a forward and a backward error, is two."""
+one sweep of the state evolution, a forward and a backward error, is two.
+The measure adds its lanes x nodes to ``integration.nodes_evaluated`` and
+runs in the span ``se.channel_measure`` (``trace``)."""
 import math
 
 import torch
 
 from .base_channel import Channel
+from .. import trace
 from ..lanes import lane_count, lane_mean, per_lane
 from ..ops import pl_posterior, pl_forward_message, pl_backward_message
+from ..utils.integration import _total
 from ..utils.linear_region import LinearRegion
 
 _INF = math.inf
@@ -97,12 +101,12 @@ class PiecewiseLinearChannel(Channel):
     def beliefs_measure(self, az, ax, tau_z, f):
         """SE measure of f over (bz, bx): the K regions' grids
         (``LinearRegion.beliefs_grid``) end to end, one call of ``f``."""
-        grids = [region.beliefs_grid(az, ax, tau_z)
-                 for region in self.regions]
-        bz, bx, w = (torch.cat([g[i] for g in grids], -1).contiguous()
-                     for i in range(3))
-        weighted = w * f(bz, bx)
-        return weighted.sum(-1, keepdim=True) if az.ndim else weighted.sum()
+        with trace.span("se.channel_measure"):
+            grids = [region.beliefs_grid(az, ax, tau_z)
+                     for region in self.regions]
+            bz, bx, w = (torch.cat([g[i] for g in grids], -1).contiguous()
+                         for i in range(3))
+            return _total(w * f(bz, bx), az.ndim > 0)
 
     def compute_forward_posterior(self, az, bz, ax, bx):
         _, _, rx, vx, _ = pl_posterior(az, bz, ax, bx, self.region_specs)

@@ -18,7 +18,10 @@ solver loops of ``parallel`` open these spans:
 
 The SE phase grids (``parallel/grid.py``) open ``grid.build`` (the points'
 models built and stacked, the solver made) and ``grid.records`` (the
-answers read back and made records) around their solve.
+answers read back and made records) around their solve. Inside a sweep,
+``se.channel_measure`` holds a piecewise-linear channel's SE measure (its
+regions' grids and the one call of its integrand); a replayed graph runs no
+Python, so it records in eager sweeps and at a capture only.
 
 Set-up opens ``svd`` (``LinearChannel`` taking W's SVD itself) and
 ``kernels.build`` (``ops.pl_fused.build``), whose children are
@@ -70,8 +73,8 @@ RANGE_PREFIX = "tramp_tpu_torch."
 
 #: the names of the spans the port opens
 NAMES = ("solve", "sweep", "replay", "capture", "stop_read", "readout",
-         "grid.build", "grid.records", "svd", "kernels.build",
-         "kernels.compile", "kernels.load")
+         "grid.build", "grid.records", "se.channel_measure", "svd",
+         "kernels.build", "kernels.compile", "kernels.load")
 #: one recorded span; ``solve`` is None outside any solve
 Record = collections.namedtuple("Record",
                                 "name parent solve start_ns end_ns")

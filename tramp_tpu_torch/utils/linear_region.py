@@ -9,7 +9,7 @@ fused form against. What the state evolution needs of a region alone is its
 second moment, its probabilities and its measure over (bz, bx)."""
 import torch
 
-from .integration import grid_2d, grid_2d_full
+from .integration import _total, grid_2d, grid_2d_full
 from .truncated_normal import (
     truncated_normal_mean, truncated_normal_var, truncated_normal_logZ,
     truncated_normal_proba,
@@ -108,5 +108,4 @@ class LinearRegion:
     def beliefs_measure(self, az, ax, tau_z, f):
         "SE measure of f over (bz, bx): one region's term of the channel's."
         bz, bx, w = self.beliefs_grid(az, ax, tau_z)
-        weighted = w * f(bz, bx)
-        return weighted.sum(-1, keepdim=True) if az.ndim else weighted.sum()
+        return _total(w * f(bz, bx), az.ndim > 0)
