@@ -1,6 +1,6 @@
-"""Times of the piecewise-linear kernels of several checkouts on one NVIDIA
-GPU, in turns inside one call, so that two versions are compared on the
-same card and host.
+"""Times of the hand-written kernels of several checkouts on one NVIDIA GPU,
+in turns inside one call, so that two versions are compared on the same
+card and host.
 
     python3 chip_kernel_times.py LABEL=DIR ...
 
@@ -16,9 +16,14 @@ take lanes, 2048 lanes of 2048 elements with a precision per lane, for
 and ``pl_backward_message``: the device time per call
 from torch.profiler over 20 warm calls, the kernels launched per call, and
 the host time per call (300 unsynchronised calls on the host's clock), all
-taken with chip_smoke.py's own ``profiled``, ``host_ms`` and ``inputs``. The
-last lines give, per checkout and case, the two turns' device times side by
-side, with the card's name and power limit.
+taken with chip_smoke.py's own ``profiled``, ``host_ms`` and ``inputs``.
+Where the checkout has ML-VAMP's loop finish (``ops/ml_vamp_finish.py``),
+the kernel and its plain version are timed on the relu net's loop state
+(N = 4096, M = 2048, three iterations in) at chip_smoke.py's
+``FINISH_SHAPES``, with its ``finish_state``, ``finish_args`` and
+``time_finish`` (the byte bound at 3.35 TB/s). The last lines give, per
+checkout and case, the two turns' device times side by side, with the
+card's name and power limit.
 
 It needs one GPU and imports nothing of JAX.
 """
@@ -30,7 +35,8 @@ import time
 
 # this script's own chip_smoke.py, before a turn puts its checkout first
 from chip_smoke import (
-    LANE_SHAPE, SIZES, dtype_name, host_ms, inputs, lane_inputs, profiled)
+    FINISH_SHAPES, LANE_SHAPE, SIZES, dtype_name, finish_args, finish_state,
+    host_ms, inputs, lane_inputs, profiled, relu_net, time_finish)
 
 
 def turn(label):
@@ -73,6 +79,37 @@ def turn(label):
                         "n": n, "kernels": kernels,
                         "device_us": 1e3 * device_ms,
                         "host_us": 1e3 * host_ms(call)}), flush=True)
+    if os.path.exists(os.path.join("tramp_tpu_torch", "ops",
+                                   "ml_vamp_finish.py")):
+        finish_turn(label)
+
+
+def finish_turn(label):
+    "The loop finish's kernel and plain version, rows as ``turn``'s."
+    import torch
+    import tramp_tpu_torch as tt
+    from tramp_tpu_torch.ops import _build
+    from tramp_tpu_torch.ops import ml_vamp_finish as mvf
+    _, log = mvf.build()
+    print(json.dumps({"label": label, "finish_ptxas": [
+        row for row in _build.ptxas_report(log)
+        if row["kernel"] == "ml_vamp_finish_kernel"]}), flush=True)
+    nets = {}
+    for dname, lanes in FINISH_SHAPES:
+        if dname not in nets:
+            nets[dname] = relu_net(torch, tt, getattr(torch, dname))[0]
+        state = finish_state(torch, nets[dname], lanes)
+        for fn in (mvf.ml_vamp_finish, mvf.ml_vamp_finish_plain):
+            args, nbytes = finish_args(torch, *state)
+            reading = time_finish(torch, fn, args, nbytes)
+            print(json.dumps({
+                "label": label, "kernel": fn.__name__, "channel": "relu_net",
+                "dtype": dname, "n": f"{lanes or 1}x4096",
+                "kernels": reading["kernels"],
+                "device_us": 1e3 * reading["device_ms"],
+                "host_us": 1e3 * reading["host_ms"],
+                "bound_us": 1e3 * reading["bound_ms"],
+                "share": reading["share"]}), flush=True)
 
 
 def main(argv):

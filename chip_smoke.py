@@ -38,7 +38,16 @@ line is printed):
    version's device time; the paths of phases 4 to 7 that run it (the
    engine's relu nets and flagship, the front door's flagship and relu
    net) must launch it once per sweep (the message) or once per
-   iteration and readout (the GLM's posterior);
+   iteration and readout (the GLM's posterior); then ML-VAMP's loop
+   finish (tramp_tpu_torch/csrc/ml_vamp_finish.cu, both types built, no
+   spill) against its plain version on the relu
+   net's loop state three iterations in, at 2048 lanes in float64 and
+   float32 (every third lane frozen) and at one instance in float64:
+   carry, metric, flags, ok and converged bit for bit, delta within 4
+   ulps, one launch a call, with the device time, time per call, host
+   time, byte bound and the plain version's device time; phase 7's
+   MLVAMPSolver solves must launch it once per loop iteration, its
+   EPSolver solves never;
 4. the EP engine's main path through the kernels: the relu net
    x -> W -> relu -> + noise -> y at N = 4096, alpha = 0.5, rho = 0.25,
    noise 1e-2 (bench.py:1124-1157), solved with
@@ -84,7 +93,9 @@ line is printed):
 8. a JSON line on the kernels (``pl_posterior``'s row carries the
    adaptive EP sweep's launches, device ms and bound under
    ``adaptive_ep_sweep``; ``gb_posterior``'s and ``gb_message``'s rows
-   their launches on phases 4 to 7 and phase 3's readings), then the
+   their launches on phases 4 to 7 and phase 3's readings;
+   ``ml_vamp_finish``'s its launches on phase 7 and phase 3's readings),
+   then the
    result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
 9. (run before the summary) the state evolution, all in float64:
@@ -1234,12 +1245,170 @@ def read_gb_launches():
             "gb_message": gb_prior.gb_message.launches}
 
 
+#: (dtype name, lanes) at which ML-VAMP's loop finish is held and timed on
+#: the relu net: the batch in both types, one instance (None: no lane axis)
+FINISH_SHAPES = (("float64", LANES), ("float32", LANES), ("float64", None))
+#: delta's sums are taken in another order than torch.mean's: its ulps
+FINISH_ULPS = 4
+
+
+def finish_state(torch, student, lanes, seed=0):
+    """ML-VAMP's loop on ``student`` (a relu net of ``relu_net``) three
+    iterations in, with ``lanes`` observations about its own (None: one
+    instance): (solver, the loop state, the step's output from it, the
+    invariants, B)."""
+    from tramp_tpu_torch.parallel import MLVAMPSolver, with_buffers
+    model = student
+    if lanes is not None:
+        y = student.factors[-1].y
+        g = torch.Generator(device=y.device).manual_seed(seed)
+        ys = y + 0.01 * torch.randn((lanes,) + y.shape, generator=g,
+                                    dtype=y.dtype, device=y.device)
+        model = with_buffers(student, {(len(student.factors) - 1, "y"): ys})
+    solver = MLVAMPSolver(student, **SOLVE)
+    B, _, inv, _ = solver._prepare(model, None)
+    state = solver._start(model, inv, B, None)
+    for _ in range(3):
+        solver._iterate(model, inv, B, state, solver.tol)
+    return solver, state, solver._step(model, state["carry"], inv), inv, B
+
+
+def finish_args(torch, solver, state, new, inv, B):
+    """The finish's arguments (without tol) on copies of the loop state's
+    carry, metric and flags, and its byte bound: each leaf of the step's
+    output, the pinned message and the old metric read once, each carry
+    leaf and the metric written once."""
+    from tramp_tpu_torch.ops import ml_vamp_finish as mvf
+    from tramp_tpu_torch.parallel.mesh import map_tree
+    old = state["carry"]
+    carry, metric, flags = map_tree(
+        torch.clone, (old, state["metric"], state["flags"]))
+    pairs = [(c if n is o else n, c) for (n, o), (c, _) in zip(
+        solver._pairs(new, old), solver._pairs(carry, old))]
+    args = (pairs, solver._sides(carry, inv), metric, flags, B)
+    leaves, _ = mvf._table(*args)
+    elements = (sum(n.numel() + (0 if c is None else c.numel())
+                    for n, c, _, _ in leaves)
+                + 2 * sum(r.numel() for r in metric))
+    return args, elements * metric[0].element_size()
+
+
+def time_finish(torch, fn, args, nbytes, reps=20):
+    """``fn``'s device time per call (torch.profiler over ``reps`` calls),
+    its kernels, time per call (CUDA events), host time, and the byte
+    bound, at a tol no lane meets: no call freezes a lane, so every call
+    copies every lane's carry, as an iteration of a solve does."""
+    def call():
+        return fn(*args, -1.0)
+    kernels, device_ms, _ = profiled(call, reps)
+    check(device_ms > 0, f"{fn.__name__}: torch.profiler shows no device "
+                         "time")
+    bound = 1e3 * nbytes / HBM_BYTES_PER_S
+    return {"kernels": kernels, "device_ms": device_ms,
+            "ms": per_call_ms(call), "host_ms": host_ms(call),
+            "bound_ms": bound, "bound_by": "bytes",
+            "share": bound / device_ms}
+
+
+def hold_ml_vamp_finish(torch, students, card):
+    """Phase 3, ML-VAMP's loop finish (ops/ml_vamp_finish.py): its build
+    and ptxas report, then the kernel against its plain version on the
+    relu net's loop state at FINISH_SHAPES (``students``: {dtype name:
+    (student, x0, linear)}): the carry, the metric, the flags, ok and
+    converged bit for bit, delta within FINISH_ULPS, one launch a call;
+    each case timed (``time_finish``) beside the plain version's device
+    time. Returns {(dtype name, lanes): reading}."""
+    from tramp_tpu_torch.ops import _build
+    from tramp_tpu_torch.ops import ml_vamp_finish as mvf
+    from tramp_tpu_torch.parallel import loop
+    t0 = time.perf_counter()
+    lib, log = mvf.build()
+    print(f"build: {time.perf_counter() - t0:.2f} s -> {lib.name}")
+    rows = [row for row in _build.ptxas_report(log)
+            if row["kernel"] == "ml_vamp_finish_kernel"]
+    for row in rows:
+        print(f"ptxas: {row['kernel']}<{row['dtype']}, "
+              f"{', '.join(map(str, row['params']))}> {row['registers']} "
+              f"registers, {row['spill_bytes']} bytes of spill stores")
+    # float32 and float64
+    check(len(rows) == 2 and not any(row["spill_bytes"] for row in rows),
+          f"ml_vamp_finish: ptxas reported {rows}")
+
+    def bits(t):
+        return t.view({torch.float64: torch.int64,
+                       torch.float32: torch.int32}.get(t.dtype, t.dtype))
+
+    out = {}
+    for dname, lanes in FINISH_SHAPES:
+        student = students[dname][0]
+        what = f"ml_vamp_finish {dname} lanes={lanes} (relu net)"
+        solver, state, new, inv, B = finish_state(torch, student, lanes)
+        got = []
+        for fn in (mvf.ml_vamp_finish, mvf.ml_vamp_finish_plain):
+            args, nbytes = finish_args(torch, solver, state, new, inv, B)
+            if B is not None:
+                args[3]["done"][::3] = True       # frozen lanes
+            check(mvf.takes(*args), f"{what}: the kernel does not take it")
+            before = mvf.ml_vamp_finish.launches
+            result = fn(*args, solver.tol)
+            torch.cuda.synchronize()
+            check(mvf.ml_vamp_finish.launches - before
+                  == (fn is mvf.ml_vamp_finish),
+                  f"{what}: {mvf.ml_vamp_finish.launches - before} launches "
+                  f"of the kernel by {fn.__name__}")
+            got.append((loop.leaves(args[0]) + list(args[2])
+                        + loop.leaves(args[3]) + list(result[:2]),
+                        result[2]))
+        (state_k, delta), (state_w, delta_w) = got
+        check(all(g.shape == w.shape and torch.equal(bits(g), bits(w))
+                  for g, w in zip(state_k, state_w)),
+              f"{what}: carry, metric, flags, ok or converged differ from "
+              "the plain version's bits")
+        finite = ~delta_w.isnan()
+        err = (delta - delta_w).abs()[finite]
+        info = torch.finfo(delta.dtype)
+        # a frozen lane's delta is 0 in both
+        ulps = float((err / (info.eps * delta_w.abs()[finite]).clamp(
+            min=info.tiny)).max())
+        check(torch.equal(delta.isnan(), delta_w.isnan())
+              and ulps <= FINISH_ULPS,
+              f"{what}: delta {ulps:.3g} ulps from the plain version's")
+        # no lane frozen: every call copies every lane's carry
+        args, nbytes = finish_args(torch, solver, state, new, inv, B)
+        carried = sum(c.numel() for _, c in args[0]) // (lanes or 1)
+        reading = out[dname, lanes] = dict(
+            time_finish(torch, mvf.ml_vamp_finish, args, nbytes),
+            shape=[lanes, carried], dtype=dname, max_abs_err=float(err.max()), delta_ulps=ulps,
+            bytes=nbytes)
+        plain = time_finish(torch, mvf.ml_vamp_finish_plain, args, nbytes,
+                            reps=5)
+        reading.update(plain_ms=plain["device_ms"],
+                       plain_kernels=plain["kernels"])
+        print(f"{what}: bit for bit, delta within {ulps:.3g} ulps; device "
+              f"{1e3 * reading['device_ms']:.2f} us "
+              f"({reading['kernels']:.0f} launches), per call "
+              f"{1e3 * reading['ms']:.2f} us, host "
+              f"{1e3 * reading['host_ms']:.2f} us, bound "
+              f"{1e3 * reading['bound_ms']:.2f} us ({nbytes} B, "
+              f"{100 * reading['share']:.1f}%); plain "
+              f"{1e3 * reading['plain_ms']:.2f} us "
+              f"({reading['plain_kernels']:.0f} kernels) [{card}]")
+    return out
+
+
+def read_finish_launches():
+    "ML-VAMP's loop finish kernel's launches since ``reset_launches``."
+    from tramp_tpu_torch.ops import ml_vamp_finish as mvf
+    return mvf.ml_vamp_finish.launches
+
+
 def reset_launches(pl):
-    "Sets every kernel's launch count to 0 (the prior's kernel's too)."
-    from tramp_tpu_torch.ops import gb_prior
+    """Sets every kernel's launch count to 0 (the prior's kernel's and the
+    loop finish's too)."""
+    from tramp_tpu_torch.ops import gb_prior, ml_vamp_finish
     for fn in (pl.pl_posterior, pl.pl_forward_message,
                pl.pl_backward_message, gb_prior.gb_posterior,
-               gb_prior.gb_message):
+               gb_prior.gb_message, ml_vamp_finish.ml_vamp_finish):
         fn.launches = 0
 
 
@@ -1498,13 +1667,16 @@ def front_door_relu_net(torch, tt, pl, students, engine_r, card):
     and float64, then LANES lanes in float32 through MLVAMPSolver and through
     EPSolver. ``students``: {dtype name: (student, x0, linear)} of phase 4;
     ``engine_r``: the float64 engine's x posterior mean. Returns the
-    launches of the path by kernel: pl_fused's, and as a second dict the
-    prior's message, one per sweep (checked)."""
+    launches of the path by kernel: pl_fused's, as a second dict the
+    prior's message, one per sweep (checked), and as a third the loop
+    finish's by solve, one per MLVAMPSolver loop iteration and none in
+    EPSolver's (checked)."""
     from tramp_tpu_torch.channels import ReluChannel
     from tramp_tpu_torch.parallel import (
         EPSolver, MLVAMPSolver, dispatch_solver, with_buffers)
     total = dict.fromkeys(read_launches(pl), 0)
     gb_total = dict.fromkeys(read_gb_launches(), 0)
+    finish = {}
 
     def add(launches, into=total):
         for k, v in launches.items():
@@ -1530,9 +1702,14 @@ def front_door_relu_net(torch, tt, pl, students, engine_r, card):
         wall = time.perf_counter() - t0
         launches = read_launches(pl)
         gb = read_gb_launches()
+        finish[f"front_door_relu_net_{dname}"] = read_finish_launches()
         add(launches)
         n_iter = int(n_iter)
         add_gb(gb, n_iter, f"relu net {dname} through the front door")
+        check(finish[f"front_door_relu_net_{dname}"] == n_iter,
+              f"relu net {dname} through the front door: "
+              f"{finish[f'front_door_relu_net_{dname}']} launches of "
+              f"ml_vamp_finish for {n_iter} loop iterations")
         check(bool(conv) and launches["pl_forward_message"] == n_iter > 0
               and launches["pl_backward_message"] == n_iter
               and launches["pl_posterior"] == 0,
@@ -1619,6 +1796,12 @@ def front_door_relu_net(torch, tt, pl, students, engine_r, card):
             add(launches)
             sweeps = int(n_iter.max())
             add_gb(gb, sweeps, what)
+            finished = read_finish_launches()
+            check(finished == (sweeps if name == "MLVAMPSolver" else 0),
+                  f"{what}: {finished} launches of ml_vamp_finish for "
+                  f"{sweeps} loop iterations")
+            if name == "MLVAMPSolver":
+                finish[f"front_door_relu_net_batched_tol{tol:g}"] = finished
             check(launches["pl_forward_message"] == sweeps
                   and launches["pl_backward_message"] == sweeps
                   and launches["pl_posterior"] == 0,
@@ -1665,7 +1848,7 @@ def front_door_relu_net(torch, tt, pl, students, engine_r, card):
           f"{tuple(rx.shape)}, {tuple(vx.shape)}")
     print(f"relu posteriors of {LANES} lanes: 2 launches of pl_posterior, "
           "inside the tolerance of phase 3")
-    return total, gb_total
+    return total, gb_total, finish
 
 
 def hold_se_shape(torch, pl, channel, card):
@@ -6110,6 +6293,10 @@ def main():
     se_err, se_rows = hold_se_shape(torch, pl, relu, card)
     max_err["pl_posterior"] = max(max_err["pl_posterior"], se_err)
     gb_cases = hold_gb_prior(torch, card)
+    # the relu nets of phase 4, built here for the loop finish's states
+    nets = {dtype_name(dtype): relu_net(torch, tt, dtype)
+            for dtype in (torch.float32, torch.float64)}
+    finish_cases = hold_ml_vamp_finish(torch, nets, card)
 
     # phase 4: the relu net through the kernels, f32 and f64
     class UnfusedReluChannel(ReluChannel):
@@ -6124,7 +6311,7 @@ def main():
     gb_paths = {}
     for dtype in (torch.float32, torch.float64):
         dname = dtype_name(dtype)
-        student, x0, linear = students[dname] = relu_net(torch, tt, dtype)
+        student, x0, linear = students[dname] = nets[dname]
         gb = {}
         ep, mse, v, wall, launches = solve(torch, tt, pl, student, x0, gb=gb)
         engine_r[dname] = ep.get_variable_data("x")["r"]
@@ -6230,8 +6417,9 @@ def main():
     flagship_launches, gb_paths["front_door_flagship"] = \
         front_door_flagship(torch, tt, pl, student, sample["x"], linear, v,
                             card)
-    relu_launches, gb_paths["front_door_relu_net"] = front_door_relu_net(
-        torch, tt, pl, students, engine_r["float64"], card)
+    relu_launches, gb_paths["front_door_relu_net"], finish_paths = \
+        front_door_relu_net(torch, tt, pl, students, engine_r["float64"],
+                            card)
     check(not any(flagship_launches.values()),
           f"the flagship ran kernels: {flagship_launches}")
 
@@ -6358,6 +6546,24 @@ def main():
             cases=list(gb_cases[name].values())))
         check(kernels[-1]["launches"] > 0, f"{name} was never launched on "
                                            "the main paths")
+    # ML-VAMP's loop finish (no TPU kernel: XLA fuses the chain in the JAX
+    # package's while_loop): its launches on phase 7's MLVAMPSolver paths,
+    # one per loop iteration, and phase 3's readings at the relu cell's
+    # shape in float64, every case under ``cases``.
+    main_case = finish_cases["float64", LANES]
+    kernels.append(dict(
+        {"name": "ml_vamp_finish", "route": "cuda",
+         "source": "tramp_tpu_torch/csrc/ml_vamp_finish.cu",
+         "replaces": None, "launches": sum(finish_paths.values()),
+         "launches_by_path": finish_paths,
+         "max_abs_err": max(case["max_abs_err"]
+                            for case in finish_cases.values())},
+        **{key: main_case[key]
+           for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                       "device_ms", "host_ms", "shape", "dtype")},
+        cases=list(finish_cases.values())))
+    check(kernels[-1]["launches"] > 0, "ml_vamp_finish was never launched "
+                                       "on the main paths")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

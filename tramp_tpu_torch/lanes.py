@@ -19,7 +19,9 @@ spectral means), ``precision_lanes`` reads any precision with axes as one
 value per lane, since a precision without lanes is a number or 0-d.
 
 Loop flags (done, converged, the iteration count) are 0-d without lanes and
-``(B,)`` with them; ``select`` broadcasts such a flag against a state array.
+``(B,)`` with them; ``select`` broadcasts such a flag against a state array,
+``select_`` writes its choice into the old array, and ``advance`` updates a
+solver loop's flags after an iteration.
 
 **Hyperparameters.** A factor's numbers (``rho``, ``mean``, ``var``,
 ``alpha``, ``p_pos``, ``gamma``) are Python floats shared by all lanes, or
@@ -110,6 +112,25 @@ def select(flag, new, old):
     broadcast from the left against the state arrays."""
     flag = flag.reshape(flag.shape + (1,) * (new.ndim - flag.ndim))
     return torch.where(flag, new, old)
+
+
+def select_(flag, new, old):
+    """``select(flag, new, old)`` written into ``old``; what a step emits
+    has the layout of the state it read."""
+    flag = flag.reshape(flag.shape + (1,) * (old.ndim - flag.ndim))
+    torch.where(flag, new, old, out=old)
+
+
+def advance(flags, active, converged, stop):
+    """The flags after an iteration, in place: ``n_iter`` of the lanes that
+    were ``active`` (not done before it), ``conv`` where their stop
+    criterion fired (distinct from ``done``, which also latches on
+    ``stop``: a rollback or a step that is not finite), and ``count``."""
+    count = flags["count"]
+    torch.where(active, count + 1, flags["n_iter"], out=flags["n_iter"])
+    flags["conv"] |= active & converged
+    flags["done"] |= converged | stop
+    count += 1
 
 
 def lane_values(x, B):

@@ -1,15 +1,20 @@
 """What the hand-written kernels' modules share: where the CUDA sources are
-and the libraries go, nvcc's command line and ptxas's report, the current
-stream's handle and the refusal of bfloat16 inputs.
+and the libraries go, nvcc's command line, the build of a library with a
+plain C interface, ptxas's report, the current stream's handle and the
+refusal of bfloat16 inputs.
 
 Importing this module needs neither nvcc nor a GPU.
 """
+import hashlib
 import os
 import re
 import shutil
+import subprocess
 from pathlib import Path
 
 import torch
+
+from .. import trace
 
 _PACKAGE = Path(__file__).resolve().parents[1]
 CSRC = _PACKAGE / "csrc"
@@ -35,14 +40,44 @@ def nvcc_command(source, out, *flags):
             "-o", str(out), str(source)]
 
 
+def build_library(source, stem, flags):
+    """Compile ``source`` with nvcc for sm_90a into one shared library,
+    ``lib<stem>_<tag>.so`` in ``BUILD_DIR``, once per content of the source
+    and ``flags``. Returns (its path, nvcc's diagnostics), which hold ptxas's
+    register and spill report (``ptxas_report``) and are kept beside the
+    library, so that a later build returns them too."""
+    tag = hashlib.sha256(source.read_bytes()
+                         + " ".join(flags).encode()).hexdigest()[:16]
+    lib_path = BUILD_DIR / f"lib{stem}_{tag}.so"
+    log_path = BUILD_DIR / f"lib{stem}_{tag}.log"
+    if not lib_path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+        with trace.span("kernels.compile"):
+            proc = subprocess.run(nvcc_command(source, tmp, *flags),
+                                  capture_output=True, text=True,
+                                  check=False)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed with code {proc.returncode} on "
+                               f"{lib_path.name}:\n{log}")
+        log_path.write_text(log)
+        os.replace(tmp, lib_path)
+    return lib_path, log_path.read_text() if log_path.exists() else ""
+
+
 def _kernel(mangled):
     """(name, what follows it) of the kernel in a mangled symbol: the
-    shortest of its length-prefixed names that ends in ``_kernel``."""
+    last of its length-prefixed names that ends in ``_kernel``. A length
+    may follow a name that ends in digits (an anonymous namespace's hash),
+    so every run of digits up to a letter is read from each of its
+    digits."""
     found = None
-    for m in re.finditer(r"(?<!\d)(\d+)(?=[A-Za-z_])", mangled):
-        end = m.end() + int(m.group(1))
-        if mangled[m.end():end].endswith("_kernel"):
-            found = mangled[m.end():end], mangled[end:]
+    for m in re.finditer(r"(?=(\d+)[A-Za-z_])", mangled):
+        start = m.start() + len(m.group(1))
+        end = start + int(m.group(1))
+        if mangled[start:end].endswith("_kernel"):
+            found = mangled[start:end], mangled[end:]
     return found
 
 

@@ -31,10 +31,7 @@ own: a program that runs only this prior loads no other kernel library.
 Importing this module needs neither nvcc nor a GPU.
 """
 import ctypes
-import hashlib
 import numbers
-import os
-import subprocess
 
 import torch
 
@@ -42,7 +39,7 @@ from .. import config, trace
 from ..base import compute_ab_new
 from ..beliefs import sparse
 from ..lanes import lane_count, lane_mean
-from ._build import BUILD_DIR, CSRC, nvcc_command, refuse_bf16, stream
+from ._build import CSRC, build_library, refuse_bf16, stream
 
 SOURCE = CSRC / "gb_prior.cu"
 #: nvcc flags: no product contracted into a fused multiply-add, so that
@@ -130,27 +127,11 @@ def build():
 
 
 def _build():
-    tag = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"libgb_prior_{tag}.so"
-    log_path = BUILD_DIR / f"libgb_prior_{tag}.log"
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        with trace.span("kernels.compile"):
-            proc = subprocess.run(nvcc_command(SOURCE, tmp, *_FLAGS),
-                                  capture_output=True, text=True,
-                                  check=False)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed with code {proc.returncode} on "
-                               f"{lib_path.name}:\n{log}")
-        log_path.write_text(log)
-        os.replace(tmp, lib_path)
+    lib_path, log = build_library(SOURCE, "gb_prior", _FLAGS)
     if not _fns:
         with trace.span("kernels.load"):
             _fns.update(_load(lib_path))
-    return lib_path, log_path.read_text() if log_path.exists() else ""
+    return lib_path, log
 
 
 def _load(lib_path):

@@ -8,7 +8,7 @@ iteration (``mesh.all_done``), and a batch is a lane axis written out
 (tramp_tpu_torch/lanes.py). An iteration (the solver's ``_iterate``)
 updates the loop's state in place on the device, with no host read: the
 solver's step, its finite test and its stop metric, then the frozen lanes
-and the flags (``advance``). The flags are one per lane: ``n_iter``, ``conv``
+and the flags (``lanes.advance``). The flags are one per lane: ``n_iter``, ``conv``
 (the stop criterion fired) and ``done``, and ``count``, the iterations run,
 on the device. A lane that is done is frozen while the slower lanes go on,
 as ``vmap`` freezes a lane whose ``cond`` is false, so a lane of a batched
@@ -51,7 +51,7 @@ import torch
 
 from .. import config, trace
 from ..lanes import hyperparameters, with_buffers
-from ..ops import gb_prior, pl_fused
+from ..ops import gb_prior, ml_vamp_finish, pl_fused
 from ..utils import integration
 from .mesh import all_done, map_tree, stop_groups
 
@@ -62,7 +62,8 @@ COUNTERS = ((pl_fused.pl_forward_message, "launches"),
             (pl_fused.pl_posterior, "launches"),
             (integration, "nodes_evaluated"),
             (gb_prior.gb_posterior, "launches"),
-            (gb_prior.gb_message, "launches"))
+            (gb_prior.gb_message, "launches"),
+            (ml_vamp_finish.ml_vamp_finish, "launches"))
 
 
 def start_flags(B, device):
@@ -72,25 +73,6 @@ def start_flags(B, device):
             "conv": torch.zeros(lanes, dtype=torch.bool, device=device),
             "done": torch.zeros(lanes, dtype=torch.bool, device=device),
             "count": torch.zeros((), dtype=torch.int64, device=device)}
-
-
-def advance(flags, active, converged, stop):
-    """The flags after an iteration, in place: ``n_iter`` of the lanes that
-    were ``active`` (not done before it), ``conv`` where their stop
-    criterion fired (distinct from ``done``, which also latches on
-    ``stop``: a rollback or a step that is not finite), and ``count``."""
-    count = flags["count"]
-    torch.where(active, count + 1, flags["n_iter"], out=flags["n_iter"])
-    flags["conv"] |= active & converged
-    flags["done"] |= converged | stop
-    count += 1
-
-
-def select_(flag, new, old):
-    """``lanes.select(flag, new, old)`` written into ``old``; what a step
-    emits has the layout of the state it read."""
-    flag = flag.reshape(flag.shape + (1,) * (old.ndim - flag.ndim))
-    torch.where(flag, new, old, out=old)
 
 
 def why_eager(model, device, groups):

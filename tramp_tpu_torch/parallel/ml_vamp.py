@@ -36,8 +36,10 @@ topologies are not chains: use ``EPSolver``. ``dispatch_solver`` picks.
 
 The loop, its flags and frozen lanes, and its replay as a CUDA graph on
 the card (one launch where the eager iteration makes about 260) are
-``parallel/loop.py``'s. Its iteration here (``MLVAMPSolver._iterate``): a
-step that is not finite is dropped and ends its lane. A plan copies in the
+``parallel/loop.py``'s. Its iteration here (``MLVAMPSolver._iterate``): the
+step, then its finish (``ops.ml_vamp_finish``: the finite test, the frozen
+lanes and the stop metric, one hand-written kernel on the card); a step
+that is not finite is dropped and ends its lane. A plan copies in the
 terminal factor's tensors (the observation) and the loop invariants; the
 other factors' tensors (W and its SVD factors) are read where they lie, so
 a model whose operator moved is captured again.
@@ -46,11 +48,10 @@ import torch
 
 from ..base import compute_ab_new
 from ..channels import LinearChannel
-from ..lanes import lane_count, lane_values, model_lanes, per_lane
+from ..lanes import lane_count, lane_values, model_lanes
 from ..likelihoods import GaussianLikelihood
-from .loop import (
-    SolverLoop, advance, leaves, select_, start_flags, tensor_fields,
-)
+from ..ops.ml_vamp_finish import ml_vamp_finish, ratio
+from .loop import SolverLoop, start_flags, tensor_fields
 from .mesh import map_tree, whole_batch
 
 
@@ -109,11 +110,6 @@ def _lin_bwd(lin, az, bz, ax, tx, tz):
         rz = bz / az + lin._mm(lin.V, m - tz / az, lanes=lanes)
     vz = lin.compute_backward_variance(az, ax)
     return rz, vz
-
-
-def _norm(x, B):
-    "The root mean square of ``x``, one per lane."
-    return torch.sqrt(per_lane(x**2, B).mean(-1))
 
 
 class MLVAMPSolver(SolverLoop):
@@ -274,8 +270,10 @@ class MLVAMPSolver(SolverLoop):
             msgs[L - 1] = m
         return (tuple(msgs), txs)
 
-    def _metric(self, carry, inv):
-        "Per-interface posterior means (the engine's 'r' stop metric)."
+    def _sides(self, carry, inv):
+        """(fa, ba, fb, bb) of every interface the stop metric reads: the
+        carry's messages, the pinned terminal's from ``inv``; the forward
+        slot the loop does not update is left out."""
         L = self.L
         pin = inv["pin"]
         out = []
@@ -283,13 +281,14 @@ class MLVAMPSolver(SolverLoop):
             if i == L - 1 and self._skip_fwd_terminal:
                 continue  # fwd slot not updated inside the loop
             if pin is not None and i == L - 1:
-                a = m["fa"] + pin["a"]
-                b = m["fb"] + pin["b"]
+                out.append((m["fa"], pin["a"], m["fb"], pin["b"]))
             else:
-                a = m["fa"] + m["ba"]
-                b = m["fb"] + m["bb"]
-            out.append(b / torch.clamp(a, min=torch.finfo(a.dtype).tiny))
-        return tuple(out)
+                out.append((m["fa"], m["ba"], m["fb"], m["bb"]))
+        return out
+
+    def _metric(self, carry, inv):
+        "Per-interface posterior means (the engine's 'r' stop metric)."
+        return tuple(ratio(*side) for side in self._sides(carry, inv))
 
     def _init(self, model, B=None):
         """The zero carry, with B lanes; the scalar a-inits are broadcast to
@@ -343,40 +342,24 @@ class MLVAMPSolver(SolverLoop):
 
     def _start(self, model, inv, B, carry):
         """The loop's state before its first iteration, which ``_iterate``
-        updates in place: the zero carry, or a copy of ``carry``, the
-        posterior means and the flags."""
+        updates in place: the zero carry, or a contiguous copy of ``carry``
+        (the layout the finish's kernel writes), the posterior means and
+        the flags."""
         carry = (self._init(model, B) if carry is None
-                 else map_tree(torch.clone, carry))
+                 else map_tree(lambda t: t.clone(
+                     memory_format=torch.contiguous_format), carry))
         r = list(self._metric(carry, inv))
         return {"carry": carry, "metric": r,
                 "flags": start_flags(B, r[0].device)}
 
     def _iterate(self, model, inv, B, loop, tol):
         """One iteration of the loop, in place on ``loop`` (``_start``):
-        the sweep, the finite test, the frozen lanes, the stop metric and
-        the flags, all on the device."""
-        carry, r, flags = loop["carry"], loop["metric"], loop["flags"]
+        the sweep, then its finish (the finite test, the frozen lanes, the
+        stop metric) and the flags, all on the device."""
+        carry = loop["carry"]
         new = self._step(model, carry, inv)
-        ok = torch.stack([torch.isfinite(per_lane(x, B)).all(-1)
-                          for x in leaves(new)]).all(0)
-        # a step that is not finite is dropped and ends its lane; a lane
-        # that is done is frozen (without lanes the loop ends with it)
-        active = ~flags["done"]
-        keep = ok if B is None else ok & active
-        for n, o in self._pairs(new, carry):
-            if n is not o:
-                select_(keep, n, o)
-        new_r = self._metric(carry, inv)
-        delta = torch.stack([
-            _norm(n - o, B) / torch.clamp(
-                _norm(n, B), min=torch.finfo(n.dtype).tiny)
-            for n, o in zip(new_r, r)]).amax(0)
-        converged = (delta < tol) & (flags["count"] > 0)
-        # a frozen lane's carry is unchanged, so its means computed again
-        # are those it had, bit for bit: the copy keeps them
-        for n, o in zip(new_r, r):
-            o.copy_(n)
-        advance(flags, active, converged, ~ok)
+        ml_vamp_finish(list(self._pairs(new, carry)), self._sides(carry, inv),
+                       loop["metric"], loop["flags"], B, tol)
 
     def _copied(self, model):
         """What a plan copies in: the terminal factor's tensors; W and the

@@ -34,9 +34,10 @@ import torch
 from .. import config
 from ..algos import ExpectationPropagation, StateEvolution
 from ..lanes import (
-    lane_precision, lane_values, model_lanes, select, stack_models, to_lanes,
+    advance, lane_precision, lane_values, model_lanes, select, select_,
+    stack_models, to_lanes,
 )
-from .loop import SolverLoop, advance, select_, start_flags, tensor_fields
+from .loop import SolverLoop, start_flags, tensor_fields
 from .mesh import map_tree, shard_batched_model, whole_batch
 
 def stack_pytrees(trees, device=None, dtype=None):

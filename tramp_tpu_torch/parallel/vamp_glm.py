@@ -34,10 +34,11 @@ import torch
 from .. import config
 from ..channels import LinearChannel
 from ..lanes import (
-    last_axis, lane_count, lane_mean, lane_values, model_lanes, per_lane,
+    advance, last_axis, lane_count, lane_mean, lane_values, model_lanes,
+    per_lane, select_,
 )
 from ..likelihoods import GaussianLikelihood
-from .loop import SolverLoop, advance, select_, start_flags
+from .loop import SolverLoop, start_flags
 from .mesh import whole_batch
 
 
